@@ -1,0 +1,126 @@
+"""Where the serving time goes on the card: a torch.profiler breakdown of
+one prefill and of steady-state decode steps.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      [--cache-mode paged|paged_int8] [--steps 8] [--full-width]
+
+Builds deepseek-7b (full width and depth with ``--full-width``, else the
+smoke variant) in bf16 with seeded random weights, fills 4 slots with
+1024-token prompts through ``prefill_into_slot`` (the geometry of
+``chip_smoke.py``'s serve phase), then times ``--steps`` decode steps.  For
+each phase it prints one JSON line: wall time (host clock around an
+unprofiled loop that ends in a synchronize), device busy time (sum of the
+CUDA kernels' durations in the trace of a second, profiled loop), the idle
+share (1 - busy / wall) and the kernels that took the most device time.
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core.amp import make_policy
+from repro_torch.models import transformer as T
+from repro_torch.serve.serve_step import prefill_into_slot
+
+BATCH, PROMPT_LEN, PAGE_SIZE, SEED = 4, 1024, 16, 0
+
+
+def _kernel_times(prof):
+    """(total device ms, [(kernel name, ms, count)] by device time) over
+    the CUDA kernel events of a trace."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def _phase(name, fn, iters):
+    """Wall time from an unprofiled loop (the profiler's host tracing slows
+    every op), device busy time from a second, profiled loop."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, rows = _kernel_times(prof)
+    busy /= iters
+    out = {"phase": name, "wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall if wall else None,
+           "top_kernels": [{"name": k[:90], "ms_per_iter": ms / iters,
+                            "launches_per_iter": n / iters}
+                           for k, ms, n in rows[:10]]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--cache-mode", default="paged",
+                    choices=["paged", "paged_int8"])
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card: no CUDA device")
+    cfg = get_config("deepseek-7b")
+    if not args.full_width:
+        cfg = smoke_variant(cfg)
+    pol = make_policy("bf16")
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device="cuda")
+    max_len = PROMPT_LEN + 2 * args.steps + 16  # timed + profiled steps
+    mp = -(-max_len // PAGE_SIZE)
+    paged = T.PagedCacheConfig(page_size=PAGE_SIZE,
+                               num_pages=1 + BATCH * mp,
+                               quantized=args.cache_mode == "paged_int8")
+    state = T.init_decode_state(cfg, BATCH, max_len, pol.compute_dtype,
+                                paged=paged, device="cuda")
+    T.set_block_tables(state, 1 + np.arange(BATCH * mp, dtype=np.int32)
+                       .reshape(BATCH, mp))
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT_LEN),
+        dtype=np.int32)).cuda()
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "arch": cfg.arch_id, "full_width": args.full_width,
+                      "cache_mode": args.cache_mode, "batch": BATCH,
+                      "prompt_len": PROMPT_LEN}), flush=True)
+    for slot in range(1, BATCH):
+        prefill_into_slot(params, toks[slot:slot + 1], PROMPT_LEN,
+                          state, slot, cfg, pol)
+    # slot 0's prefill is the measured one (the others warmed up the path);
+    # prefilling it again rewrites the same pages
+    _phase("prefill", lambda: prefill_into_slot(
+        params, toks[:1], PROMPT_LEN, state, 0, cfg, pol), 3)
+    state["pos"].fill_(PROMPT_LEN)
+    cur = torch.zeros((BATCH, 1), dtype=torch.int64, device="cuda")
+
+    def step():
+        logits, _ = T.decode_step(params, cur, state, cfg, pol)
+        cur.copy_(logits.argmax(-1, keepdim=True))
+
+    step()
+    _phase("decode_step", step, args.steps)
+
+
+if __name__ == "__main__":
+    main()
