@@ -29,8 +29,32 @@
    call's own inputs at the tolerance above (30 flash calls at the full
    (1, 32, 1024, 128) shape, 120 paged calls), and the logits of the two
    paths must agree within the bound stated for each dtype.
-5. Prints one JSON line of kernel results, then, as the last line,
+5. Training kernel phase: the four kernels of the BERT training path
+   against their plain versions -- flash backward (dq and dk/dv kernels)
+   over causal x window x softcap in f32 and bf16 with ragged lengths, in
+   the (B, H, S, Dh) and the model's (B, S, H, Dh) layouts; LayerNorm and
+   bias-GELU at the reference test shapes; LAMB at n in {128, 1000, 65553}
+   -- then at the path shapes (flash forward and backward bidirectional at
+   (64, 16, 128, 64) and (32, 16, 512, 64) bf16, LayerNorm 8192 x 1024,
+   bias-GELU 8192 x 4096, LAMB over the largest leaf group), timed as
+   above beside the plain version, the bound and, where one PyTorch call
+   computes the same function, that call (flash backward: the backward of
+   ``scaled_dot_product_attention``; LayerNorm: ``F.layer_norm``).
+6. Training phase, after the serve phases have freed their memory:
+   ``launch/pretrain_bert.py`` at full width and depth (bert-large, bf16,
+   LAMB, accumulation 2, ``--batch 128``: 4 phase-1 steps of 128 x 128
+   tokens and 1 phase-2 step of 64 x 512), launch counts zeroed before and
+   read after (every kernel of the path must have launched), every loss
+   finite.  Then one step from a fresh state on a phase-1 batch through the
+   kernels and through the plain versions, in f32 and in bf16: loss, every
+   gradient group and the master-weight update must agree within the bound
+   stated for each dtype, and every kernel call of the kernel path is held
+   against its plain version on that call's own inputs.
+7. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
+
+``--only kernels`` stops after the kernel phases (a quick check of a new
+kernel); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -41,6 +65,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -56,6 +81,7 @@ DEVICE = "cuda"
 
 # full-width serve geometry
 BATCH, PREFILL_LEN, MAX_LEN, PAGE_SIZE = 4, 1024, 1040, 16
+SERVE_KERNELS = ("flash_fwd", "paged_decode")
 N_REQUESTS = 8
 # kernel-path vs plain-path logits (relative L2 over prefill + 4 decode
 # steps) of the full-depth model.  In f32 the two differ only by summation
@@ -119,10 +145,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def compare(got, want, dtype):
     """(max abs error, |got - want| <= tol + tol * |want| everywhere) with
-    rtol = atol = TOL[dtype]."""
-    tol = TOL[dtype]
+    rtol = atol = TOL[dtype] (``dtype`` None: the tolerance of got's)."""
+    tol = TOL[dtype or got.dtype]
     g, w = got.float(), want.float()
     return max_err(g, w), bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in fp32 (0 when both are 0)."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
 
 
 def check_close(name: str, got, want, dtype) -> float:
@@ -133,6 +165,22 @@ def check_close(name: str, got, want, dtype) -> float:
         raise AssertionError(f"{name}: outside rtol = atol = {TOL[dtype]} "
                              f"(max abs err {err:.3e})")
     return err
+
+
+def bound(nbytes, flops, dtype=torch.bfloat16):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
+          library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -184,21 +232,13 @@ def flash_phase(ops, timer):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = timer.ms(lambda: sdpa(q, k, v, is_causal=True))
     item = q.element_size()
-    nbytes = 4 * q.numel() * item + lse.numel() * 4   # q, k, v, out, lse
-    flops = 4 * b * h * dh * (s * (s + 1) // 2)       # unmasked pairs only
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bd = bound(4 * q.numel() * item + lse.numel() * 4,  # q, k, v, out, lse
+               4 * b * h * dh * (s * (s + 1) // 2))     # unmasked pairs only
     log(f"flash (1, 32, {s}, 128) bf16 causal: max err {err:.3e}, kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}); "
-        f"kernel {spread(times)}")
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_fwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:132",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+        f"{bd[0]:.4f} ms ({bd[1]}); kernel {spread(times)}")
+    return entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:132", err,
+                 ms, plain_ms, *bd, lib_ms)
 
 
 def edge_lens(seed: int, b: int, mp: int) -> np.ndarray:
@@ -301,20 +341,13 @@ def paged_phase(ops, timer):
                   + (2 * live_pages * kvh * 4 if quant else 0)
                   + live_pages * 4 + 2 * q.numel() * q.element_size()
                   + kvl.numel() * 4)
-        flops = 4 * live_tok * q.shape[1] * dh
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bd = bound(nbytes, 4 * live_tok * q.shape[1] * dh, dtype)
         log(f"{name} B={BATCH} (32 heads x 128, kv_len {lens.tolist()}): "
             f"max err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" bound {max(t_bytes, t_ops):.4f} ms; kernel {spread(times)}")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_decode.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:160",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            f" bound {bd[0]:.4f} ms; kernel {spread(times)}")
+        entries.append(entry(name, "paged_decode.cu",
+                             "paged_attention.py:160", err, ms, plain_ms,
+                             *bd, None))
     return entries
 
 
@@ -350,8 +383,8 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode):
             sched.allocator.available != sched.num_pages - 1:
         raise AssertionError(f"{mode}: pages not all returned "
                              f"({sched.allocator.in_use} in use)")
-    for k, n in counts.items():
-        if n <= 0:
+    for k in SERVE_KERNELS:
+        if counts[k] <= 0:
             raise AssertionError(f"{mode}: kernel {k} never launched")
     step_ms = 1e3 * st.decode_s / max(st.decode_steps - 1, 1)
     log(f"serve {mode}: {len(done)} requests, {st.prefills} prefills, "
@@ -366,7 +399,10 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode):
 def held_against_plain(ops, dtype, record):
     """While active, every kernel call through ``ops`` (impl None) is
     followed by its plain version on the same inputs; ``record[kernel]``
-    collects (max abs error, within TOL[dtype]) of each call's outputs."""
+    collects (max abs error, within TOL[dtype], largest relative L2
+    error) of each call's outputs.  ``dtype`` None takes the tolerance of
+    each call's first argument (the training path mixes bf16 activations
+    and the fp32 optimizer state)."""
     saved = {name: getattr(ops, name) for name in record}
 
     def held(name, fn):
@@ -375,12 +411,13 @@ def held_against_plain(ops, dtype, record):
             if impl is None:
                 kw.pop("out", None)
                 want = fn(*args, impl="torch", **kw)
-                if name == "flash_attention":   # (out, lse)
-                    errs = [compare(g, w, dtype) for g, w in zip(got, want)]
-                else:
-                    errs = [compare(got, want, dtype)]
+                tol = dtype or args[0].dtype
+                pairs = list(zip(got, want)) if isinstance(got, tuple) \
+                    else [(got, want)]     # tuples: e.g. flash's (out, lse)
+                errs = [compare(g, w, tol) for g, w in pairs]
                 record[name].append((max(e for e, _ in errs),
-                                     all(ok for _, ok in errs)))
+                                     all(ok for _, ok in errs),
+                                     max(rel_l2(g, w) for g, w in pairs)))
             return got
         return call
 
@@ -433,9 +470,9 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
            "rel_l2": float((a - b).norm() / b.norm()),
            "max_abs": float((a - b).abs().max()),
            "calls": {k: len(v) for k, v in record.items()},
-           "calls_outside": {k: sum(not ok for _, ok in v)
+           "calls_outside": {k: sum(not ok for _, ok, _ in v)
                              for k, v in record.items()},
-           "call_max_err": {k: max((e for e, _ in v), default=0.0)
+           "call_max_err": {k: max((e for e, _, _ in v), default=0.0)
                             for k, v in record.items()}}
     log(f"path parity {mode} {pol.compute_dtype}: prefill + 4 decode logits,"
         f" kernels vs plain: rel L2 {res['rel_l2']:.3e} (bound "
@@ -462,18 +499,377 @@ def check_parity(res: dict) -> None:
         raise AssertionError(f"{mode}: kernel path departs from the plain "
                              f"path (rel L2 {res['rel_l2']:.3e})")
 
+# ---------------------------------------------------------------------------
+# training kernel phase
+# ---------------------------------------------------------------------------
 
-def main() -> int:
+# BERT-large's attention shapes: phase 1 micro-batch 64 x 128, phase 2
+# 32 x 512, 16 heads of 64
+TRAIN_ATTN = ((64, 16, 128, 64), (32, 16, 512, 64))
+TRAIN_ROWS, D_MODEL, D_FF = 64 * 128, 1024, 4096
+
+
+def flash_bwd_phase(ops, fa, timer):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+
+    def rand(shape, dtype, model_layout=False):
+        if model_layout:   # (B, S, H, Dh) memory seen as (B, H, S, Dh)
+            b, h, s, d = shape
+            return torch.randn((b, s, h, d), generator=gen, device=DEVICE
+                               ).to(dtype).transpose(1, 2)
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    def check(tag, q, k, v, do, dtype, **kw):
+        out, lse = ops.flash_attention(q, k, v, **kw)
+        got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = ops.flash_attention_bwd(q, k, v, out, lse, do, impl="torch",
+                                       **kw)
+        torch.cuda.synchronize()
+        return max(check_close(f"{tag} d{n}", g, w, dtype)
+                   for g, w, n in zip(got, want, "qkv"))
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, shape in enumerate(((2, 4, 256, 64), (1, 2, 200, 128),
+                                   (1, 4, 130, 32))):
+            for causal in (True, False):
+                for window, softcap in ((0, 0.0), (64, 0.0), (0, 30.0),
+                                        (64, 30.0)):
+                    ml = (cases % 2 == 1)
+                    q, k, v, do = (rand(shape, dtype, ml) for _ in range(4))
+                    check(f"flash bwd {dtype} {shape} causal={causal} "
+                          f"window={window} softcap={softcap} "
+                          f"model_layout={ml}", q, k, v, do, dtype,
+                          causal=causal, window=window, softcap=softcap)
+                    cases += 1
+    log(f"flash backward small cases: {cases} agree with the plain version")
+
+    entries = {}
+    for shape in TRAIN_ATTN:
+        b, h, s, dh = shape
+        dtype = torch.bfloat16
+        q, k, v, do = (rand(shape, dtype, True) for _ in range(4))
+        out, lse = ops.flash_attention(q, k, v, causal=False)
+        want_out, want_lse = ops.flash_attention(q, k, v, causal=False,
+                                                 impl="torch")
+        fwd_err = check_close(f"flash fwd {shape} bidirectional", out,
+                              want_out, dtype)
+        check_close(f"flash fwd {shape} bidirectional lse", lse, want_lse,
+                    dtype)
+        fwd_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=False))
+        err = check(f"flash bwd {shape} bidirectional", q, k, v, do, dtype,
+                    causal=False)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        dq_ms = timer.times(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal=False))
+        dkv_ms = timer.times(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal=False))
+        plain_ms = timer.ms(lambda: ops.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=False, impl="torch"))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+        lib_ms = timer.ms(lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), do, retain_graph=True))
+        del sdpa_out
+        item, pairs = q.element_size(), b * h * s * s   # bidirectional
+        act = q.numel() * item
+        rows = b * h * s * 4                 # one f32 (B, H, S): lse, delta
+        dq_bound = bound(5 * act + 2 * rows, 6 * pairs * dh)
+        dkv_bound = bound(6 * act + 2 * rows, 8 * pairs * dh)
+        fwd_bound = bound(4 * act + rows, 4 * pairs * dh)
+        log(f"flash {shape} bf16 bidirectional: forward max err "
+            f"{fwd_err:.3e}, {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f}); "
+            f"backward max err {err:.3e}, dq kernel "
+            f"{float(np.mean(dq_ms)):.4f} ms (bound {dq_bound[0]:.4f}, "
+            f"{dq_bound[1]}), dkv kernel {float(np.mean(dkv_ms)):.4f} ms "
+            f"(bound {dkv_bound[0]:.4f}, {dkv_bound[1]}), plain backward "
+            f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms; dq "
+            f"{spread(dq_ms)}; dkv {spread(dkv_ms)}")
+        if shape == TRAIN_ATTN[0]:   # the row: the phase-1 shape
+            entries["flash_bwd_dq"] = entry(
+                "flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:272",
+                err, float(np.mean(dq_ms)), plain_ms, *dq_bound, lib_ms)
+            entries["flash_bwd_dkv"] = entry(
+                "flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:288",
+                err, float(np.mean(dkv_ms)), plain_ms, *dkv_bound, lib_ms)
+    return entries
+
+
+def layernorm_phase(ops, timer):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((64, 128), (33, 256), (256, 1024), (2, 17, 256)):
+            for pdtype in {torch.float32, dtype}:
+                d = shape[-1]
+                x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                sc = (1 + 0.1 * torch.randn(d, generator=gen,
+                                            device=DEVICE)).to(pdtype)
+                bi = (0.1 * torch.randn(d, generator=gen,
+                                        device=DEVICE)).to(pdtype)
+                for eps in (1e-6, 1e-12):
+                    got = ops.layernorm_fwd(x, sc, bi, eps=eps)
+                    want = ops.layernorm_fwd(x, sc, bi, eps=eps, impl="torch")
+                    torch.cuda.synchronize()
+                    for g, w, n in zip(got, want, ("y", "mean", "rstd")):
+                        check_close(f"layernorm {dtype} {shape} params "
+                                    f"{pdtype} eps={eps} {n}", g, w, dtype)
+                    cases += 1
+    log(f"layernorm small cases: {cases} agree with the plain version")
+    dtype = torch.bfloat16
+    x = torch.randn(TRAIN_ROWS, D_MODEL, generator=gen, device=DEVICE).to(dtype)
+    sc = (1 + 0.1 * torch.randn(D_MODEL, generator=gen, device=DEVICE)).to(dtype)
+    bi = (0.1 * torch.randn(D_MODEL, generator=gen, device=DEVICE)).to(dtype)
+    got = ops.layernorm_fwd(x, sc, bi, eps=1e-12)
+    want = ops.layernorm_fwd(x, sc, bi, eps=1e-12, impl="torch")
+    torch.cuda.synchronize()
+    err = max(check_close(f"layernorm path shape {n}", g, w, dtype)
+              for g, w, n in zip(got, want, ("y", "mean", "rstd")))
+    times = timer.times(lambda: ops.layernorm_fwd(x, sc, bi, eps=1e-12))
+    plain_ms = timer.ms(lambda: ops.layernorm_fwd(x, sc, bi, eps=1e-12,
+                                                  impl="torch"))
+    lib_ms = timer.ms(lambda: torch.nn.functional.layer_norm(
+        x, (D_MODEL,), sc, bi, 1e-12))
+    nbytes = 2 * x.numel() * 2 + 2 * D_MODEL * 2 + 2 * TRAIN_ROWS * 4
+    b = bound(nbytes, 8 * x.numel())
+    ms = float(np.mean(times))
+    log(f"layernorm ({TRAIN_ROWS}, {D_MODEL}) bf16: max err {err:.3e}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm "
+        f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); kernel "
+        f"{spread(times)}")
+    return entry("layernorm", "layernorm.cu", "layernorm.py:40", err, ms,
+                 plain_ms, *b, lib_ms)
+
+
+def bias_gelu_phase(ops, timer):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((64, 128), (100, 384), (7, 512), (1, 128), (300, 1024),
+                      (1280, 1024)):
+            x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            b = torch.randn(shape[-1], generator=gen, device=DEVICE).to(dtype)
+            got = ops.bias_gelu_fwd(x, b)
+            want = ops.bias_gelu_fwd(x, b, impl="torch")
+            torch.cuda.synchronize()
+            check_close(f"bias_gelu {dtype} {shape}", got, want, dtype)
+            cases += 1
+    log(f"bias_gelu small cases: {cases} agree with the plain version")
+    dtype = torch.bfloat16
+    x = torch.randn(TRAIN_ROWS, D_FF, generator=gen, device=DEVICE).to(dtype)
+    b = torch.randn(D_FF, generator=gen, device=DEVICE).to(dtype)
+    err = check_close("bias_gelu path shape", ops.bias_gelu_fwd(x, b),
+                      ops.bias_gelu_fwd(x, b, impl="torch"), dtype)
+    times = timer.times(lambda: ops.bias_gelu_fwd(x, b))
+    plain_ms = timer.ms(lambda: ops.bias_gelu_fwd(x, b, impl="torch"))
+    bd = bound(2 * x.numel() * 2 + D_FF * 2, 20 * x.numel())
+    ms = float(np.mean(times))
+    log(f"bias_gelu ({TRAIN_ROWS}, {D_FF}) bf16: max err {err:.3e}, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
+        f"({bd[1]}), no single PyTorch call; kernel {spread(times)}")
+    return entry("bias_gelu", "bias_gelu.cu", "bias_gelu.py:42", err, ms,
+                 plain_ms, *bd, None)
+
+
+def lamb_phase(ops, timer, n_path):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+
+    def state(n):
+        w, g = (torch.randn(n, generator=gen, device=DEVICE)
+                for _ in range(2))
+        m = 0.1 * torch.randn(n, generator=gen, device=DEVICE)
+        v = (0.1 * torch.randn(n, generator=gen, device=DEVICE)).abs()
+        return w, g, m, v
+
+    kw = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    for n in (128, 1000, 65553):
+        for step in (1, 7):
+            args = state(n)
+            got = ops.lamb_moments(*args, step=step, **kw)
+            want = ops.lamb_moments(*args, step=step, impl="torch", **kw)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want, ("m", "v", "update")):
+                check_close(f"lamb n={n} step={step} {name}", g, w,
+                            torch.float32)
+    log("lamb small cases: 6 agree with the plain version")
+    args = state(n_path)
+    got = ops.lamb_moments(*args, step=3, **kw)
+    want = ops.lamb_moments(*args, step=3, impl="torch", **kw)
+    torch.cuda.synchronize()
+    err = max(check_close(f"lamb n={n_path} {name}", g, w, torch.float32)
+              for g, w, name in zip(got, want, ("m", "v", "update")))
+    del got, want
+    times = timer.times(lambda: ops.lamb_moments(*args, step=3, **kw))
+    plain_ms = timer.ms(lambda: ops.lamb_moments(*args, step=3,
+                                                 impl="torch", **kw))
+    bd = bound(28 * n_path, 15 * n_path, torch.float32)
+    ms = float(np.mean(times))
+    log(f"lamb n={n_path} (the largest leaf group): max err {err:.3e}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
+        f"({bd[1]}), no single PyTorch call; kernel {spread(times)}")
+    return entry("lamb_moments", "lamb_update.cu", "lamb_update.py:49", err,
+                 ms, plain_ms, *bd, None)
+
+
+# ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layernorm",
+                 "bias_gelu", "lamb_moments")
+TRAIN_ARGS = ["--full-width", "--steps", "5", "--batch", "128", "--accum",
+              "2", "--precision", "bf16", "--device", DEVICE, "--seed",
+              str(SEED)]
+# kernel path vs plain path of one training step from the same state on
+# the same batch, per dtype: |loss difference| / |loss|, the largest
+# relative L2 difference of a gradient group, and the relative L2
+# difference of the master weights' update (new - old).  In f32 the two
+# paths differ only by summation order.
+#
+# bf16, measured on the H100 (the seeds fix the data, so the readings
+# repeat): loss 1.3e-6, worst gradient group 5.0e-2 (pooler.w), update
+# 0.19.  The update is LAMB's first step, m / sqrt(v) = g / |g| per
+# element: wherever a bf16 gradient sits near 0 the two paths' signs
+# differ, so the update moves far more than the gradients.  The bf16
+# gradient and update bounds are about twice the readings, the loss bound
+# 1e-4; they catch gross faults only.  The tight checks of the bf16
+# kernels are the per-call ones below, and the f32 step holds the path.
+TRAIN_BOUND = {torch.float32: {"loss": 1e-5, "grad": 1e-3, "update": 1e-3},
+               torch.bfloat16: {"loss": 1e-4, "grad": 1e-1, "update": 0.4}}
+# per kernel call, the relative L2 error of each output against the plain
+# version on the same inputs.  The elementwise tolerance (TOL) is absolute
+# below |want| = 1, and training gradients are ~1e-5: this bound is what
+# holds them.  f32: summation order only, largest on LayerNorm's row means,
+# which sit near 0 (6.6e-5 on the H100); bf16: rounding to bf16 (2**-9
+# relative) and P and dS rounded to bf16 inside the flash backward (2.7e-3).
+CALL_REL_L2_BOUND = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+HELD = ("flash_attention", "flash_attention_bwd", "layernorm_fwd",
+        "bias_gelu_fwd", "lamb_moments")
+
+
+def train_run(ops, pretrain_bert, workdir):
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    cfg, state, history = pretrain_bert.run(TRAIN_ARGS
+                                            + ["--workdir", str(workdir)])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for r in history:
+        log(f"train {r['phase']} step {r['step']}: loss {r['loss']:.4f} "
+            f"(mlm {r['mlm_loss']:.4f}, nsp {r['nsp_loss']:.4f}), grad norm "
+            f"{r['grad_norm']:.4f}, lr {r['lr']:.3g}, {r['ms']:.1f} ms")
+    if [r["phase"] for r in history] != ["phase1"] * 4 + ["phase2"]:
+        raise AssertionError("train: expected 4 phase-1 steps and 1 phase-2 "
+                             "step")
+    bad = [r for r in history if not np.isfinite(r["loss"]) or r["skipped"]]
+    if bad:
+        raise AssertionError(f"train: non-finite or skipped steps {bad}")
+    for k in TRAIN_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"train: kernel {k} never launched")
+    log(f"train bert-large full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, launches {counts}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
+
+
+def train_parity(ops, api, ts, TrainConfig, ShardedLoader, make_policy,
+                 cfg, workdir, precision) -> dict:
+    """One step from a fresh state on the first phase-1 batch, through the
+    kernels (every call held against its plain version on its inputs) and
+    through the plain versions."""
+    pol = make_policy(precision)
+    tcfg = TrainConfig(precision=precision, accum_steps=2, optimizer="lamb",
+                       learning_rate=1e-4 * 20, total_steps=4,
+                       warmup_steps=2)
+    batch = api.to_device(next(ShardedLoader(
+        str(workdir / "phase1"), worker=0, n_workers=1, batch=128,
+        seed=SEED)), DEVICE)
+    params = api.init_params(cfg, seed=SEED + 1, device=DEVICE)
+    record = {name: [] for name in HELD}
+    got = {}
+    for impl in (None, "torch"):
+        state = ts.init_train_state(params, pol, tcfg)
+        old = {p: t.clone() for p, t in state.opt.master.items()}
+        with (held_against_plain(ops, None, record) if impl is None
+              else contextlib.nullcontext()):
+            loss, grads, _ = ts.step_gradients(state, batch, cfg=cfg,
+                                               tcfg=tcfg, policy=pol,
+                                               impl=impl)
+            state, metrics = ts.train_step_fn(state, batch, cfg=cfg,
+                                              tcfg=tcfg, policy=pol,
+                                              impl=impl)
+        got[impl] = (float(loss), grads, {p: state.opt.master[p] - old[p]
+                                          for p in old}, metrics)
+        del state, old
+        torch.cuda.empty_cache()
+    del params
+    (lk, gk, uk, mk), (lp, gp, up, mp) = got[None], got["torch"]
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))
+    grad_rel = {p: rel(gk[p], gp[p]) for p in gp}
+    worst = max(grad_rel, key=grad_rel.get)
+    res = {"dtype": pol.compute_dtype, "loss_rel": abs(lk - lp) / abs(lp),
+           "loss": (lk, lp), "grad_rel": grad_rel[worst],
+           "grad_worst": ".".join(worst),
+           "update_rel": max(rel(uk[p], up[p]) for p in up),
+           "finite": all(bool(torch.isfinite(g).all()) for g in gk.values()),
+           "calls": {k: len(v) for k, v in record.items()},
+           "calls_outside": {k: sum(not ok for _, ok, _ in v)
+                             for k, v in record.items()},
+           "call_max_err": {k: max((e for e, _, _ in v), default=0.0)
+                            for k, v in record.items()},
+           "call_max_rel": {k: max((r for _, _, r in v), default=0.0)
+                            for k, v in record.items()}}
+    log(f"train parity {precision}: loss {lk:.6f} (kernels) vs {lp:.6f} "
+        f"(plain), rel {res['loss_rel']:.3e}; worst gradient group "
+        f"{res['grad_worst']} rel L2 {res['grad_rel']:.3e}; master update "
+        f"rel L2 {res['update_rel']:.3e} (bounds "
+        f"{TRAIN_BOUND[pol.compute_dtype]}); each kernel call vs plain on "
+        f"its inputs: " + ", ".join(
+            f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
+            f"err {res['call_max_err'][k]:.3e}, max rel L2 "
+            f"{res['call_max_rel'][k]:.3e}" for k in record))
+    return res
+
+
+def check_train_parity(res: dict) -> None:
+    tag, bd = f"train parity {res['dtype']}", TRAIN_BOUND[res["dtype"]]
+    if not res["finite"]:
+        raise AssertionError(f"{tag}: non-finite kernel-path gradients")
+    for k, n in res["calls"].items():
+        if n == 0:
+            raise AssertionError(f"{tag}: {k} was never called")
+        if res["calls_outside"][k]:
+            raise AssertionError(f"{tag}: {res['calls_outside'][k]} of {n} "
+                                 f"{k} calls disagree with the plain version")
+        if not res["call_max_rel"][k] <= CALL_REL_L2_BOUND[res["dtype"]]:
+            raise AssertionError(f"{tag}: a {k} call departs from the plain "
+                                 f"version (rel L2 {res['call_max_rel'][k]:.3e})")
+    for key, name in (("loss_rel", "loss"), ("grad_rel", "grad"),
+                      ("update_rel", "update")):
+        if not res[key] <= bd[name]:
+            raise AssertionError(f"{tag}: {name} departs from the plain path "
+                                 f"({res[key]:.3e} > {bd[name]})")
+
+
+def main(argv=None) -> int:
+    only_kernels = (argv if argv is not None else sys.argv[1:]) == [
+        "--only", "kernels"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core.amp import make_policy
+    from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import pretrain_bert
+    from repro_torch.models import api
     from repro_torch.models import transformer as T
     from repro_torch.serve import scheduler as sched_mod
     from repro_torch.serve import serve_step
+    from repro_torch.train import train_step as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -488,10 +884,23 @@ def main() -> int:
     log(f"built {sorted(report) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    bert = get_config("bert-large")
+    # the largest LAMB leaf group: blocks.mlp.wi (and .wo), 24 x 1024 x 4096
+    largest = bert.n_layers * bert.d_model * bert.d_ff
     timer = Timer()
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
+    train_entries = flash_bwd_phase(ops, fa, timer)
+    train_entries["layernorm"] = layernorm_phase(ops, timer)
+    train_entries["bias_gelu"] = bias_gelu_phase(ops, timer)
+    train_entries["lamb_moments"] = lamb_phase(ops, timer, largest)
+    entries += [train_entries[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
+                                           "layernorm", "bias_gelu",
+                                           "lamb_moments")]
     del timer
     torch.cuda.empty_cache()
+    if only_kernels:
+        log("kernel phases only: no serve or training phase, no result")
+        return 2
 
     cfg = get_config("deepseek-7b")
     pol = make_policy("bf16")
@@ -517,15 +926,32 @@ def main() -> int:
     for mode in ("paged", "paged_int8"):
         check_parity(path_parity(T, serve_step, ops, cfg, params, pol32,
                                  mode))
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        " GiB")
+    del params
+    torch.cuda.empty_cache()
+    log(f"peak device memory (serving) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
+        workdir = Path(tmp)
+        launches["train"] = train_run(ops, pretrain_bert, workdir)
+        torch.cuda.empty_cache()
+        for precision in ("f32", "bf16"):
+            check_train_parity(train_parity(
+                ops, api, ts, TrainConfig, ShardedLoader, make_policy, bert,
+                workdir, precision))
+            torch.cuda.empty_cache()
 
     by_name = {
         "flash_fwd": launches["paged"]["flash_fwd"]
-        + launches["paged_int8"]["flash_fwd"],
+        + launches["paged_int8"]["flash_fwd"] + launches["train"]["flash_fwd"],
         "paged_decode": launches["paged"]["paged_decode"],
         "paged_decode_int8": launches["paged_int8"]["paged_decode"],
     }
+    by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
+    log(f"flash_fwd launches: serve {launches['paged']['flash_fwd']} + "
+        f"{launches['paged_int8']['flash_fwd']}, train "
+        f"{launches['train']['flash_fwd']}")
     for e in entries:
         e["launches"] = by_name[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

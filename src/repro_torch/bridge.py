@@ -1,13 +1,19 @@
 """Weights from the JAX package's parameter layout into the port's, and back.
 
-The JAX ``init_model`` returns a pytree whose ``params["blocks"]`` is a
-tuple, one entry per ``block_pattern`` position, of dicts whose leaves carry
-a leading ``n_blocks`` axis (``jax.vmap(init_one)``).  Layer ``i`` of the
-port is block ``i // len(pattern)`` at position ``i % len(pattern)``, the
-order in which the reference's scan runs them.  Leaf layouts are kept as
-they are (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ...), so the conversion is
-lossless.  Callers pass numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)``); nothing here imports JAX.
+The port keeps ``params["blocks"]`` as a list of per-layer dicts.  The
+reference has two layouts:
+
+* decoders (``transformer.init_model``): a tuple, one entry per
+  ``block_pattern`` position, of dicts whose leaves carry a leading
+  ``n_blocks`` axis (``jax.vmap(init_one)``).  Layer ``i`` of the port is
+  block ``i // len(pattern)`` at position ``i % len(pattern)``, the order in
+  which the reference's scan runs them.
+* BERT (``bert.init_bert``): one dict whose leaves carry a leading
+  ``n_layers`` axis.
+
+Leaf layouts are kept as they are (``wq`` (d, H, Dh), ``wo`` (H, Dh, d),
+...), so the conversion is lossless.  Callers pass numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -32,31 +38,37 @@ def _to_numpy(tree):
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, device="cuda",
                     dtype=torch.float32) -> dict:
-    """JAX parameter pytree (numpy leaves) -> the port's parameter dict."""
+    """JAX parameter pytree (numpy leaves) -> the port's parameter dict.
+    Takes both layouts of ``params["blocks"]`` (see the module
+    docstring)."""
     pattern = cfg.block_pattern
     stacked = np_params["blocks"]
-    if len(stacked) != len(pattern):
+    if isinstance(stacked, dict):   # BERT: one dict stacked over layers
+        layers = [_index(stacked, i) for i in range(cfg.n_layers)]
+    elif len(stacked) != len(pattern):
         raise ValueError(f"{len(stacked)} stacked block groups for a "
                          f"{len(pattern)}-position block_pattern")
-    layers = []
-    for bi in range(cfg.n_blocks):
-        for pi in range(len(pattern)):
-            one = _index(stacked[pi], bi)
-            layers.append(_to_torch(one, device, dtype))
+    else:
+        layers = [_index(stacked[pi], bi) for bi in range(cfg.n_blocks)
+                  for pi in range(len(pattern))]
     out = {k: _to_torch(v, device, dtype) for k, v in np_params.items()
            if k != "blocks"}
-    out["blocks"] = layers
+    out["blocks"] = [_to_torch(one, device, dtype) for one in layers]
     return out
 
 
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The inverse of ``params_from_jax``: float32 numpy leaves with the
-    blocks restacked as the JAX package lays them out."""
+    blocks restacked as the JAX package lays them out (one stacked dict for
+    an encoder-only model, else one per pattern position)."""
     npos = len(cfg.block_pattern)
     layers = [_to_numpy(p) for p in params["blocks"]]
-    stacked = tuple(
-        _stack([layers[bi * npos + pi] for bi in range(cfg.n_blocks)])
-        for pi in range(npos))
+    if cfg.is_encoder_only:
+        stacked = _stack(layers)
+    else:
+        stacked = tuple(
+            _stack([layers[bi * npos + pi] for bi in range(cfg.n_blocks)])
+            for pi in range(npos))
     out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = stacked
     return out

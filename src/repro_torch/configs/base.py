@@ -1,8 +1,8 @@
-"""Model configuration dataclasses (copy of ``repro/configs/base.py``).
+"""Model and run configuration dataclasses (copy of ``repro/configs/base.py``).
 
-The port keeps its own copy so that it never imports the JAX package.  Only
-what the serving slice needs is carried: ``ModelConfig`` (all fields, so a
-reference config reads the same here) and ``DecodeCaps``.
+The port keeps its own copy so that it never imports the JAX package.
+Carried: ``ModelConfig`` (all fields, so a reference config reads the same
+here), ``DecodeCaps``, ``InputShape`` and ``TrainConfig``.
 """
 from __future__ import annotations
 
@@ -133,13 +133,73 @@ class ModelConfig:
         return tuple(self.block_pattern) * self.n_blocks
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention decoder."""
+        """Analytic parameter count of a dense attention model, counted as
+        the reference counts it: token embedding, learned positions, an
+        untied LM head for decoders (not for encoder-only models), one
+        final norm, and per layer two norms, attention and the MLP."""
         d, v = self.d_model, self.vocab_size
         total = v * d + d
-        if not self.tie_embeddings:
+        if self.max_position:
+            total += self.max_position * d
+        if not self.tie_embeddings and not self.is_encoder_only:
             total += d * v
         attn = (d * self.n_heads * self.head_dim
                 + 2 * d * self.n_kv_heads * self.head_dim
                 + self.n_heads * self.head_dim * d)
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
         mlp = (3 if self.mlp_kind in ("swiglu", "geglu") else 2) * d * self.d_ff
         return total + self.n_layers * (2 * d + attn + mlp)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training knobs (copy of the reference's ``TrainConfig``, same field
+    names and defaults).
+
+    The port trains on one card with the serial accumulation schedule.
+    The fields of the data-parallel exchange, gradient compression and the
+    overlapped drain exist so that a reference config reads the same here,
+    but ``check_supported`` raises when one of them is set to anything but
+    its default, and for ``optimizer="adamw"``.  The sharding fields
+    (``fsdp``, ``shard_grads``, ``pure_dp``) change nothing on one device,
+    as in the reference on a one-device mesh.
+    """
+    precision: str = "bf16"            # f32 | bf16 | f16
+    accum_steps: int = 4
+    collective_strategy: str = "psum"
+    bucket_bytes: int = 25 * 2 ** 20
+    grad_compression: str = "none"
+    overlap_exchange: bool = False
+    optimizer: str = "lamb"
+    learning_rate: float = 1e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    remat: bool = True
+    fsdp: bool = True
+    shard_grads: bool = False
+    pure_dp: bool = False
+    moe_impl: str = "a2a"
+    seed: int = 0
+
+    def check_supported(self) -> None:
+        """Raise for the knobs that belong to later slices."""
+        later = {"collective_strategy": "psum", "grad_compression": "none",
+                 "overlap_exchange": False, "optimizer": "lamb"}
+        for name, default in later.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={getattr(self, name)!r}: the port "
+                    "trains on one card with LAMB (the data-parallel "
+                    "exchange, compression, overlap and AdamW come with "
+                    "later slices)")

@@ -6,6 +6,20 @@ kernel cannot take it; a CPU tensor goes to the plain PyTorch version in
 error.  ``impl="torch"`` runs the plain version on any device: it exists for
 the tests and ``chip_smoke.py``, which hold the kernels against it on the
 card.
+
+Two layers:
+
+* one dispatcher per kernel (``flash_attention``, ``flash_attention_bwd``,
+  ``layernorm_fwd``, ``bias_gelu_fwd``, ``lamb_moments``,
+  ``paged_decode_attention``): kernel or plain version, nothing else.
+* the differentiable ops the models call (``flash_attention_vjp``,
+  ``layernorm``, ``bias_gelu``) and the optimizer's ``lamb_leaf_update``.
+  They call the dispatchers by name at call time, so a wrapper set on
+  this module in their place (``chip_smoke.py`` does, to hold every call
+  against the plain version) sees every launch.  The flash
+  backward is a kernel, as on the TPU; the JAX package has no LayerNorm
+  or bias-GELU backward kernel (XLA differentiates the forward), so those
+  backwards are plain PyTorch from the saved inputs and statistics.
 """
 from __future__ import annotations
 
@@ -13,10 +27,12 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import bias_gelu as _bg
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lamb_update as _lu
+from repro_torch.kernels import layernorm as _ln
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
-
 
 def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     if impl == "torch":
@@ -26,6 +42,10 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
                          "'torch' (plain version)")
     return x.is_cuda
 
+
+# ---------------------------------------------------------------------------
+# one dispatcher per kernel
+# ---------------------------------------------------------------------------
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, impl: Optional[str] = None,
@@ -43,6 +63,43 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return o, lse
 
 
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        impl: Optional[str] = None):
+    """FlashAttention-2 backward.  q, out, dout: (B, H, Sq, Dh); k, v:
+    (B, H, Skv, Dh) (the kernels take equal head counts); lse (B, H, Sq)
+    from the forward.  Returns (dq, dk, dv)."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if _use_kernel(q, impl):
+        return _fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+
+
+def layernorm_fwd(x, scale, bias, *, eps: float = 1e-6,
+                  impl: Optional[str] = None):
+    """Row LayerNorm.  Returns (y in x's dtype, mean, rstd) with the
+    statistics (rows,) float32."""
+    if _use_kernel(x, impl):
+        return _ln.layernorm(x, scale, bias, eps=eps)
+    return ref.layernorm_ref(x, scale, bias, eps)
+
+
+def bias_gelu_fwd(x, b, *, impl: Optional[str] = None):
+    """GELU-tanh(x + b) in fp32, rounded once to x's dtype."""
+    if _use_kernel(x, impl):
+        return _bg.bias_gelu(x, b)
+    return ref.bias_gelu_ref(x, b)
+
+
+def lamb_moments(w, g, m, v, *, step: int, b1=0.9, b2=0.999, eps=1e-6,
+                 wd=0.01, impl: Optional[str] = None):
+    """LAMB m', v' and the bias-corrected update direction, fp32."""
+    kw = dict(b1=b1, b2=b2, eps=eps, wd=wd, step=step)
+    if _use_kernel(w, impl):
+        return _lu.lamb_moments(w, g, m, v, **kw)
+    return ref.lamb_moments_ref(w, g, m, v, **kw)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_table, kv_len, *,
                            k_scale=None, v_scale=None, softcap: float = 0.0,
                            impl: Optional[str] = None):
@@ -58,11 +115,112 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, kv_len, *,
         v_scale=v_scale, softcap=softcap)
 
 
+# ---------------------------------------------------------------------------
+# differentiable ops
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward paired with the flash backward kernels, as
+    ``_flash_vjp`` pairs them in the reference (``repro/kernels/ops.py``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, impl):
+        kw = dict(causal=causal, window=window, softcap=softcap, impl=impl)
+        b, h, s, dh = q.shape
+        # the output in the model's (B, S, H, Dh) layout, seen as (B, H, S, Dh)
+        out = torch.empty((b, s, h, dh), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        out, lse = flash_attention(q, k, v, out=out, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(
+                st % 8 for st in dout.stride()[:3]):
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                               **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_vjp(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, impl: Optional[str] = None):
+    """Differentiable attention (out only).  q, k, v: (B, H, S, Dh) of any
+    strides with a contiguous head dim; out comes back as a (B, H, S, Dh)
+    view of a (B, S, H, Dh) tensor."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(softcap), impl)
+
+
+class _LayerNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, impl):
+        y, mean, rstd = layernorm_fwd(x, scale, bias, eps=eps,
+                                            impl=impl)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = ref.layernorm_bwd_ref(dy, x, scale, mean, rstd)
+        return dx, dscale, dbias, None, None
+
+
+def layernorm(x, scale, bias, *, eps: float = 1e-6,
+              impl: Optional[str] = None):
+    """Differentiable LayerNorm over the last dim: the kernel (or the plain
+    version) forward, the backward from its saved statistics."""
+    return _LayerNorm.apply(x.contiguous(), scale, bias, float(eps), impl)
+
+
+class _BiasGelu(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, b, impl):
+        ctx.save_for_backward(x, b)
+        return bias_gelu_fwd(x, b, impl=impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, b = ctx.saved_tensors
+        dx, db = ref.bias_gelu_bwd_ref(dy, x, b)
+        return dx, db, None
+
+
+def bias_gelu(x, b, *, impl: Optional[str] = None):
+    """Differentiable GELU-tanh(x + b)."""
+    return _BiasGelu.apply(x.contiguous(), b, impl)
+
+
+def lamb_leaf_update(w, g, m, v, *, lr, step: int, b1=0.9, b2=0.999,
+                     eps=1e-6, wd=0.01, impl: Optional[str] = None):
+    """Full LAMB step of one leaf (``repro/kernels/ops.py``
+    ``lamb_leaf_update``): the moment kernel, then the trust ratio
+    ||w|| / ||update|| from two torch norms and w - lr * trust * update.
+    Returns (w', m', v')."""
+    m2, v2, upd = lamb_moments(w, g, m, v, step=step, b1=b1, b2=b2,
+                                     eps=eps, wd=wd, impl=impl)
+    wnorm = torch.linalg.vector_norm(w.float())
+    unorm = torch.linalg.vector_norm(upd)
+    one = torch.ones_like(wnorm)
+    trust = torch.where(wnorm > 0,
+                        torch.where(unorm > 0, wnorm / unorm, one), one)
+    return w - upd * (lr * trust), m2, v2
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel."""
-    return {"flash_fwd": _fa.launches, "paged_decode": _pa.launches}
+    return {"flash_fwd": _fa.launches, "flash_bwd_dq": _fa.launches_dq,
+            "flash_bwd_dkv": _fa.launches_dkv,
+            "paged_decode": _pa.launches, "layernorm": _ln.launches,
+            "bias_gelu": _bg.launches, "lamb_moments": _lu.launches}
 
 
 def reset_launch_counts() -> None:
-    _fa.launches = 0
-    _pa.launches = 0
+    _fa.launches = _fa.launches_dq = _fa.launches_dkv = 0
+    _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -86,3 +87,125 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_table, kv_len, *,
     p = torch.nan_to_num(p, nan=0.0)                    # empty slots -> zeros
     out = torch.einsum("bvgk,bkvd->bvgd", p, v)
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0):
+    """FlashAttention-2 backward written out over the whole score matrix
+    (the math of ``repro/kernels/flash_attention.py:166-244``, not autograd
+    through the forward), so that it can be held against the kernels
+    directly.
+
+    q, out, dout: (B, H, Sq, Dh); k, v: (B, KV, Skv, Dh); lse: (B, H, Sq)
+    float32 from the forward.  P is recomputed from lse with masked logits
+    at NEG_INF after the softcap and zeroed outside the mask; with
+    delta = rowsum(dO * O)::
+
+        dV = P^T dO                 dP = dO V^T
+        dS = P * (dP - delta) * (1 - (capped / softcap)^2 if softcap)
+        dQ = dS K * scale           dK = dS^T Q * scale
+
+    A GQA group's dK and dV are summed over its query heads.  Returns
+    (dq, dk, dv) in the dtypes of q, k, v.
+    """
+    b, h, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(b, kvh, g, sq, dh)
+    dof = dout.float().reshape(b, kvh, g, sq, dh)
+    kf, vf = k.float(), v.float()
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, kvh, g, sq)
+    raw = torch.einsum("bvgqd,bvkd->bvgqk", qf, kf) * scale
+    capped = softcap * torch.tanh(raw / softcap) if softcap else raw
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    capped = torch.where(mask, capped, torch.full_like(capped, NEG_INF))
+    lsef = lse.float().reshape(b, kvh, g, sq)
+    p = torch.exp(capped - lsef[..., None])
+    p = torch.where(mask, p, torch.zeros_like(p))
+    dv = torch.einsum("bvgqk,bvgqd->bvkd", p, dof)
+    dp = torch.einsum("bvgqd,bvkd->bvgqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        t = torch.where(mask, capped / softcap, torch.zeros_like(capped))
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bvgqk,bvkd->bvgqd", ds, kf) * scale
+    dk = torch.einsum("bvgqk,bvgqd->bvkd", ds, qf) * scale
+    return (dq.reshape(b, h, sq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def layernorm_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-6):
+    """Row LayerNorm over the last dim with fp32 statistics (the variance
+    is the mean of squared deviations, as ``jnp.var``), affine, the output
+    in x's dtype.  Returns (y, mean, rstd) with mean and rstd (rows,)
+    float32 over the flattened leading dims: the kernel's outputs, which
+    the backward reads."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mean).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean) * rstd
+    y = y * scale.float() + bias.float()
+    return y.to(x.dtype), mean.reshape(-1), rstd.reshape(-1)
+
+
+def layernorm_bwd_ref(dy, x, scale, mean, rstd):
+    """Gradient of ``layernorm_ref``'s y with respect to x, scale and bias,
+    from the saved statistics, in fp32; returned in the dtypes of x, scale
+    and scale (bias shares scale's dtype)."""
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    dyf = dy.float().reshape(-1, d)
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    gy = dyf * scale.float()
+    dx = rstd[:, None] * (gy - gy.mean(-1, keepdim=True)
+                          - xhat * (gy * xhat).mean(-1, keepdim=True))
+    dscale = (dyf * xhat).sum(0)
+    dbias = dyf.sum(0)
+    return (dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype),
+            dbias.to(scale.dtype))
+
+
+GELU_K = math.sqrt(2.0 / math.pi)
+GELU_C = 0.044715
+
+
+def bias_gelu_ref(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The paper's §4.3 example: GELU(x + b) with the tanh approximation,
+    computed in fp32 and rounded once to x's dtype."""
+    y = x.float() + b.float()
+    out = 0.5 * y * (1.0 + torch.tanh(GELU_K * (y + GELU_C * torch.pow(y, 3))))
+    return out.to(x.dtype)
+
+
+def bias_gelu_bwd_ref(dy, x, b):
+    """Gradient of ``bias_gelu_ref`` with respect to x and b, in fp32;
+    returned in the dtypes of x and b."""
+    y = x.float() + b.float()
+    t = torch.tanh(GELU_K * (y + GELU_C * torch.pow(y, 3)))
+    dgelu = 0.5 * (1.0 + t) + 0.5 * y * (1.0 - t * t) * GELU_K * (
+        1.0 + 3.0 * GELU_C * y * y)
+    dx = dy.float() * dgelu
+    return dx.to(x.dtype), dx.reshape(-1, x.shape[-1]).sum(0).to(b.dtype)
+
+
+def lamb_moments_ref(w, g, m, v, *, b1=0.9, b2=0.999, eps=1e-6, wd=0.01,
+                     step=1):
+    """LAMB moment update and the unnormalised update direction, in fp32
+    (``repro/kernels/ref.py`` ``lamb_moments_ref``).  The bias corrections
+    1 - b**step are taken in float32, as the reference takes them."""
+    w, g, m, v = (t.float() for t in (w, g, m, v))
+    m2 = b1 * m + (1 - b1) * g
+    v2 = b2 * v + (1 - b2) * torch.square(g)
+    c1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
+    c2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
+    update = (m2 / c1) / (torch.sqrt(v2 / c2) + eps) + wd * w
+    return m2, v2, update

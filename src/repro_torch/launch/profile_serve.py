@@ -11,7 +11,9 @@ smoke variant) in bf16 with seeded random weights, fills 4 slots with
 each phase it prints one JSON line: wall time (host clock around an
 unprofiled loop that ends in a synchronize), device busy time (sum of the
 CUDA kernels' durations in the trace of a second, profiled loop), the idle
-share (1 - busy / wall) and the kernels that took the most device time.
+share (1 - busy / wall), the device time by kind of kernel (the port's
+own, GEMMs, elementwise and copies, reductions, other) and the kernels
+that took the most device time.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -47,9 +49,29 @@ def _kernel_times(prof):
     return sum(r[1] for r in rows), rows
 
 
-def _phase(name, fn, iters):
+# device time by kind of kernel, matched on the kernel's name in order
+KINDS = (("port kernels", ("flash_fwd", "dq_mma", "dkv_mma", "dq_f32",
+                           "dkv_f32", "paged_decode", "layernorm_kernel",
+                           "bias_gelu_kernel", "lamb_kernel")),
+         ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+         ("elementwise and copy", ("elementwise", "copy")),
+         ("reduction", ("reduce",)))
+
+
+def _by_kind(rows, iters):
+    out = {kind: 0.0 for kind, _ in KINDS}
+    out["other"] = 0.0
+    for name, ms, _ in rows:
+        kind = next((k for k, keys in KINDS
+                     if any(key in name for key in keys)), "other")
+        out[kind] += ms / iters
+    return out
+
+
+def _phase(name, fn, iters, extra=None):
     """Wall time from an unprofiled loop (the profiler's host tracing slows
-    every op), device busy time from a second, profiled loop."""
+    every op), device busy time from a second, profiled loop.  ``extra(prof,
+    iters)`` may add fields read from the trace."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -65,9 +87,12 @@ def _phase(name, fn, iters):
     busy /= iters
     out = {"phase": name, "wall_ms": wall, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / wall if wall else None,
+           "device_ms_by_kind": _by_kind(rows, iters),
            "top_kernels": [{"name": k[:90], "ms_per_iter": ms / iters,
                             "launches_per_iter": n / iters}
                            for k, ms, n in rows[:10]]}
+    if extra is not None:
+        out.update(extra(prof, iters))
     print(json.dumps(out), flush=True)
     return out
 

@@ -1,12 +1,19 @@
-"""Decoder layer library (port of the decoder subset of
-``repro/models/layers.py``): RMSNorm, RoPE, attention with its contiguous
-and paged KV caches, the SwiGLU MLP and the token embedding.
+"""Layer library (port of the decoder and encoder subsets of
+``repro/models/layers.py``): RMSNorm and LayerNorm, RoPE, causal and
+bidirectional attention with the decoder's contiguous and paged KV caches,
+the SwiGLU and GELU MLPs, and the token embedding with learned positions.
 
 Dtype discipline as in the reference: matmuls run in
 ``policy.compute_dtype``; norms, softmax and logits run in
 ``policy.reduce_dtype`` (fp32).  A bf16 ``torch.matmul`` rounds its output
 to bf16, so where the reference asks XLA for fp32 results of bf16 operands
 (``preferred_element_type``) the operands are upcast first.
+
+Three of the paper's fused kernels sit on the encoder's path: LayerNorm
+(``kops.layernorm``), bias + GELU (``kops.bias_gelu``) and bidirectional
+attention through the flash forward and backward kernels
+(``kops.flash_attention_vjp``).  The reference computes the same functions
+in jnp on this path; the tests hold the two against each other.
 
 Caches are updated in place (the reference rebuilds arrays): a decode write
 goes straight into the page pool or ring stripe, and the functions return
@@ -44,15 +51,24 @@ def trunc_normal(shape, generator: torch.Generator, *, stddev: float = 0.02,
 
 def init_norm(cfg: ModelConfig, *, dtype=torch.float32,
               device="cpu") -> Params:
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError("layernorm ports with the BERT slice")
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    d = cfg.d_model
+    if cfg.norm_kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def apply_norm(params: Params, x: torch.Tensor, cfg: ModelConfig,
-               policy: Policy) -> torch.Tensor:
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError("layernorm ports with the BERT slice")
+               policy: Policy, *, impl: Optional[str] = None
+               ) -> torch.Tensor:
+    """RMSNorm or LayerNorm (``cfg.norm_kind``) with ``cfg.norm_eps``,
+    statistics in fp32, output in the compute dtype.  LayerNorm goes
+    through the kernel, which returns x's dtype (the encoder's activations
+    are already in the compute dtype)."""
+    if cfg.norm_kind == "layernorm":
+        y = kops.layernorm(x, params["scale"], params["bias"],
+                           eps=cfg.norm_eps, impl=impl)
+        return y.to(policy.compute_dtype)
     xf = x.to(policy.reduce_dtype)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + cfg.norm_eps)
@@ -165,17 +181,23 @@ def chunked_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
 
 
 def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                    policy: Policy, *, positions: Optional[torch.Tensor] = None,
+                    policy: Policy, *, mixer_kind: str = "attn",
+                    positions: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     cache_pos: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None,
                     return_cache: bool = False,
                     impl: Optional[str] = None):
-    """Causal self-attention (an ``"attn"`` mixer) with an optional KV
-    cache.  Returns (y, cache_or_None).
+    """Self-attention with an optional KV cache.  Returns (y,
+    cache_or_None).
 
-    * no cache: the prompt's own K/V (returned as {"k", "v"} when
-      ``return_cache``); long prompts go through ``chunked_attention``.
+    * ``mixer_kind="attn_bidir"`` (the encoder): no cache, no mask, through
+      the flash forward and backward kernels at every length
+      (``kops.flash_attention_vjp``, differentiable).  The reference takes
+      its jnp ``naive_attention`` at S <= 512, the same function.
+    * ``"attn"``, no cache: causal over the prompt's own K/V (returned as
+      {"k", "v"} when ``return_cache``); long prompts go through
+      ``chunked_attention``.
     * contiguous ring cache {"k", "v"} (B, Smax, KV, Dh): the decode token is
       written at ring index ``cache_pos`` (B,) in place, and the query
       attends the slot's ``kv_len`` valid rows.
@@ -186,10 +208,13 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
       kernel.  A write past the slot's capacity goes to the trash page 0.
     ``impl`` is passed to the kernels (see ``kernels/ops.py``).
     """
-    if cfg.qkv_bias or cfg.qk_norm or cfg.pos_kind not in ("rope", "none"):
+    if cfg.qkv_bias or cfg.qk_norm or cfg.pos_kind == "mrope":
         raise NotImplementedError(
-            f"attention with qkv_bias/qk_norm/{cfg.pos_kind} positions "
-            "ports with the architecture-family slice")
+            "attention with qkv_bias/qk_norm/mrope positions ports with the "
+            "architecture-family slice")
+    if mixer_kind not in ("attn", "attn_bidir"):
+        raise NotImplementedError(f"{mixer_kind} mixers port with the "
+                                  "architecture-family slice")
     b, s, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     softcap = cfg.attn_logit_softcap
@@ -206,7 +231,13 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None and "k_pages" in cache:
+    if mixer_kind == "attn_bidir":
+        if cache is not None or return_cache:
+            raise ValueError("bidirectional attention keeps no KV cache")
+        t = lambda z: z.transpose(1, 2)  # (B,S,H,D) <-> (B,H,S,D) views
+        out = t(kops.flash_attention_vjp(t(q), t(k), t(v), causal=False,
+                                         softcap=softcap, impl=impl))
+    elif cache is not None and "k_pages" in cache:
         if s != 1:
             raise ValueError("a paged cache takes single-token decode")
         ps = cache["k_pages"].shape[1]
@@ -410,40 +441,61 @@ def paged_prefill_write(pcache: dict, k: torch.Tensor, v: torch.Tensor,
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, *,
              dtype=torch.float32, device="cpu") -> Params:
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"{cfg.mlp_kind} MLPs port with the BERT "
-                                  "and architecture-family slices")
     d, f = cfg.d_model, cfg.d_ff
     std_o = 0.02 / math.sqrt(2 * cfg.n_layers)
     kw = dict(generator=generator, dtype=dtype, device=device)
-    return {"wi": trunc_normal((d, f), **kw),
-            "wg": trunc_normal((d, f), **kw),
-            "wo": trunc_normal((f, d), stddev=std_o, **kw)}
+    if cfg.mlp_kind == "swiglu":
+        return {"wi": trunc_normal((d, f), **kw),
+                "wg": trunc_normal((d, f), **kw),
+                "wo": trunc_normal((f, d), stddev=std_o, **kw)}
+    if cfg.mlp_kind == "gelu":   # BERT: biases included
+        return {"wi": trunc_normal((d, f), **kw),
+                "bi": torch.zeros((f,), dtype=dtype, device=device),
+                "wo": trunc_normal((f, d), stddev=std_o, **kw),
+                "bo": torch.zeros((d,), dtype=dtype, device=device)}
+    raise NotImplementedError(f"{cfg.mlp_kind} MLPs port with the "
+                              "architecture-family slice")
 
 
 def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
-              policy: Policy) -> torch.Tensor:
-    """SwiGLU: (silu(x wg) * (x wi)) wo in the compute dtype."""
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"{cfg.mlp_kind} MLPs port with the BERT "
-                                  "and architecture-family slices")
+              policy: Policy, *, impl: Optional[str] = None) -> torch.Tensor:
+    """SwiGLU: (silu(x wg) * (x wi)) wo.  GELU (BERT): the up-projection's
+    bias and the tanh-GELU in one kernel, gelu(x wi + bi) wo + bo.  All in
+    the compute dtype."""
     cdt = policy.compute_dtype
     xc = x.to(cdt)
-    hi = xc @ params["wi"].to(cdt)
-    hg = xc @ params["wg"].to(cdt)
-    return (F.silu(hg) * hi) @ params["wo"].to(cdt)
+    if cfg.mlp_kind == "swiglu":
+        hi = xc @ params["wi"].to(cdt)
+        hg = xc @ params["wg"].to(cdt)
+        return (F.silu(hg) * hi) @ params["wo"].to(cdt)
+    if cfg.mlp_kind == "gelu":
+        h = kops.bias_gelu(xc @ params["wi"].to(cdt), params["bi"].to(cdt),
+                           impl=impl)
+        return h @ params["wo"].to(cdt) + params["bo"].to(cdt)
+    raise NotImplementedError(f"{cfg.mlp_kind} MLPs port with the "
+                              "architecture-family slice")
 
 
 def init_embedding(cfg: ModelConfig, generator: torch.Generator, *,
                    dtype=torch.float32, device="cpu") -> Params:
-    return {"tok": trunc_normal((cfg.vocab_size, cfg.d_model),
-                                generator=generator, dtype=dtype,
-                                device=device)}
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    params = {"tok": trunc_normal((cfg.vocab_size, cfg.d_model), **kw)}
+    if cfg.pos_kind == "learned":
+        if cfg.max_position <= 0:
+            raise ValueError("learned positions need max_position > 0")
+        params["pos"] = trunc_normal((cfg.max_position, cfg.d_model), **kw)
+    return params
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  policy: Policy) -> torch.Tensor:
-    if cfg.pos_kind == "learned" or cfg.scale_embeddings:
-        raise NotImplementedError("learned positions / scaled embeddings "
-                                  "port with the BERT and family slices")
-    return params["tok"][tokens.long()].to(policy.compute_dtype)
+    """Token embedding in the compute dtype, plus the learned position
+    embedding of positions 0 .. S-1 (``cfg.pos_kind == "learned"``)."""
+    if cfg.scale_embeddings:
+        raise NotImplementedError("scaled embeddings port with the "
+                                  "architecture-family slice")
+    x = F.embedding(tokens.long(), params["tok"]).to(policy.compute_dtype)
+    if cfg.pos_kind == "learned":
+        s = tokens.shape[-1]
+        x = x + params["pos"][:s].to(x.dtype)
+    return x

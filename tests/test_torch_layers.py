@@ -220,3 +220,70 @@ def test_contiguous_write_past_the_stripe_is_dropped():
         assert torch.equal(cache[key][0], before[key][0])
         assert not torch.equal(cache[key][1, 2], before[key][1, 2])
         assert torch.equal(cache[key][1, :2], before[key][1, :2])
+
+
+# ---------------------------------------------------------------------------
+# the encoder subset (BERT)
+# ---------------------------------------------------------------------------
+
+JBERT = jsmoke(jget_config("bert-large"), d_model=128, n_blocks=2)
+BERT = smoke_variant(get_config("bert-large"), d_model=128, n_blocks=2)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_layernorm_branch_with_the_config_eps(dtype):
+    """``init_norm``/``apply_norm`` take ``norm_kind="layernorm"`` (they
+    raised before) with ``cfg.norm_eps`` = 1e-12, not the kernel's 1e-6
+    default: a row of near-equal values tells the two apart."""
+    assert BERT.norm_eps == 1e-12
+    p = L.init_norm(BERT)
+    assert set(p) == {"scale", "bias"} and torch.equal(p["bias"],
+                                                       torch.zeros(128))
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 9, 128)).astype(np.float32)
+    x[0, 0] *= 1e-4                         # variance ~1e-8
+    scale = (1 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(128)).astype(np.float32)
+    jpol, pol = jmake_policy(dtype), make_policy(dtype)
+    xj = jnp.asarray(x).astype(jpol.compute_dtype)
+    want = JL.apply_norm({"scale": jnp.asarray(scale),
+                          "bias": jnp.asarray(bias)}, xj, JBERT, jpol)
+    got = L.apply_norm({"scale": _t(scale), "bias": _t(bias)},
+                       _t(x).to(pol.compute_dtype), BERT, pol)
+    assert got.dtype == pol.compute_dtype
+    tol = 1e-5 if dtype == "f32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_gelu_mlp_and_learned_positions():
+    rng = np.random.default_rng(6)
+    jp = JL.init_mlp(jax.random.PRNGKey(4), JBERT)[0]
+    jp = {k: v + 0.01 * rng.standard_normal(v.shape).astype(np.float32)
+          for k, v in jp.items()}                  # non-zero biases
+    x = rng.standard_normal((2, 5, 128)).astype(np.float32)
+    want = JL.apply_mlp(jp, jnp.asarray(x), JBERT, JPOL)
+    got = L.apply_mlp({k: _t(v) for k, v in jp.items()}, _t(x), BERT, POL)
+    _close(got, want, rtol=1e-5, atol=1e-5)
+    je = JL.init_embedding(jax.random.PRNGKey(5), JBERT)[0]
+    assert je["pos"].shape == (512, 128)
+    toks = rng.integers(0, BERT.vocab_size, (2, 37)).astype(np.int32)
+    want = JL.embed_tokens(je, jnp.asarray(toks), JBERT, JPOL)
+    got = L.embed_tokens({k: _t(v) for k, v in je.items()}, _t(toks), BERT,
+                         POL)
+    _close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s", [16, 128, 200])
+def test_bidirectional_attention(s):
+    """``attn_bidir`` goes through the flash op (its plain version on the
+    CPU) at every length; the reference takes naive attention there."""
+    jp = JL.init_attention(jax.random.PRNGKey(6), JBERT)[0]
+    rng = np.random.default_rng(s)
+    x = rng.standard_normal((2, s, 128)).astype(np.float32)
+    want, _ = JL.apply_attention(jp, jnp.asarray(x), JBERT, JPOL,
+                                 mixer_kind="attn_bidir")
+    got, _ = L.apply_attention({k: _t(v) for k, v in jp.items()}, _t(x),
+                               BERT, POL, mixer_kind="attn_bidir")
+    _close(got, want, rtol=1e-4, atol=1e-5)
