@@ -40,7 +40,27 @@
    above beside the plain version, the bound and, where one PyTorch call
    computes the same function, that call (flash backward: the backward of
    ``scaled_dot_product_attention``; LayerNorm: ``F.layer_norm``).
-6. Training phase, after the serve phases have freed their memory:
+6. wkv6 kernel phase: the RWKV-6 recurrence against its plain version at
+   the CPU tests' cases (s, chunk) in {(128, 32), (256, 64), (64, 64),
+   (32, 64)} plus chunks of 6 and 60 rows, f32 and bf16 inputs, inputs
+   read through strides, and the strong-decay case (logw = -50), within
+   rtol = atol = 1e-4 and relative L2 1e-4; then timed at the raw
+   prefill's shape (4, 1024, 32, 64) bf16 beside the plain version and
+   the bound (no single PyTorch call computes it).
+7. RWKV serve phases, after the deepseek phases have freed their memory:
+   full-width, full-depth rwkv6-1.6b in bf16 with seeded random weights.
+   The serve CLI's raw mode (batch 4, 1024-token prompts, 16 new tokens):
+   wkv6 must launch once per layer (24) and every LayerNorm must launch
+   its kernel, every logit finite.  ``ContinuousScheduler`` (batch 4,
+   bucket 256, 6 requests of 64-256 tokens and 4-16 new): finite logits,
+   no wkv6 launch (masked slot prefills run the sequential scan, as in
+   the reference), every request run to its budget.  Then the raw path's
+   prefill and 4 decode steps through the kernels and through the plain
+   versions, in bf16 and in f32: every wkv6 call within the f32 tolerance
+   (its absolute part scaled by the call's output RMS, which runs to
+   ~10^2 there) and 1e-4 relative L2, every LayerNorm call within the
+   dtype's, and the logits within the deepseek bounds.
+8. Training phase, after the serve phases have freed their memory:
    ``launch/pretrain_bert.py`` at full width and depth (bert-large, bf16,
    LAMB, accumulation 2, ``--batch 128``: 4 phase-1 steps of 128 x 128
    tokens and 1 phase-2 step of 64 x 512), launch counts zeroed before and
@@ -50,7 +70,7 @@
    gradient group and the master-weight update must agree within the bound
    stated for each dtype, and every kernel call of the kernel path is held
    against its plain version on that call's own inputs.
-7. Prints one JSON line of kernel results, then, as the last line,
+9. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
@@ -61,8 +81,10 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import logging
 import subprocess
 import sys
 import tempfile
@@ -92,6 +114,13 @@ N_REQUESTS = 8
 # kernel of launch/mutation_check.py (softmax scale 2 % off: 6.9e-2).  The
 # tight check of the bf16 kernels is path_parity's per-call check.
 LOGIT_REL_L2_BOUND = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# per kernel call, the relative L2 error of each output against the plain
+# version on the same inputs.  The elementwise tolerance (TOL) is absolute
+# below |want| = 1, and training gradients are ~1e-5: this bound is what
+# holds them.  f32: summation order only, largest on LayerNorm's row means,
+# which sit near 0 (6.6e-5 on the H100); bf16: rounding to bf16 (2**-9
+# relative) and P and dS rounded to bf16 inside the flash backward (2.7e-3).
+CALL_REL_L2_BOUND = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 
 def log(msg: str) -> None:
@@ -143,12 +172,12 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def compare(got, want, dtype):
-    """(max abs error, |got - want| <= tol + tol * |want| everywhere) with
-    rtol = atol = TOL[dtype] (``dtype`` None: the tolerance of got's)."""
-    tol = TOL[dtype or got.dtype]
+def compare(got, want, tol: float, scale: float = 1.0):
+    """(max abs error, |got - want| <= tol * scale + tol * |want|
+    everywhere): rtol = tol and atol = tol * ``scale``."""
     g, w = got.float(), want.float()
-    return max_err(g, w), bool(((g - w).abs() <= tol + tol * w.abs()).all())
+    return max_err(g, w), bool(((g - w).abs()
+                                <= tol * scale + tol * w.abs()).all())
 
 
 def rel_l2(got, want) -> float:
@@ -160,7 +189,7 @@ def rel_l2(got, want) -> float:
 def check_close(name: str, got, want, dtype) -> float:
     """Raise unless ``got`` is within TOL[dtype] of ``want``; returns the
     max abs error."""
-    err, ok = compare(got, want, dtype)
+    err, ok = compare(got, want, TOL[dtype])
     if not ok:
         raise AssertionError(f"{name}: outside rtol = atol = {TOL[dtype]} "
                              f"(max abs err {err:.3e})")
@@ -351,6 +380,110 @@ def paged_phase(ops, timer):
     return entries
 
 
+# the wkv6 path shape: the full-width raw prefill, batch 4 x 1024 tokens,
+# 32 heads of 64, chunks of 64
+WKV_PATH = (BATCH, PREFILL_LEN, 32, 64)
+WKV_CHUNK = 64
+# kernel vs plain, both fp32 arithmetic on the same inputs: elementwise
+# rtol = atol and relative L2 (the reference test's 1e-4)
+WKV_TOL = 1e-4
+
+
+def wkv6_inputs(gen, b, s, h, hs=64, dtype=torch.float32):
+    """The distribution of tests/test_kernels.py:144-151: r, k, v ~ N(0, 1)
+    in ``dtype``, logw = -exp(N(0, 1) - 2), u = 0.5 N (in ``dtype``),
+    s0 = 0.1 N."""
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE)
+    r, k, v = (n(b, s, h, hs).to(dtype) for _ in range(3))
+    logw = -torch.exp(n(b, s, h, hs) - 2.0)
+    return r, k, v, logw, (0.5 * n(h, hs)).to(dtype), 0.1 * n(b, h, hs, hs)
+
+
+def wkv6_check(ops, tag, args, chunk) -> float:
+    """Kernel against plain on ``args`` within WKV_TOL (elementwise and
+    relative L2) for o and s_final; returns the max abs error."""
+    got = ops.wkv6(*args, chunk=chunk)
+    want = ops.wkv6(*args, chunk=chunk, impl="torch")
+    torch.cuda.synchronize()
+    errs = []
+    for g, w, name in zip(got, want, ("o", "s_final")):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag} {name}: non-finite kernel output")
+        err, ok = compare(g, w, WKV_TOL)
+        rel = rel_l2(g, w)
+        if not ok or rel > WKV_TOL:
+            raise AssertionError(f"{tag} {name}: outside rtol = atol = "
+                                 f"{WKV_TOL} or rel L2 {rel:.3e} > "
+                                 f"{WKV_TOL} (max abs err {err:.3e})")
+        errs.append(err)
+    return max(errs)
+
+
+def wkv6_bound(r, u, chunk):
+    """(bound ms, by, operations, exponentials) of one launch on these
+    inputs.  Bytes: r, k, v and u in their dtypes, logw and o in fp32, s0
+    and s_final.  Operations per (b, h, chunk of L): the lower-triangle
+    scores (sub, two multiplies, add per (i, j < i, c)), the bonus, the
+    scores times V over the L (L + 1) / 2 pairs j <= i (the bonus sits on
+    the diagonal), the two L x hs x hs products (r with the carried state,
+    the decayed k with V), the cumsum and the decay folds, the state's
+    decay (one multiply per element; its add is the product's), and one
+    per exponential; at the fp32 peak."""
+    b, s, h, hs = r.shape
+    el = r.numel()
+    nbytes = 3 * el * r.element_size() + 2 * el * 4 \
+        + h * hs * u.element_size() + 2 * b * h * hs * hs * 4
+    nl = chunk
+    pairs = nl * (nl - 1) // 2
+    exps = pairs * hs + 2 * nl * hs + hs
+    flops = 4 * pairs * hs + 3 * nl * hs + 2 * (pairs + nl) * hs \
+        + 2 * 2 * nl * hs * hs + 5 * nl * hs + hs * hs
+    n = b * h * (s // nl)
+    ms, by = bound(nbytes, n * (flops + exps), torch.float32)
+    return ms, by, n * (flops + exps), n * exps
+
+
+def wkv6_phase(ops, timer):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    cases = 0
+    # the CPU tests' cases, a chunk of L % 4 != 0 rows, bf16 inputs, and
+    # inputs read through strides (views of a wider activation)
+    for s, chunk in ((128, 32), (256, 64), (64, 64), (32, 64), (6, 64),
+                     (60, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = wkv6_inputs(gen, 2, s, 2, dtype=dtype)
+            wkv6_check(ops, f"wkv6 {dtype} s={s} chunk={chunk}", args, chunk)
+            cases += 1
+    wide = torch.randn(2, 128, 3, 2, 64, generator=gen, device=DEVICE)
+    args = wkv6_inputs(gen, 2, 128, 2)
+    args = (wide[:, :, 0], wide[:, :, 1], wide[:, :, 2]) + args[3:]
+    wkv6_check(ops, "wkv6 strided r, k, v", args, 64)
+    # strong decay (tests/test_kernels.py:166): logw = -50 everywhere
+    b, s, h, hs = 1, 64, 1, 64
+    one = torch.ones(b, s, h, hs, device=DEVICE)
+    wkv6_check(ops, "wkv6 strong decay", (
+        one, one, one, torch.full_like(one, -50.0),
+        torch.zeros(h, hs, device=DEVICE),
+        torch.zeros(b, h, hs, hs, device=DEVICE)), 16)
+    cases += 2
+    log(f"wkv6 small cases: {cases} agree with the plain version "
+        f"(rtol = atol = rel L2 = {WKV_TOL})")
+
+    args = wkv6_inputs(gen, *WKV_PATH, dtype=torch.bfloat16)
+    err = wkv6_check(ops, f"wkv6 path shape {WKV_PATH}", args, WKV_CHUNK)
+    times = timer.times(lambda: ops.wkv6(*args, chunk=WKV_CHUNK))
+    ms = float(np.mean(times))
+    plain_ms = timer.ms(lambda: ops.wkv6(*args, chunk=WKV_CHUNK,
+                                         impl="torch"), iters=5)
+    bd_ms, by, n_ops, n_exp = wkv6_bound(args[0], args[4], WKV_CHUNK)
+    log(f"wkv6 {WKV_PATH} bf16 r/k/v, chunk {WKV_CHUNK}: max err {err:.3e}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd_ms:.4f} ms "
+        f"({by}: {n_ops / 1e9:.3f} G operations, of which {n_exp / 1e9:.3f} "
+        f"G exponentials), no single PyTorch call; kernel {spread(times)}")
+    return entry("wkv6", "wkv6.cu", "wkv6.py:98", err, ms, plain_ms, bd_ms,
+                 by, None)
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
@@ -395,29 +528,43 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode):
     return counts
 
 
+# one held kernel call: max abs error, within its tolerance, largest
+# relative L2 error and largest RMS over the call's plain outputs
+Call = collections.namedtuple("Call", "err ok rel rms")
+
+
 @contextlib.contextmanager
-def held_against_plain(ops, dtype, record):
-    """While active, every kernel call through ``ops`` (impl None) is
-    followed by its plain version on the same inputs; ``record[kernel]``
-    collects (max abs error, within TOL[dtype], largest relative L2
-    error) of each call's outputs.  ``dtype`` None takes the tolerance of
-    each call's first argument (the training path mixes bf16 activations
-    and the fp32 optimizer state)."""
-    saved = {name: getattr(ops, name) for name in record}
+def held_against_plain(ops, record, spec):
+    """While active, every call of a kernel named in ``spec`` through
+    ``ops`` (impl None) is followed by its plain version on the same
+    inputs, and ``record[kernel]`` collects a ``Call`` of each.
+    ``spec[kernel]`` is (dtype, rms): each output is held to TOL[dtype]
+    (dtype None: that of the call's first argument, as the training path
+    mixes bf16 activations and the fp32 optimizer state), with the
+    absolute part TOL times the plain output's RMS when ``rms`` is true: a
+    dot product's rounding error scales with the magnitude of its terms,
+    and where outputs run to 10^2 a fixed floor fails wherever terms
+    cancel."""
+    saved = {name: getattr(ops, name) for name in spec}
 
     def held(name, fn):
+        dtype, by_rms = spec[name]
+
         def call(*args, impl=None, **kw):
             got = fn(*args, impl=impl, **kw)
             if impl is None:
                 kw.pop("out", None)
                 want = fn(*args, impl="torch", **kw)
-                tol = dtype or args[0].dtype
+                tol = TOL[dtype or args[0].dtype]
                 pairs = list(zip(got, want)) if isinstance(got, tuple) \
                     else [(got, want)]     # tuples: e.g. flash's (out, lse)
-                errs = [compare(g, w, tol) for g, w in pairs]
-                record[name].append((max(e for e, _ in errs),
-                                     all(ok for _, ok in errs),
-                                     max(rel_l2(g, w) for g, w in pairs)))
+                rms = [float(w.float().square().mean().sqrt())
+                       for _, w in pairs]
+                errs = [compare(g, w, tol, sc if by_rms else 1.0)
+                        for (g, w), sc in zip(pairs, rms)]
+                record[name].append(Call(
+                    max(e for e, _ in errs), all(ok for _, ok in errs),
+                    max(rel_l2(g, w) for g, w in pairs), max(rms)))
             return got
         return call
 
@@ -428,6 +575,18 @@ def held_against_plain(ops, dtype, record):
     finally:
         for name, fn in saved.items():
             setattr(ops, name, fn)
+
+
+def call_summary(record) -> dict:
+    """Per kernel: calls, calls outside tolerance, max abs error and max
+    relative L2 error over the ``Call``s of ``record``."""
+    return {"calls": {k: len(v) for k, v in record.items()},
+            "calls_outside": {k: sum(not c.ok for c in v)
+                              for k, v in record.items()},
+            "call_max_err": {k: max((c.err for c in v), default=0.0)
+                             for k, v in record.items()},
+            "call_max_rel": {k: max((c.rel for c in v), default=0.0)
+                             for k, v in record.items()}}
 
 
 def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
@@ -446,7 +605,8 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
                                quantized=(mode == "paged_int8"))
     record = {"flash_attention": [], "paged_decode_attention": []}
     feed, logits = None, {}
-    with held_against_plain(ops, pol.compute_dtype, record):
+    with held_against_plain(ops, record, {k: (pol.compute_dtype, False)
+                                          for k in record}):
         for impl in (None, "torch"):
             state = T.init_decode_state(cfg, 1, MAX_LEN, pol.compute_dtype,
                                         paged=paged, device=DEVICE)
@@ -468,12 +628,7 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
     res = {"mode": mode, "dtype": pol.compute_dtype,
            "finite": bool(torch.isfinite(a).all()),
            "rel_l2": float((a - b).norm() / b.norm()),
-           "max_abs": float((a - b).abs().max()),
-           "calls": {k: len(v) for k, v in record.items()},
-           "calls_outside": {k: sum(not ok for _, ok, _ in v)
-                             for k, v in record.items()},
-           "call_max_err": {k: max((e for e, _, _ in v), default=0.0)
-                            for k, v in record.items()}}
+           "max_abs": float((a - b).abs().max()), **call_summary(record)}
     log(f"path parity {mode} {pol.compute_dtype}: prefill + 4 decode logits,"
         f" kernels vs plain: rel L2 {res['rel_l2']:.3e} (bound "
         f"{LOGIT_REL_L2_BOUND[pol.compute_dtype]}), max abs "
@@ -498,6 +653,189 @@ def check_parity(res: dict) -> None:
     if not res["rel_l2"] <= LOGIT_REL_L2_BOUND[res["dtype"]]:
         raise AssertionError(f"{mode}: kernel path departs from the plain "
                              f"path (rel L2 {res['rel_l2']:.3e})")
+
+# ---------------------------------------------------------------------------
+# rwkv serve phases
+# ---------------------------------------------------------------------------
+
+RWKV_NEW_TOKENS = 16
+# continuous mode: bucket 256, 6 requests of 64-256 prompt tokens and 4-16
+# new tokens
+RWKV_BUCKET, RWKV_REQUESTS = 256, 6
+
+
+def rwkv_raw_run(ops, serve, cfg, params, pol) -> dict:
+    """The serve CLI's raw mode (``launch/serve.py`` ``run_raw``): batch 4
+    of 1024-token prompts, 16 new tokens.  Its prefill is unmasked, so
+    every layer launches the wkv6 kernel once; every LayerNorm (two a
+    layer and the final one) launches its kernel in the prefill and in
+    each decode step.  ``run_raw`` raises on a non-finite logit row."""
+    args = serve.build_parser().parse_args([
+        "--arch", cfg.arch_id, "--full-width", "--mode", "raw", "--batch",
+        str(BATCH), "--prompt-len", str(PREFILL_LEN), "--new-tokens",
+        str(RWKV_NEW_TOKENS), "--device", DEVICE])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = serve.run_raw(args, cfg, pol, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if ids.shape != (BATCH, RWKV_NEW_TOKENS):
+        raise AssertionError(f"rwkv raw: generated {ids.shape}")
+    if counts["wkv6"] != cfg.n_layers:
+        raise AssertionError(f"rwkv raw: {counts['wkv6']} wkv6 launches, "
+                             f"expected {cfg.n_layers} (one per layer)")
+    norms = (2 * cfg.n_layers + 1) * RWKV_NEW_TOKENS
+    if counts["layernorm"] != norms:
+        raise AssertionError(f"rwkv raw: {counts['layernorm']} layernorm "
+                             f"launches, expected {norms}")
+    log(f"rwkv raw full width: {BATCH} x {PREFILL_LEN} prompt tokens, "
+        f"{RWKV_NEW_TOKENS} new, {wall:.3f} s in all; launches {counts}")
+    return counts
+
+
+def rwkv_continuous_run(ops, sched_mod, cfg, params, pol) -> dict:
+    """``ContinuousScheduler`` over 6 mixed-length requests.  Every slot
+    prefill is masked (the exactness contract), so it runs the sequential
+    scan and launches no wkv6 kernel, as in the reference."""
+    rng = np.random.default_rng(SEED + 5)
+    sched = sched_mod.ContinuousScheduler(
+        params, cfg, pol, batch=BATCH, max_len=RWKV_BUCKET + 16,
+        prefill_len=RWKV_BUCKET, device=DEVICE)
+    budgets = {}
+    for rid in range(RWKV_REQUESTS):
+        n = int(rng.integers(64, RWKV_BUCKET + 1))
+        budgets[rid] = int(rng.integers(4, 17))
+        sched.submit(sched_mod.Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab_size, size=n,
+                                         dtype=np.int32),
+            max_new_tokens=budgets[rid]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    done = sched.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = sched.stats
+    if len(done) != RWKV_REQUESTS or st.prefills != RWKV_REQUESTS or any(
+            len(r.output) != budgets[r.rid] for r in done):
+        raise AssertionError("rwkv continuous: not every request ran to its "
+                             "budget and released its slot")
+    if st.nonfinite_logits:
+        raise AssertionError(f"rwkv continuous: {st.nonfinite_logits} "
+                             "non-finite logit rows")
+    if counts["wkv6"] != 0 or counts["layernorm"] <= 0:
+        raise AssertionError(f"rwkv continuous: launches {counts}; the masked"
+                             " prefill must not reach wkv6, the LayerNorms "
+                             "must run their kernel")
+    per_slot = cfg.n_layers * (2 * cfg.d_model * 4 + cfg.rwkv_n_heads
+                               * cfg.rwkv_head_size ** 2 * 4)
+    if st.cache_bytes != 0 or st.state_bytes != BATCH * per_slot:
+        raise AssertionError(f"rwkv continuous: cache {st.cache_bytes} B, "
+                             f"state {st.state_bytes} B")
+    step_ms = 1e3 * st.decode_s / max(st.decode_steps - 1, 1)
+    log(f"rwkv continuous: {len(done)} requests, {st.prefills} prefills "
+        f"({st.prefill_tokens} prompt tokens, sequential scan), "
+        f"{st.decode_steps} decode steps, {st.useful_tokens} tokens in "
+        f"{st.wall_s:.3f} s ({st.tokens_per_s:.1f} tok/s), decode "
+        f"{step_ms:.3f} ms/step; launches {counts}; state "
+        f"{st.state_bytes / 2**20:.2f} MiB ({per_slot / 1e6:.2f} MB a slot), "
+        f"KV cache 0")
+    return counts
+
+
+def rwkv_parity(T, ops, cfg, params, pol) -> dict:
+    """The raw path's prefill (batch 4 x 1024) and 4 decode steps through
+    the kernels and through the plain versions, fed the same tokens.  Each
+    kernel call of the kernel path is also held against its plain version
+    on that call's inputs: wkv6 at the fp32 tolerance in both dtypes (it
+    computes in fp32), its absolute part scaled by the output's RMS, and
+    within WKV_TOL relative L2; LayerNorm at the dtype's.  Returns the
+    readings in ``path_parity``'s form."""
+    rng = np.random.default_rng(SEED + 6)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(BATCH, PREFILL_LEN), dtype=np.int32)).to(
+            DEVICE)
+    record = {"wkv6": [], "layernorm_fwd": []}
+    feed, logits = [], {}
+    with held_against_plain(ops, record, {
+            "wkv6": (torch.float32, True),
+            "layernorm_fwd": (pol.compute_dtype, False)}):
+        for impl in (None, "torch"):
+            state = T.init_decode_state(cfg, BATCH, PREFILL_LEN + 8,
+                                        device=DEVICE)
+            lg, state = T.prefill(params, toks, cfg, pol, state=state,
+                                  impl=impl)
+            seq = [lg]
+            for i in range(4):
+                if impl is None:
+                    feed.append(lg.argmax(-1, keepdim=True))
+                lg, state = T.decode_step(params, feed[i], state, cfg, pol,
+                                          impl=impl)
+                seq.append(lg)
+            logits[impl] = torch.stack(seq).float()
+            del state
+    a, b = logits[None], logits["torch"]
+    res = {"mode": "rwkv raw", "dtype": pol.compute_dtype,
+           "finite": bool(torch.isfinite(a).all()),
+           "rel_l2": float((a - b).norm() / b.norm()),
+           "max_abs": float((a - b).abs().max()), **call_summary(record)}
+    rms = [c.rms for c in record["wkv6"]]
+    log(f"path parity rwkv raw {pol.compute_dtype}: prefill + 4 decode "
+        f"logits, kernels vs plain: rel L2 {res['rel_l2']:.3e} (bound "
+        f"{LOGIT_REL_L2_BOUND[pol.compute_dtype]}), max abs "
+        f"{res['max_abs']:.3e}, max |logit| {float(b.abs().max()):.3f}; "
+        f"each kernel call vs plain on its inputs: wkv6 "
+        f"{res['calls_outside']['wkv6']}/{res['calls']['wkv6']} outside "
+        f"rtol {TOL[torch.float32]}, atol {TOL[torch.float32]} x output RMS "
+        f"(RMS {min(rms):.3f} to {max(rms):.3f}), max err "
+        f"{res['call_max_err']['wkv6']:.3e}, max rel L2 "
+        f"{res['call_max_rel']['wkv6']:.3e}; layernorm "
+        f"{res['calls_outside']['layernorm_fwd']}/"
+        f"{res['calls']['layernorm_fwd']} outside {TOL[pol.compute_dtype]}, "
+        f"max err {res['call_max_err']['layernorm_fwd']:.3e}, max rel L2 "
+        f"{res['call_max_rel']['layernorm_fwd']:.3e}")
+    return res
+
+
+def check_rwkv_parity(res: dict) -> None:
+    """``check_parity``, and each call's relative L2 error: wkv6 within
+    WKV_TOL, LayerNorm within CALL_REL_L2_BOUND of the dtype."""
+    check_parity(res)
+    for k, bd in (("wkv6", WKV_TOL),
+                  ("layernorm_fwd", CALL_REL_L2_BOUND[res["dtype"]])):
+        if not res["call_max_rel"][k] <= bd:
+            raise AssertionError(f"rwkv raw: a {k} call departs from the "
+                                 f"plain version (rel L2 "
+                                 f"{res['call_max_rel'][k]:.3e} > {bd})")
+
+
+def rwkv_phases(T, ops, serve, sched_mod, get_config, make_policy) -> dict:
+    """Full-width rwkv6-1.6b with seeded random weights: the raw mode and
+    the continuous mode in bf16, then the kernels-vs-plain parity in bf16
+    and in f32 (the same seeded weights)."""
+    cfg = get_config("rwkv6-1.6b")
+    pol = make_policy("bf16")
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"rwkv6-1.6b full width: {cfg.param_count() / 1e9:.3f} B params "
+        f"(bf16) made in {time.perf_counter() - t0:.1f} s")
+    launches = {"rwkv_raw": rwkv_raw_run(ops, serve, cfg, params, pol),
+                "rwkv_continuous": rwkv_continuous_run(ops, sched_mod, cfg,
+                                                       params, pol)}
+    check_rwkv_parity(rwkv_parity(T, ops, cfg, params, pol))
+    del params
+    torch.cuda.empty_cache()
+    pol32 = make_policy("f32")
+    params = T.init_model(cfg, seed=SEED, dtype=pol32.param_dtype,
+                          device=DEVICE)
+    check_rwkv_parity(rwkv_parity(T, ops, cfg, params, pol32))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
 
 # ---------------------------------------------------------------------------
 # training kernel phase
@@ -736,13 +1074,6 @@ TRAIN_ARGS = ["--full-width", "--steps", "5", "--batch", "128", "--accum",
 # kernels are the per-call ones below, and the f32 step holds the path.
 TRAIN_BOUND = {torch.float32: {"loss": 1e-5, "grad": 1e-3, "update": 1e-3},
                torch.bfloat16: {"loss": 1e-4, "grad": 1e-1, "update": 0.4}}
-# per kernel call, the relative L2 error of each output against the plain
-# version on the same inputs.  The elementwise tolerance (TOL) is absolute
-# below |want| = 1, and training gradients are ~1e-5: this bound is what
-# holds them.  f32: summation order only, largest on LayerNorm's row means,
-# which sit near 0 (6.6e-5 on the H100); bf16: rounding to bf16 (2**-9
-# relative) and P and dS rounded to bf16 inside the flash backward (2.7e-3).
-CALL_REL_L2_BOUND = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 HELD = ("flash_attention", "flash_attention_bwd", "layernorm_fwd",
         "bias_gelu_fwd", "lamb_moments")
 
@@ -791,7 +1122,9 @@ def train_parity(ops, api, ts, TrainConfig, ShardedLoader, make_policy,
     for impl in (None, "torch"):
         state = ts.init_train_state(params, pol, tcfg)
         old = {p: t.clone() for p, t in state.opt.master.items()}
-        with (held_against_plain(ops, None, record) if impl is None
+        with (held_against_plain(ops, record, {k: (None, False)
+                                               for k in HELD})
+              if impl is None
               else contextlib.nullcontext()):
             loss, grads, _ = ts.step_gradients(state, batch, cfg=cfg,
                                                tcfg=tcfg, policy=pol,
@@ -813,13 +1146,7 @@ def train_parity(ops, api, ts, TrainConfig, ShardedLoader, make_policy,
            "grad_worst": ".".join(worst),
            "update_rel": max(rel(uk[p], up[p]) for p in up),
            "finite": all(bool(torch.isfinite(g).all()) for g in gk.values()),
-           "calls": {k: len(v) for k, v in record.items()},
-           "calls_outside": {k: sum(not ok for _, ok, _ in v)
-                             for k, v in record.items()},
-           "call_max_err": {k: max((e for e, _, _ in v), default=0.0)
-                            for k, v in record.items()},
-           "call_max_rel": {k: max((r for _, _, r in v), default=0.0)
-                            for k, v in record.items()}}
+           **call_summary(record)}
     log(f"train parity {precision}: loss {lk:.6f} (kernels) vs {lp:.6f} "
         f"(plain), rel {res['loss_rel']:.3e}; worst gradient group "
         f"{res['grad_worst']} rel L2 {res['grad_rel']:.3e}; master update "
@@ -865,6 +1192,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import pretrain_bert
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.models import api
     from repro_torch.models import transformer as T
     from repro_torch.serve import scheduler as sched_mod
@@ -873,6 +1201,11 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the serve CLI's own lines (prefill and decode times of the raw mode)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("serve: %(message)s"))
+    logging.getLogger("repro_torch.serve").addHandler(handler)
+    logging.getLogger("repro_torch.serve").setLevel(logging.INFO)
     log(nvidia_smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -896,6 +1229,7 @@ def main(argv=None) -> int:
     entries += [train_entries[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                            "layernorm", "bias_gelu",
                                            "lamb_moments")]
+    entries.append(wkv6_phase(ops, timer))
     del timer
     torch.cuda.empty_cache()
     if only_kernels:
@@ -928,7 +1262,13 @@ def main(argv=None) -> int:
                                  mode))
     del params
     torch.cuda.empty_cache()
-    log(f"peak device memory (serving) "
+    log(f"peak device memory (deepseek serving) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
+                                make_policy))
+    log(f"peak device memory (rwkv serving) "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     torch.cuda.reset_peak_memory_stats()
@@ -949,6 +1289,10 @@ def main(argv=None) -> int:
         "paged_decode_int8": launches["paged_int8"]["paged_decode"],
     }
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
+    by_name["layernorm"] += (launches["rwkv_raw"]["layernorm"]
+                             + launches["rwkv_continuous"]["layernorm"])
+    by_name["wkv6"] = (launches["rwkv_raw"]["wkv6"]
+                       + launches["rwkv_continuous"]["wkv6"])
     log(f"flash_fwd launches: serve {launches['paged']['flash_fwd']} + "
         f"{launches['paged_int8']['flash_fwd']}, train "
         f"{launches['train']['flash_fwd']}")

@@ -1,17 +1,17 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants
 (copy of ``repro/configs/__init__.py`` for the architectures the port
-runs: deepseek-7b for serving, bert-large and bert-base for
-pretraining)."""
+runs: deepseek-7b and rwkv6-1.6b for serving, bert-large and bert-base
+for pretraining)."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import bert_large, deepseek_7b
+from repro_torch.configs import bert_large, deepseek_7b, rwkv6_1p6b
 from repro_torch.configs.base import (DecodeCaps, InputShape, ModelConfig,
                                       TrainConfig)
 
-ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, bert_large.CONFIG,
-                                bert_large.BERT_BASE]}
+ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, rwkv6_1p6b.CONFIG,
+                                bert_large.CONFIG, bert_large.BERT_BASE]}
 
 
 def get_config(arch_id: str) -> ModelConfig:

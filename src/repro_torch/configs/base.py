@@ -132,11 +132,19 @@ class ModelConfig:
         """Full per-layer (mixer, mlp) list of length n_layers."""
         return tuple(self.block_pattern) * self.n_blocks
 
+    @property
+    def rwkv_n_heads(self) -> int:
+        return self.d_model // self.rwkv_head_size
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention model, counted as
-        the reference counts it: token embedding, learned positions, an
-        untied LM head for decoders (not for encoder-only models), one
-        final norm, and per layer two norms, attention and the MLP."""
+        """Analytic parameter count, counted as the reference counts it:
+        token embedding, learned positions, an untied LM head for decoders
+        (not for encoder-only models), the final norm's scale, and per layer
+        2 d for the two norms plus the mixer and the MLP.  A dense layer
+        counts attention and its MLP; an RWKV-6 layer counts the time mix
+        (r, k, v, g and output projections, the mix and decay LoRAs, the
+        bias and mix vectors) and the channel mix together, as the
+        reference's ``rwkv_params`` does."""
         d, v = self.d_model, self.vocab_size
         total = v * d + d
         if self.max_position:
@@ -149,7 +157,17 @@ class ModelConfig:
         if self.qkv_bias:
             attn += (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
         mlp = (3 if self.mlp_kind in ("swiglu", "geglu") else 2) * d * self.d_ff
-        return total + self.n_layers * (2 * d + attn + mlp)
+        rwkv = (5 * d * d + d * (5 * 32) + 5 * 32 * d + d * 64 + 64 * d
+                + 2 * d * self.d_ff + d * d + 10 * d)
+        for mixer, mlp_kind in self.layer_kinds():
+            total += 2 * d
+            if mixer == "rwkv":
+                total += rwkv
+            else:
+                total += attn
+            if mlp_kind == "dense":
+                total += mlp
+        return total
 
 
 @dataclasses.dataclass(frozen=True)

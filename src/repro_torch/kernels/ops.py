@@ -11,7 +11,8 @@ Two layers:
 
 * one dispatcher per kernel (``flash_attention``, ``flash_attention_bwd``,
   ``layernorm_fwd``, ``bias_gelu_fwd``, ``lamb_moments``,
-  ``paged_decode_attention``): kernel or plain version, nothing else.
+  ``paged_decode_attention``, ``wkv6``): kernel or plain version, nothing
+  else.
 * the differentiable ops the models call (``flash_attention_vjp``,
   ``layernorm``, ``bias_gelu``) and the optimizer's ``lamb_leaf_update``.
   They call the dispatchers by name at call time, so a wrapper set on
@@ -33,6 +34,7 @@ from repro_torch.kernels import lamb_update as _lu
 from repro_torch.kernels import layernorm as _ln
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as _wkv
 
 def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     if impl == "torch":
@@ -113,6 +115,17 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, kv_len, *,
     return ref.paged_decode_attention_ref(
         q, k_pages, v_pages, block_table, kv_len, k_scale=k_scale,
         v_scale=v_scale, softcap=softcap)
+
+
+def wkv6(r, k, v, logw, u, s0, *, chunk: int = 64,
+         impl: Optional[str] = None):
+    """RWKV-6 chunk recurrence.  r, k, v, logw: (B, S, H, hs); u: (H, hs);
+    s0: (B, H, hs, hs); ``min(chunk, S)`` must divide S.  Returns (o
+    (B, S, H, hs), s_final (B, H, hs, hs)), both float32.  Inference only:
+    the JAX package has no backward for it either."""
+    if _use_kernel(r, impl):
+        return _wkv.wkv6(r, k, v, logw, u, s0, chunk=chunk)
+    return ref.wkv6_ref(r, k, v, logw, u, s0, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +231,11 @@ def launch_counts() -> Dict[str, int]:
     return {"flash_fwd": _fa.launches, "flash_bwd_dq": _fa.launches_dq,
             "flash_bwd_dkv": _fa.launches_dkv,
             "paged_decode": _pa.launches, "layernorm": _ln.launches,
-            "bias_gelu": _bg.launches, "lamb_moments": _lu.launches}
+            "bias_gelu": _bg.launches, "lamb_moments": _lu.launches,
+            "wkv6": _wkv.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = _fa.launches_dq = _fa.launches_dkv = 0
     _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0
+    _wkv.launches = 0

@@ -209,3 +209,59 @@ def lamb_moments_ref(w, g, m, v, *, b1=0.9, b2=0.999, eps=1e-6, wd=0.01,
     c2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
     update = (m2 / c1) / (torch.sqrt(v2 / c2) + eps) + wd * w
     return m2, v2, update
+
+
+def wkv6_ref(r, k, v, logw, u, s0, *, chunk: int = 64):
+    """Chunk-parallel RWKV-6 recurrence (``repro/models/rwkv.py:119``
+    ``wkv6_chunked``, the math of the Pallas kernel ``_wkv6_kernel``).
+
+    r, k, v, logw: (B, S, H, hs) (logw <= 0, the log of the decay); u:
+    (H, hs); s0: (B, H, hs, hs).  ``chunk = min(chunk, S)`` must divide S.
+    Per chunk of length L, with c the inclusive cumulative sum of logw over
+    the chunk and c_prev = c - logw::
+
+        A[i, j] = sum_c r_i[c] k_j[c] e^{c_prev_i[c] - c_j[c]}   (j < i)
+        o_i     = sum_j A[i, j] v_j + (r_i . (u * k_i)) v_i
+                  + (r_i * e^{c_prev_i}) S
+        S      <- diag(e^{c_L}) S + sum_j (k_j * e^{c_L - c_j})^T v_j
+
+    Every exponent is an ordered difference of cumulative decays, <= 0:
+    no q e^{c} / k e^{-c} factorisation.  Computed and returned in float32:
+    (o (B, S, H, hs), s_final (B, H, hs, hs)).
+    """
+    b, s, h, hs = r.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"wkv6: sequence length {s} is not a multiple of "
+                         f"the chunk {chunk} (an unmasked prefill longer "
+                         "than the chunk must be a whole number of chunks)")
+    nc = s // chunk
+    f32 = torch.float32
+
+    def chunks(t):  # (B, S, H, hs) -> (nc, B, H, L, hs)
+        return t.to(f32).reshape(b, nc, chunk, h, hs).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, wc = (chunks(t) for t in (r, k, v, logw))
+    uf = u.to(f32)
+    idx = torch.arange(chunk, device=r.device)
+    tri_lt = (idx[None, :] < idx[:, None])[None, None, :, :, None]  # j < i
+    state = s0.to(f32)
+    outs = []
+    for ri, ki, vi, wi in zip(rc, kc, vc, wc):    # (B, H, L, hs) each
+        c = torch.cumsum(wi, dim=2)
+        c_prev = c - wi
+        diff = c_prev[:, :, :, None, :] - c[:, :, None, :, :]  # (B,H,L,L,hs)
+        e = torch.exp(torch.where(tri_lt, diff,
+                                  torch.full_like(diff, float("-inf"))))
+        scores = (ri[:, :, :, None, :] * e * ki[:, :, None, :, :]).sum(-1)
+        o = scores @ vi
+        bonus = (ri * uf[None, :, None, :] * ki).sum(-1)
+        o = o + bonus[..., None] * vi
+        o = o + (ri * torch.exp(c_prev)) @ state
+        c_last = c[:, :, -1:, :]
+        k_eff = ki * torch.exp(c_last - c)
+        state = torch.exp(c_last[:, :, 0, :, None]) * state + \
+            k_eff.transpose(-1, -2) @ vi
+        outs.append(o)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, hs)
+    return o, state

@@ -2,18 +2,22 @@
 one prefill and of steady-state decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-      [--cache-mode paged|paged_int8] [--steps 8] [--full-width]
+      [--arch deepseek-7b|rwkv6-1.6b] [--cache-mode paged|paged_int8] \
+      [--steps 8] [--full-width]
 
-Builds deepseek-7b (full width and depth with ``--full-width``, else the
-smoke variant) in bf16 with seeded random weights, fills 4 slots with
-1024-token prompts through ``prefill_into_slot`` (the geometry of
-``chip_smoke.py``'s serve phase), then times ``--steps`` decode steps.  For
-each phase it prints one JSON line: wall time (host clock around an
-unprofiled loop that ends in a synchronize), device busy time (sum of the
-CUDA kernels' durations in the trace of a second, profiled loop), the idle
-share (1 - busy / wall), the device time by kind of kernel (the port's
-own, GEMMs, elementwise and copies, reductions, other) and the kernels
-that took the most device time.
+Builds the model (full width and depth with ``--full-width``, else the
+smoke variant) in bf16 with seeded random weights and runs the geometry of
+``chip_smoke.py``'s serve phases.  deepseek-7b: fills 4 slots with
+1024-token prompts through ``prefill_into_slot``, in ``--cache-mode``.
+rwkv6-1.6b: the raw mode's unmasked prefill of 4 x 1024 tokens (24
+``wkv6`` launches), all on one state.  Then ``--steps``
+decode steps of the 4 slots.  For each phase it prints one JSON line: wall
+time (host clock around an unprofiled loop that ends in a synchronize),
+device busy time (sum of the CUDA kernels' durations in the trace of a
+second, profiled loop), the idle share (1 - busy / wall), the device time
+by kind of kernel (the port's own, GEMMs, elementwise and copies,
+reductions, other), each of the port's kernels' time and share of busy,
+and the kernels that took the most device time.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -49,10 +53,12 @@ def _kernel_times(prof):
     return sum(r[1] for r in rows), rows
 
 
+# the port's kernels by the name of their CUDA function
+PORT_KERNELS = ("flash_fwd", "dq_mma", "dkv_mma", "dq_f32", "dkv_f32",
+                "paged_decode", "layernorm_kernel", "bias_gelu_kernel",
+                "lamb_kernel", "wkv6_kernel")
 # device time by kind of kernel, matched on the kernel's name in order
-KINDS = (("port kernels", ("flash_fwd", "dq_mma", "dkv_mma", "dq_f32",
-                           "dkv_f32", "paged_decode", "layernorm_kernel",
-                           "bias_gelu_kernel", "lamb_kernel")),
+KINDS = (("port kernels", PORT_KERNELS),
          ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
          ("elementwise and copy", ("elementwise", "copy")),
          ("reduction", ("reduce",)))
@@ -85,9 +91,17 @@ def _phase(name, fn, iters, extra=None):
         torch.cuda.synchronize()
     busy, rows = _kernel_times(prof)
     busy /= iters
+    port = {}
+    for kname, ms, _ in rows:
+        key = next((k for k in PORT_KERNELS if k in kname), None)
+        if key is not None:
+            port[key] = port.get(key, 0.0) + ms / iters
     out = {"phase": name, "wall_ms": wall, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / wall if wall else None,
            "device_ms_by_kind": _by_kind(rows, iters),
+           "port_kernel_ms": port,
+           "port_kernel_share_of_busy": {k: ms / busy for k, ms in
+                                         port.items()} if busy else {},
            "top_kernels": [{"name": k[:90], "ms_per_iter": ms / iters,
                             "launches_per_iter": n / iters}
                            for k, ms, n in rows[:10]]}
@@ -97,21 +111,7 @@ def _phase(name, fn, iters, extra=None):
     return out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--full-width", action="store_true")
-    ap.add_argument("--cache-mode", default="paged",
-                    choices=["paged", "paged_int8"])
-    ap.add_argument("--steps", type=int, default=8)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serve measures the card: no CUDA device")
-    cfg = get_config("deepseek-7b")
-    if not args.full_width:
-        cfg = smoke_variant(cfg)
-    pol = make_policy("bf16")
-    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
-                          device="cuda")
+def _serve_deepseek(cfg, pol, params, args):
     max_len = PROMPT_LEN + 2 * args.steps + 16  # timed + profiled steps
     mp = -(-max_len // PAGE_SIZE)
     paged = T.PagedCacheConfig(page_size=PAGE_SIZE,
@@ -121,14 +121,7 @@ def main(argv=None):
                                 paged=paged, device="cuda")
     T.set_block_tables(state, 1 + np.arange(BATCH * mp, dtype=np.int32)
                        .reshape(BATCH, mp))
-    rng = np.random.default_rng(SEED)
-    toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(BATCH, PROMPT_LEN),
-        dtype=np.int32)).cuda()
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "arch": cfg.arch_id, "full_width": args.full_width,
-                      "cache_mode": args.cache_mode, "batch": BATCH,
-                      "prompt_len": PROMPT_LEN}), flush=True)
+    toks = _prompts(cfg)
     for slot in range(1, BATCH):
         prefill_into_slot(params, toks[slot:slot + 1], PROMPT_LEN,
                           state, slot, cfg, pol)
@@ -137,6 +130,53 @@ def main(argv=None):
     _phase("prefill", lambda: prefill_into_slot(
         params, toks[:1], PROMPT_LEN, state, 0, cfg, pol), 3)
     state["pos"].fill_(PROMPT_LEN)
+    return state
+
+
+def _serve_rwkv(cfg, pol, params, args):
+    state = T.init_decode_state(cfg, BATCH, PROMPT_LEN, device="cuda")
+    toks = _prompts(cfg)
+
+    # one state threads through every prefill: their cost does not depend
+    # on its values, and prefill sets pos to the prompt length each time
+    prefill = lambda: T.prefill(params, toks, cfg, pol, state=state)
+    prefill()
+    _phase("prefill", prefill, 3)
+    return state
+
+
+def _prompts(cfg):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT_LEN), dtype=np.int32)).cuda()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="deepseek-7b",
+                    choices=["deepseek-7b", "rwkv6-1.6b"])
+    ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--cache-mode", default="paged",
+                    choices=["paged", "paged_int8"],
+                    help="deepseek-7b's KV layout (rwkv6-1.6b has no KV)")
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card: no CUDA device")
+    cfg = get_config(args.arch)
+    if not args.full_width:
+        cfg = smoke_variant(cfg)
+    pol = make_policy("bf16")
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device="cuda")
+    rwkv = args.arch == "rwkv6-1.6b"
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "arch": cfg.arch_id, "full_width": args.full_width,
+                      "cache_mode": None if rwkv else args.cache_mode,
+                      "batch": BATCH, "prompt_len": PROMPT_LEN}),
+          flush=True)
+    state = (_serve_rwkv if rwkv else _serve_deepseek)(cfg, pol, params,
+                                                        args)
     cur = torch.zeros((BATCH, 1), dtype=torch.int64, device="cuda")
 
     def step():

@@ -1,15 +1,21 @@
 """Serve a decoder LM with batched requests on the card (counterpart of
 ``examples/serve.py``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve [--arch deepseek-7b] \
-      [--batch 4] [--prompt-len 32] [--new-tokens 16] \
-      [--mode raw|continuous] [--cache-mode contiguous|paged|paged_int8] \
-      [--full-width] [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      [--arch deepseek-7b|rwkv6-1.6b] [--batch 4] [--prompt-len 32] \
+      [--new-tokens 16] [--mode raw|continuous] \
+      [--cache-mode contiguous|paged|paged_int8] [--full-width] \
+      [--device cuda|cpu]
 
 ``--mode raw`` prefills a batch of random prompts and decodes it in
-lockstep, reporting tokens/s.  ``--mode continuous`` runs
-``ContinuousScheduler`` over a synthetic mixed-length workload and reports
-slot utilisation, throughput and the KV footprint.  Without ``--full-width``
+lockstep, reporting tokens/s; for rwkv6-1.6b that prefill is unmasked and
+runs the chunked ``wkv6`` kernel (a prompt longer than 64 tokens must be a
+multiple of 64).  ``--mode continuous`` runs ``ContinuousScheduler`` over
+a synthetic mixed-length workload and reports slot utilisation,
+throughput and the KV and recurrent-state footprints; rwkv6-1.6b is not
+pageable and serves with ``--cache-mode contiguous``, its slot prefills
+through the masked sequential scan.  As in the example, there is no
+cohort mode here.  Without ``--full-width``
 the model is the reduced ``smoke_variant`` (as in the example); with it the
 model has its published widths and depth and runs in bf16 (the smoke
 variant runs in f32, as the example does).  Weights are random, drawn from
@@ -61,7 +67,8 @@ def run_scheduler(args, cfg, pol, params):
                 "latency %.3fs", st.slot_utilisation, st.tokens_per_s,
                 st.decode_tokens_per_s,
                 float(np.median([r.latency_s for r in done])))
-    logger.info("KV cache bytes %d (%s)", st.cache_bytes, args.cache_mode)
+    logger.info("KV cache bytes %d (%s), recurrent state bytes %d",
+                st.cache_bytes, args.cache_mode, st.state_bytes)
     if sched.allocator is not None:
         logger.info("paged cache: %d-page pool, %d preemptions, %d pages "
                     "leaked", sched.num_pages - 1, st.preemptions,
@@ -86,11 +93,14 @@ def run_raw(args, cfg, pol, params):
     t_prefill = time.perf_counter() - t0
     logger.info("prefill: %d x %d tokens in %.3fs (%.0f tok/s)", b, s,
                 t_prefill, b * s / t_prefill)
+    # rows of logits holding a NaN or inf, counted on the device
+    nonfinite = (~torch.isfinite(logits).all(-1)).sum()
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     t0 = time.perf_counter()
     for _ in range(args.new_tokens - 1):
         logits, state = T.decode_step(params, tok, state, cfg, pol)
+        nonfinite += (~torch.isfinite(logits).all(-1)).sum()
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
     _sync(args.device)
@@ -102,12 +112,15 @@ def run_raw(args, cfg, pol, params):
                     1e3 * t_decode / (args.new_tokens - 1))
     gen_ids = torch.cat(out, dim=1).cpu().numpy()
     logger.info("generated ids (first request): %s", gen_ids[0].tolist())
+    if int(nonfinite):
+        raise RuntimeError(f"{int(nonfinite)} non-finite logit rows")
     return gen_ids
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--arch", default="deepseek-7b",
+                    choices=["deepseek-7b", "rwkv6-1.6b"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

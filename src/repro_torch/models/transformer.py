@@ -1,5 +1,5 @@
-"""Decoder-only transformer (port of the dense attention path of
-``repro/models/transformer.py``).
+"""Decoder-only LM (port of ``repro/models/transformer.py`` for dense
+attention layers and RWKV-6 layers).
 
 The reference stacks the blocks' weights on a leading axis and runs them
 with ``lax.scan``; here each layer is its own dict of tensors in a list and
@@ -9,18 +9,22 @@ a Python loop runs them in the same order (block-major, then position in
 Parameters are a plain dict::
 
     {"embed": {"tok": (V, d)}, "blocks": [layer, ...],
-     "final_norm": {"scale": (d,)}, "lm_head": (d, V)}
-    layer = {"norm1": {"scale"}, "mixer": {"wq" (d,H,Dh), "wk", "wv",
-             "wo" (H,Dh,d)}, "norm2": {"scale"}, "mlp": {"wi", "wg", "wo"}}
+     "final_norm": {"scale"[, "bias"]}, "lm_head": (d, V)}
+    attention layer = {"norm1", "mixer": {"wq" (d,H,Dh), "wk", "wv",
+                       "wo" (H,Dh,d)}, "norm2", "mlp": {"wi", "wg", "wo"}}
+    rwkv layer = {"norm1", "mixer": time mix, "norm2", "mlp": channel mix}
+                 (``models/rwkv.py``; norms are LayerNorms with a bias)
 
-The decode state is ``{"pos": (B,) int32, "blocks": [{"cache": ...}, ...]}``
-and is updated in place by ``prefill`` and ``decode_step``, which return
-the same dict.  In a paged state every layer's cache holds the same
-``block_table`` tensor: one logical allocation per slot serves all layers
-(the reference keeps one stacked copy per block).
+The decode state is ``{"pos": (B,) int32, "blocks": [layer state, ...]}``
+with ``{"cache": ...}`` for an attention layer and ``{"tm_shift", "wkv",
+"cm_shift"}`` (fp32) for an rwkv layer.  ``prefill`` and ``decode_step``
+update it in place and return the same dict.  In a paged state every
+layer's cache holds the same ``block_table`` tensor: one logical
+allocation per slot serves all layers (the reference keeps one stacked
+copy per block).
 
-MoE, mamba, rwkv, cross-attention, sliding-window and M-RoPE layers belong
-to later slices and raise ``NotImplementedError``.
+MoE, mamba, cross-attention, sliding-window and M-RoPE layers belong to
+later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amp import Policy
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RW
+
+LAYER_KINDS = (("attn", "dense"), ("rwkv", "rwkv_cm"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,14 +53,13 @@ class PagedCacheConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architecture features this slice does not port."""
-    for mixer, mlp in cfg.block_pattern:
-        if mixer != "attn":
+    """Raise for architecture features the port does not run yet."""
+    for kind in cfg.block_pattern:
+        if tuple(kind) not in LAYER_KINDS:
             raise NotImplementedError(
-                f"{mixer} mixers port with the architecture-family slice")
-        if mlp != "dense":
-            raise NotImplementedError(
-                f"{mlp} MLPs port with the architecture-family slice")
+                f"{kind} layers: the port runs {LAYER_KINDS}; MoE, mamba "
+                "and the local/global attention mixers come with later "
+                "architecture-family slices")
     if cfg.is_encoder_decoder or cfg.is_encoder_only:
         raise NotImplementedError("encoder-decoder and encoder-only models "
                                   "port with the family and BERT slices")
@@ -78,13 +84,17 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=device)
     params = {"embed": L.init_embedding(cfg, gen, **kw), "blocks": []}
-    for _ in cfg.layer_kinds():
-        params["blocks"].append({
-            "norm1": L.init_norm(cfg, **kw),
-            "mixer": L.init_attention(cfg, gen, **kw),
-            "norm2": L.init_norm(cfg, **kw),
-            "mlp": L.init_mlp(cfg, gen, **kw),
-        })
+    for mixer, _ in cfg.layer_kinds():
+        if mixer == "rwkv":
+            mix, mlp = (RW.init_time_mix(cfg, gen, **kw),
+                        RW.init_channel_mix(cfg, gen, **kw))
+        else:
+            mix, mlp = (L.init_attention(cfg, gen, **kw),
+                        L.init_mlp(cfg, gen, **kw))
+        params["blocks"].append({"norm1": L.init_norm(cfg, **kw),
+                                 "mixer": mix,
+                                 "norm2": L.init_norm(cfg, **kw),
+                                 "mlp": mlp})
     params["final_norm"] = L.init_norm(cfg, **kw)
     params["lm_head"] = L.trunc_normal((cfg.d_model, cfg.vocab_size), gen,
                                        **kw)
@@ -97,7 +107,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> dict:
     """Per-layer decode state with per-slot positions ``pos`` (B,).
     ``paged`` replaces each slot's contiguous (max_len, KV, Dh) stripe with
-    the global page pool and one block table shared by all layers."""
+    the global page pool and one block table shared by all layers.  An
+    rwkv layer holds its fp32 recurrent rows and no cache (``max_len`` and
+    ``cache_dtype`` do not apply to it)."""
     check_supported(cfg)
     blocks = []
     table = None
@@ -105,7 +117,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         max_pages = -(-max_len // paged.page_size)
         table = torch.zeros((batch, max_pages), dtype=torch.int32,
                             device=device)
-    for _ in cfg.layer_kinds():
+    for mixer, _ in cfg.layer_kinds():
+        if mixer == "rwkv":
+            blocks.append(RW.init_rwkv_state(cfg, batch, device=device))
+            continue
         if paged is not None:
             cache = L.init_paged_attention_cache(
                 cfg, batch, paged.num_pages, paged.page_size,
@@ -124,7 +139,7 @@ def set_block_tables(state: dict, rows, slot: Optional[int] = None) -> dict:
     (B, max_pages) for the whole batch or (max_pages,) for one ``slot``."""
     seen = set()
     for st in state["blocks"]:
-        bt = st["cache"].get("block_table")
+        bt = st.get("cache", {}).get("block_table")
         if bt is None or id(bt) in seen:
             continue
         seen.add(id(bt))
@@ -164,9 +179,32 @@ def _fit_cache(new_cache: dict, state: dict, valid_len=None) -> None:
         cache[key][:, s:] = 0
 
 
-def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, *, state=None,
-                 decode_pos=None, valid_len=None,
+def _apply_rwkv_layer(p, x, cfg: ModelConfig, policy: Policy, *,
+                      state=None, valid_len=None,
+                      impl: Optional[str] = None):
+    """Time mix and channel mix, each behind a LayerNorm; with a state the
+    recurrent rows are read and then overwritten in place."""
+    h = L.apply_norm(p["norm1"], x, cfg, policy, impl=impl)
+    y, ns = RW.apply_time_mix(p["mixer"], h, cfg, policy, state=state,
+                              return_state=state is not None,
+                              valid_len=valid_len, impl=impl)
+    x = x + y.to(x.dtype)
+    h = L.apply_norm(p["norm2"], x, cfg, policy, impl=impl)
+    y2, ns2 = RW.apply_channel_mix(p["mlp"], h, cfg, policy, state=state,
+                                   return_state=state is not None,
+                                   valid_len=valid_len)
+    if state is not None:
+        for key, t in {**ns, **ns2}.items():
+            state[key].copy_(t)
+    return x + y2.to(x.dtype)
+
+
+def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
+                 state=None, decode_pos=None, valid_len=None,
                  impl: Optional[str] = None):
+    if mixer == "rwkv":
+        return _apply_rwkv_layer(p, x, cfg, policy, state=state,
+                                 valid_len=valid_len, impl=impl)
     h = L.apply_norm(p["norm1"], x, cfg, policy)
     cache = state.get("cache") if state is not None else None
     if cache is not None and decode_pos is not None:
@@ -211,9 +249,9 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
     """Full forward of (B, S) tokens -> logits (B, S, V).  (The reference
     also returns the MoE aux loss, which a dense model does not have.)"""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-    for p in params["blocks"]:
-        x = _apply_layer(p, x, cfg, policy, impl=impl)
-    x = L.apply_norm(params["final_norm"], x, cfg, policy)
+    for p, (mixer, _) in zip(params["blocks"], cfg.layer_kinds()):
+        x = _apply_layer(p, x, cfg, policy, mixer, impl=impl)
+    x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
     return _lm_logits(params, x, cfg, policy)
 
 
@@ -222,11 +260,14 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
     """Run the prompt (B, S) through the model, filling ``state`` in place.
     Returns (last-token logits (B, V), state).  ``lengths`` (B,) are the
     true lengths of right-padded prompts: logits are taken at
-    ``lengths - 1`` and decode resumes at ``lengths``."""
+    ``lengths - 1`` and decode resumes at ``lengths``; rwkv layers then
+    run the masked sequential scan, without ``lengths`` the chunked one
+    (``kops.wkv6``)."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-    for p, st in zip(params["blocks"], state["blocks"]):
-        x = _apply_layer(p, x, cfg, policy, state=st, valid_len=lengths,
-                         impl=impl)
+    for p, st, (mixer, _) in zip(params["blocks"], state["blocks"],
+                                 cfg.layer_kinds()):
+        x = _apply_layer(p, x, cfg, policy, mixer, state=st,
+                         valid_len=lengths, impl=impl)
     b, s = tokens.shape
     if lengths is None:
         x_last = x[:, -1:]
@@ -235,7 +276,8 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
         lengths = torch.as_tensor(lengths, device=x.device).to(torch.int32)
         x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
         new_pos = lengths
-    x_last = L.apply_norm(params["final_norm"], x_last, cfg, policy)
+    x_last = L.apply_norm(params["final_norm"], x_last, cfg, policy,
+                          impl=impl)
     logits = _lm_logits(params, x_last, cfg, policy)[:, 0]
     state["pos"].copy_(new_pos)
     return logits, state
@@ -248,10 +290,11 @@ def decode_step(params, token, state, cfg: ModelConfig, policy: Policy, *,
     state) with the state updated in place."""
     pos = state["pos"]
     x = L.embed_tokens(params["embed"], token, cfg, policy)
-    for p, st in zip(params["blocks"], state["blocks"]):
-        x = _apply_layer(p, x, cfg, policy, state=st, decode_pos=pos,
+    for p, st, (mixer, _) in zip(params["blocks"], state["blocks"],
+                                 cfg.layer_kinds()):
+        x = _apply_layer(p, x, cfg, policy, mixer, state=st, decode_pos=pos,
                          impl=impl)
-    x = L.apply_norm(params["final_norm"], x, cfg, policy)
+    x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
     logits = _lm_logits(params, x, cfg, policy)[:, 0]
     state["pos"] += 1
     return logits, state

@@ -11,8 +11,15 @@ granted at admission, grown one at a time during decode and returned at
 eviction; the youngest slot is preempted when the pool runs dry).
 ``Request.deadline_s`` evicts a request past its wall-clock budget.
 
-The host policy is numpy and Python, as in the reference.  The prefix trie,
-copy-on-write and ``CohortScheduler`` come with the next serving slice.
+The scheduler sees slots only through ``SlotStateAdapter``, so a recurrent
+architecture (rwkv6-1.6b) serves through the same loop: it is not
+pageable, so it takes ``cache_mode="contiguous"`` and holds no KV at all
+(``cache_bytes`` 0); its per-slot state is the fixed-size recurrent rows
+(``state_bytes``), and every admission runs the masked sequential scan.
+
+The host policy is numpy and Python, as in the reference.  The prefix trie
+and copy-on-write (ROADMAP Queue 1 item 2) and ``CohortScheduler`` (item
+3) are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ class ServeStats:
     nonfinite_logits: int = 0    # prefills / live decode rows whose logits
     #                              held a NaN or inf (the chip smoke wants 0)
     cache_bytes: int = 0         # self-attention KV: pages/tables or stripes
-    state_bytes: int = 0         # per-slot non-KV state
+    state_bytes: int = 0         # recurrent rows over the batch
 
     @property
     def slot_utilisation(self) -> float:

@@ -146,7 +146,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "paged_decode": 0, "layernorm": 0, "bias_gelu": 0,
-        "lamb_moments": 0}
+        "lamb_moments": 0, "wkv6": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -196,7 +196,7 @@ def test_build_names_every_source():
     """Every CUDA source builds into its own content-addressed library."""
     srcs = build.sources()
     assert set(srcs) == {"flash_fwd", "paged_decode", "flash_bwd",
-                         "layernorm", "bias_gelu", "lamb_update"}
+                         "layernorm", "bias_gelu", "lamb_update", "wkv6"}
     for name in srcs:
         path = build.lib_path(name)
         assert path.parent == build.BUILD_DIR
