@@ -29,17 +29,26 @@
    call's own inputs at the tolerance above (30 flash calls at the full
    (1, 32, 1024, 128) shape, 120 paged calls), and the logits of the two
    paths must agree within the bound stated for each dtype.
-5. Training kernel phase: the four kernels of the BERT training path
-   against their plain versions -- flash backward (dq and dk/dv kernels)
-   over causal x window x softcap in f32 and bf16 with ragged lengths, in
-   the (B, H, S, Dh) and the model's (B, S, H, Dh) layouts; LayerNorm and
-   bias-GELU at the reference test shapes; LAMB at n in {128, 1000, 65553}
-   -- then at the path shapes (flash forward and backward bidirectional at
-   (64, 16, 128, 64) and (32, 16, 512, 64) bf16, LayerNorm 8192 x 1024,
-   bias-GELU 8192 x 4096, LAMB over the largest leaf group), timed as
-   above beside the plain version, the bound and, where one PyTorch call
-   computes the same function, that call (flash backward: the backward of
-   ``scaled_dot_product_attention``; LayerNorm: ``F.layer_norm``).
+5. Training kernel phase: the kernels of the BERT training path against
+   their plain versions -- the flash backward (pre-pass, main pass and, in
+   bf16 over more than one 128-key tile, post-pass, as
+   ``flash_attention_bwd`` launches them) over causal x
+   window x softcap in f32 and bf16 with ragged lengths (S 256, 200, 130;
+   Dh 64, 128, 32), in the (B, H, S, Dh) and the model's (B, S, H, Dh)
+   layouts, each of dq, dk, dv within the tolerance above and the
+   relative L2 bound of its dtype; LayerNorm and bias-GELU at the
+   reference test shapes; LAMB at n in {128, 1000, 65553} -- then at the
+   path shapes: flash forward and backward bidirectional at
+   (64, 16, 128, 64) and (32, 16, 512, 64) bf16 (the whole backward timed,
+   one JSON entry a shape, with the spread of each kernel it launches; at
+   phase 1, where the main pass writes dq itself, the accumulator route is
+   also held and timed on the same inputs; SDPA's forward and backward
+   timed beside them), LayerNorm 8192 x 1024, bias-GELU 8192 x 4096, LAMB
+   over the largest leaf group; timed as above beside the plain version,
+   the bound and, where one PyTorch call computes the same function, that
+   call
+   (flash backward: the backward of ``scaled_dot_product_attention``;
+   LayerNorm: ``F.layer_norm``).
 6. wkv6 kernel phase: the RWKV-6 recurrence against its plain version at
    the CPU tests' cases (s, chunk) in {(128, 32), (256, 64), (64, 64),
    (32, 64)} plus chunks of 6 and 60 rows, f32 and bf16 inputs, inputs
@@ -64,12 +73,16 @@
    ``launch/pretrain_bert.py`` at full width and depth (bert-large, bf16,
    LAMB, accumulation 2, ``--batch 128``: 4 phase-1 steps of 128 x 128
    tokens and 1 phase-2 step of 64 x 512), launch counts zeroed before and
-   read after (every kernel of the path must have launched), every loss
-   finite.  Then one step from a fresh state on a phase-1 batch through the
-   kernels and through the plain versions, in f32 and in bf16: loss, every
-   gradient group and the master-weight update must agree within the bound
-   stated for each dtype, and every kernel call of the kernel path is held
-   against its plain version on that call's own inputs.
+   read after (every kernel of the path must have launched; the flash
+   backward's main-pass launches, counted by the wrapper by sequence
+   length, must add up), every loss finite.  Then one step from a fresh
+   state on a phase-1 batch through the kernels and through the plain
+   versions, in f32 and in bf16: loss, every gradient group and the
+   master-weight update must agree within the bound stated for each dtype,
+   and every kernel call of the kernel path is held against its plain
+   version on that call's own inputs.  Last, one bf16 gradient step on a
+   phase-2 batch (8 x 512: the dQ accumulator and post-pass) with every
+   flash backward call held the same way.
 9. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -137,7 +150,9 @@ def nvidia_smi() -> str:
 
 class Timer:
     """Device time of a callable: CUDA events around each launch, the L2
-    cache flushed (a 256 MB write) before every one."""
+    cache flushed (a 256 MB write) before every one, then a spin of ~0.5 ms
+    on the card so that the host has queued all of the callable's kernels
+    before the first starts: the time is the card's, not the host's."""
 
     def __init__(self):
         self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
@@ -150,6 +165,7 @@ class Timer:
         out = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -194,6 +210,19 @@ def check_close(name: str, got, want, dtype) -> float:
         raise AssertionError(f"{name}: outside rtol = atol = {TOL[dtype]} "
                              f"(max abs err {err:.3e})")
     return err
+
+
+def check_grad(name: str, got, want, dtype):
+    """``check_close``, and raise unless the relative L2 error is within
+    CALL_REL_L2_BOUND[dtype]: gradients of randn inputs run to ~0.05, where
+    the elementwise tolerance is mostly its absolute part.  Returns (max
+    abs error, relative L2 error)."""
+    err = check_close(name, got, want, dtype)
+    rel = rel_l2(got, want)
+    if not rel <= CALL_REL_L2_BOUND[dtype]:
+        raise AssertionError(f"{name}: relative L2 error {rel:.3e} above "
+                             f"{CALL_REL_L2_BOUND[dtype]}")
+    return err, rel
 
 
 def bound(nbytes, flops, dtype=torch.bfloat16):
@@ -847,6 +876,16 @@ TRAIN_ATTN = ((64, 16, 128, 64), (32, 16, 512, 64))
 TRAIN_ROWS, D_MODEL, D_FF = 64 * 128, 1024, 4096
 
 
+def flash_bwd_bound(b, h, s, dh, causal=False, item=2):
+    """(bound ms, by) of the whole FlashAttention backward as a function of
+    its inputs: the bytes of q, k, v, out and dO read and dq, dk, dv
+    written once (8 activations of B H S Dh at ``item`` bytes) plus lse
+    (fp32), against 10 operations per (query, key) pair and channel (the
+    five products S, dP, dV, dK, dQ), only unmasked pairs when causal."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return bound(8 * b * h * s * dh * item + b * h * s * 4, 10 * pairs * dh)
+
+
 def flash_bwd_phase(ops, fa, timer):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
 
@@ -860,11 +899,17 @@ def flash_bwd_phase(ops, fa, timer):
     def check(tag, q, k, v, do, dtype, **kw):
         out, lse = ops.flash_attention(q, k, v, **kw)
         got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-        want = ops.flash_attention_bwd(q, k, v, out, lse, do, impl="torch",
-                                       **kw)
+        return held(tag, got, ops.flash_attention_bwd(
+            q, k, v, out, lse, do, impl="torch", **kw), dtype)
+
+    worst_rel = collections.defaultdict(float)
+
+    def held(tag, got, want, dtype):
         torch.cuda.synchronize()
-        return max(check_close(f"{tag} d{n}", g, w, dtype)
-                   for g, w, n in zip(got, want, "qkv"))
+        errs = [check_grad(f"{tag} d{n}", g, w, dtype)
+                for g, w, n in zip(got, want, "qkv")]
+        worst_rel[dtype] = max(worst_rel[dtype], *(r for _, r in errs))
+        return max(e for e, _ in errs)
 
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -880,10 +925,13 @@ def flash_bwd_phase(ops, fa, timer):
                           f"model_layout={ml}", q, k, v, do, dtype,
                           causal=causal, window=window, softcap=softcap)
                     cases += 1
-    log(f"flash backward small cases: {cases} agree with the plain version")
+    log(f"flash backward small cases: {cases} agree with the plain version "
+        f"(worst relative L2 of dq, dk, dv: " + ", ".join(
+            f"{dt} {r:.3e}" for dt, r in worst_rel.items()) + ")")
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     entries = {}
-    for shape in TRAIN_ATTN:
+    for phase, shape in enumerate(TRAIN_ATTN, start=1):
         b, h, s, dh = shape
         dtype = torch.bfloat16
         q, k, v, do = (rand(shape, dtype, True) for _ in range(4))
@@ -895,41 +943,61 @@ def flash_bwd_phase(ops, fa, timer):
         check_close(f"flash fwd {shape} bidirectional lse", lse, want_lse,
                     dtype)
         fwd_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=False))
+        fwd_lib_ms = timer.ms(lambda: sdpa(q, k, v))
         err = check(f"flash bwd {shape} bidirectional", q, k, v, do, dtype,
                     causal=False)
-        delta = (do.float() * out.float()).sum(-1).contiguous()
-        dq_ms = timer.times(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, causal=False))
-        dkv_ms = timer.times(lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, causal=False))
+        # the whole backward as flash_attention_bwd launches it, then each
+        # of its kernels alone on one call's buffers
+        times = timer.times(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=False))
+        ms = float(np.mean(times))
+        bufs = fa.bwd_buffers(q, s)
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        parts = {name: timer.times(lambda: fa.bwd_launch(
+            part, q, k, v, out, lse, do, bufs, grads, causal=False, window=0,
+            softcap=0.0)) for name, part in (
+                ("pre-pass", fa.PREP), ("main pass", fa.MAIN),
+                ("post-pass", fa.POST)) if part & fa.bwd_parts(bufs)}
+        routes = ""
+        if not fa.bwd_parts(bufs) & fa.POST:
+            # the wrapper writes dq from the main pass here (one KV tile):
+            # the accumulator route on the same inputs, held and timed
+            acc_bufs = bufs[:2] + (torch.empty(q.shape, dtype=torch.float32,
+                                               device=DEVICE),)
+            route = {}
+            for name, b_ in (("direct", bufs), ("accumulator", acc_bufs)):
+                route[name] = timer.times(lambda: fa.bwd_launch(
+                    fa.bwd_parts(b_), q, k, v, out, lse, do, b_, grads,
+                    causal=False, window=0, softcap=0.0))
+            held(f"flash bwd {shape} accumulator route", grads,
+                 ops.flash_attention_bwd(q, k, v, out, lse, do, causal=False,
+                                         impl="torch"), dtype)
+            routes = "; dq " + "; ".join(
+                f"{n} route {float(np.mean(t)):.4f} ms ({spread(t)})"
+                for n, t in route.items())
         plain_ms = timer.ms(lambda: ops.flash_attention_bwd(
             q, k, v, out, lse, do, causal=False, impl="torch"))
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
-        lib_ms = timer.ms(lambda: torch.autograd.grad(
+        sdpa_out = sdpa(qg, kg, vg)
+        lib_times = timer.times(lambda: torch.autograd.grad(
             sdpa_out, (qg, kg, vg), do, retain_graph=True))
+        lib_ms = float(np.mean(lib_times))
         del sdpa_out
-        item, pairs = q.element_size(), b * h * s * s   # bidirectional
-        act = q.numel() * item
-        rows = b * h * s * 4                 # one f32 (B, H, S): lse, delta
-        dq_bound = bound(5 * act + 2 * rows, 6 * pairs * dh)
-        dkv_bound = bound(6 * act + 2 * rows, 8 * pairs * dh)
-        fwd_bound = bound(4 * act + rows, 4 * pairs * dh)
+        bd = flash_bwd_bound(b, h, s, dh, item=q.element_size())
+        fwd_bound = bound(4 * q.numel() * q.element_size() + b * h * s * 4,
+                          4 * b * h * s * s * dh)
         log(f"flash {shape} bf16 bidirectional: forward max err "
-            f"{fwd_err:.3e}, {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f}); "
-            f"backward max err {err:.3e}, dq kernel "
-            f"{float(np.mean(dq_ms)):.4f} ms (bound {dq_bound[0]:.4f}, "
-            f"{dq_bound[1]}), dkv kernel {float(np.mean(dkv_ms)):.4f} ms "
-            f"(bound {dkv_bound[0]:.4f}, {dkv_bound[1]}), plain backward "
-            f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms; dq "
-            f"{spread(dq_ms)}; dkv {spread(dkv_ms)}")
-        if shape == TRAIN_ATTN[0]:   # the row: the phase-1 shape
-            entries["flash_bwd_dq"] = entry(
-                "flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:272",
-                err, float(np.mean(dq_ms)), plain_ms, *dq_bound, lib_ms)
-            entries["flash_bwd_dkv"] = entry(
-                "flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:288",
-                err, float(np.mean(dkv_ms)), plain_ms, *dkv_bound, lib_ms)
+            f"{fwd_err:.3e}, {fwd_ms:.4f} ms, sdpa forward {fwd_lib_ms:.4f} "
+            f"ms (bound {fwd_bound[0]:.4f}); backward max err {err:.3e}, "
+            f"{ms:.4f} ms ({' + '.join(parts)}; bound {bd[0]:.4f} "
+            f"ms, {bd[1]}), {ms / lib_ms:.2f}x sdpa backward {lib_ms:.4f} "
+            f"ms, plain backward {plain_ms:.4f} ms; backward "
+            f"{spread(times)}; sdpa backward {spread(lib_times)}; "
+            + "; ".join(f"{n} {spread(t)}" for n, t in parts.items())
+            + routes)
+        entries[f"flash_bwd_phase{phase}"] = entry(
+            f"flash_bwd_phase{phase}", "flash_bwd.cu",
+            "flash_attention.py:272", err, ms, plain_ms, *bd, lib_ms)
     return entries
 
 
@@ -1053,8 +1121,8 @@ def lamb_phase(ops, timer, n_path):
 # training phase
 # ---------------------------------------------------------------------------
 
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layernorm",
-                 "bias_gelu", "lamb_moments")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd", "flash_bwd_post",
+                 "layernorm", "bias_gelu", "lamb_moments")
 TRAIN_ARGS = ["--full-width", "--steps", "5", "--batch", "128", "--accum",
               "2", "--precision", "bf16", "--device", DEVICE, "--seed",
               str(SEED)]
@@ -1079,6 +1147,9 @@ HELD = ("flash_attention", "flash_attention_bwd", "layernorm_fwd",
 
 
 def train_run(ops, pretrain_bert, workdir):
+    """Returns the launch counts, among them the backward's main-pass
+    launches by sequence length (``flash_bwd_s128``, ``flash_bwd_s512``),
+    which must add up to the main pass's count."""
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     cfg, state, history = pretrain_bert.run(TRAIN_ARGS
@@ -1098,6 +1169,11 @@ def train_run(ops, pretrain_bert, workdir):
     for k in TRAIN_KERNELS:
         if counts[k] <= 0:
             raise AssertionError(f"train: kernel {k} never launched")
+    by_seq = {k: n for k, n in counts.items() if k.startswith("flash_bwd_s")}
+    if sum(by_seq.values()) != counts["flash_bwd"] or set(by_seq) != {
+            f"flash_bwd_s{s}" for _, _, s, _ in TRAIN_ATTN}:
+        raise AssertionError(f"train: main-pass launches by length {by_seq} "
+                             f"vs {counts['flash_bwd']} in all")
     log(f"train bert-large full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, launches {counts}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1159,10 +1235,40 @@ def train_parity(ops, api, ts, TrainConfig, ShardedLoader, make_policy,
     return res
 
 
-def check_train_parity(res: dict) -> None:
-    tag, bd = f"train parity {res['dtype']}", TRAIN_BOUND[res["dtype"]]
-    if not res["finite"]:
-        raise AssertionError(f"{tag}: non-finite kernel-path gradients")
+def bwd_hold_inputs(api, ts, TrainConfig, InputShape, make_policy, cfg):
+    """(state, batch, tcfg, policy) of ``bwd_hold``: a fresh bf16 LAMB
+    state of ``cfg`` and a seeded phase-2 batch of 8 x 512 tokens, four KV
+    tiles of 128 keys, so the backward runs its dQ accumulator and
+    post-pass, as every phase-2 step does."""
+    pol = make_policy("bf16")
+    tcfg = TrainConfig(precision="bf16", accum_steps=1, optimizer="lamb")
+    state = ts.init_train_state(
+        api.init_params(cfg, seed=SEED, device=DEVICE), pol, tcfg)
+    batch = api.to_device(api.make_synth_batch(
+        SEED, cfg, InputShape("phase2", 512, 8, "train")), DEVICE)
+    return state, batch, tcfg, pol
+
+
+def bwd_hold(ops, ts, cfg, state, batch, tcfg, pol) -> dict:
+    """One gradient step with every ``ops.flash_attention_bwd`` call held
+    against the plain version on that call's inputs (elementwise TOL and
+    relative L2 CALL_REL_L2_BOUND); ``check_calls`` judges the readings."""
+    k = "flash_attention_bwd"
+    record = {k: []}
+    with held_against_plain(ops, record, {k: (None, False)}):
+        ts.step_gradients(state, batch, cfg=cfg, tcfg=tcfg, policy=pol)
+        torch.cuda.synchronize()
+    res = {"dtype": pol.compute_dtype, **call_summary(record)}
+    log(f"phase-2 backward hold {pol.compute_dtype}: {k} "
+        f"{res['calls_outside'][k]}/{res['calls'][k]} calls outside, max err "
+        f"{res['call_max_err'][k]:.3e}, max rel L2 "
+        f"{res['call_max_rel'][k]:.3e}")
+    return res
+
+
+def check_calls(tag, res: dict) -> None:
+    """Every kernel of ``res`` called, each call within the elementwise
+    tolerance and the relative L2 bound of the dtype."""
     for k, n in res["calls"].items():
         if n == 0:
             raise AssertionError(f"{tag}: {k} was never called")
@@ -1172,6 +1278,13 @@ def check_train_parity(res: dict) -> None:
         if not res["call_max_rel"][k] <= CALL_REL_L2_BOUND[res["dtype"]]:
             raise AssertionError(f"{tag}: a {k} call departs from the plain "
                                  f"version (rel L2 {res['call_max_rel'][k]:.3e})")
+
+
+def check_train_parity(res: dict) -> None:
+    tag, bd = f"train parity {res['dtype']}", TRAIN_BOUND[res["dtype"]]
+    if not res["finite"]:
+        raise AssertionError(f"{tag}: non-finite kernel-path gradients")
+    check_calls(tag, res)
     for key, name in (("loss_rel", "loss"), ("grad_rel", "grad"),
                       ("update_rel", "update")):
         if not res[key] <= bd[name]:
@@ -1187,6 +1300,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import InputShape
     from repro_torch.core.amp import make_policy
     from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.kernels import build, ops
@@ -1226,9 +1340,9 @@ def main(argv=None) -> int:
     train_entries["layernorm"] = layernorm_phase(ops, timer)
     train_entries["bias_gelu"] = bias_gelu_phase(ops, timer)
     train_entries["lamb_moments"] = lamb_phase(ops, timer, largest)
-    entries += [train_entries[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
-                                           "layernorm", "bias_gelu",
-                                           "lamb_moments")]
+    entries += [train_entries[k] for k in (
+        "flash_bwd_phase1", "flash_bwd_phase2", "layernorm", "bias_gelu",
+        "lamb_moments")]
     entries.append(wkv6_phase(ops, timer))
     del timer
     torch.cuda.empty_cache()
@@ -1281,6 +1395,10 @@ def main(argv=None) -> int:
                 ops, api, ts, TrainConfig, ShardedLoader, make_policy, bert,
                 workdir, precision))
             torch.cuda.empty_cache()
+    check_calls("phase-2 backward hold", bwd_hold(
+        ops, ts, bert, *bwd_hold_inputs(api, ts, TrainConfig, InputShape,
+                                        make_policy, bert)))
+    torch.cuda.empty_cache()
 
     by_name = {
         "flash_fwd": launches["paged"]["flash_fwd"]
@@ -1289,6 +1407,9 @@ def main(argv=None) -> int:
         "paged_decode_int8": launches["paged_int8"]["paged_decode"],
     }
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
+    for phase, (_, _, s, _) in enumerate(TRAIN_ATTN, start=1):
+        by_name[f"flash_bwd_phase{phase}"] = launches["train"][
+            f"flash_bwd_s{s}"]
     by_name["layernorm"] += (launches["rwkv_raw"]["layernorm"]
                              + launches["rwkv_continuous"]["layernorm"])
     by_name["wkv6"] = (launches["rwkv_raw"]["wkv6"]

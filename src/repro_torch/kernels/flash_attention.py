@@ -3,15 +3,17 @@
 
 Replace ``repro/kernels/flash_attention.py:107`` ``flash_attention`` (Pallas
 kernel ``_flash_kernel``) and ``:247`` ``flash_attention_bwd`` (Pallas
-kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``).  The
-kernels' design notes (tiling, dead-tile skip, what bounds them) are at the
-top of the CUDA sources.  These wrappers check what the kernels take,
-allocate the outputs, launch on PyTorch's current stream and count the
-launches.  The plain versions are ``kernels.ref.flash_attention_ref`` and
+kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``; here a
+pre-pass, one fused main pass and a post-pass).  The kernels' design notes
+(tiling, dead-tile skip, what bounds them) are at the top of the CUDA
+sources.  These wrappers check what the kernels take, allocate the outputs,
+launch on PyTorch's current stream and count the launches.  The plain
+versions are ``kernels.ref.flash_attention_ref`` and
 ``flash_attention_bwd_ref``; ``kernels.ops`` picks between them by device.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -22,9 +24,12 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
-launches = 0       # forward launches in this process (ops.launch_counts)
-launches_dq = 0    # backward dq launches
-launches_dkv = 0   # backward dk/dv launches
+launches = 0            # forward launches in this process (ops.launch_counts)
+launches_bwd_prep = 0   # backward pre-pass launches
+launches_bwd = 0        # backward main-pass launches
+launches_bwd_post = 0   # backward post-pass launches (bf16 only)
+# backward main-pass launches by q's sequence length
+launches_bwd_by_seq = collections.Counter()
 
 
 def _fn():
@@ -50,6 +55,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     _check_operands("flash_attention", q, q=q, k=k, v=v)
+    _check_cuda("flash_attention", q=q, k=k, v=v)
     if dh not in _HEAD_DIMS or k.shape[-1] != dh or v.shape != k.shape:
         raise ValueError(f"flash_attention: head dim {dh} (q) / {k.shape} "
                          f"(k) / {v.shape} (v); the kernel takes Dh in "
@@ -77,20 +83,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _check_operands(what, ref, **tensors):
-    """CUDA tensors of one dtype (float32 or bfloat16) with a contiguous
-    last dim."""
+    """One dtype (float32 or bfloat16) with a contiguous last dim."""
     for name, t in tensors.items():
         if t.dtype == torch.float16:
             raise TypeError(f"{what}: {name} is float16; the kernel takes "
                             "float32 or bfloat16 (f16 kernels are not "
                             "written yet)")
-        if not t.is_cuda:
-            raise ValueError(f"{what}: {name} is not a CUDA tensor")
         if t.dtype != ref.dtype or t.dtype not in _DTYPES:
             raise TypeError(f"{what}: {name} has dtype {t.dtype}; the kernel "
                             "takes float32 or bfloat16 for all")
         if t.stride(-1) != 1:
             raise ValueError(f"{what}: {name}'s head dim must be contiguous")
+
+
+def _check_cuda(what, **tensors):
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is not a CUDA tensor")
 
 
 def _check_rows(what, **tensors):
@@ -102,36 +111,43 @@ def _check_rows(what, **tensors):
                              "rows")
 
 
-def _bwd_fn(name):
-    fn = getattr(build.load("flash_bwd"), name)
+def _bwd_fn():
+    fn = build.load("flash_bwd").flash_bwd
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        n_out = 1 if name == "flash_bwd_dq" else 2
-        fn.argtypes = ([i32, i32] + [ptr] * (6 + n_out + 1)
-                       + [i32] * 6 + [ctypes.c_float] * 2 + [ptr])
+        # parts, dtype, D; q, k, v, out, dout, lse, lse2, delta; pitch; dq,
+        # dq_acc, dk, dv, strides; B, H, Sq, Skv, causal, window; softcap,
+        # scale; stream
+        fn.argtypes = ([i32] * 3 + [ptr] * 8 + [i32] + [ptr] * 5 + [i32] * 6
+                       + [ctypes.c_float] * 2 + [ptr])
         fn.restype = i32
     return fn
 
 
-def _check_bwd(q, k, v, dout, lse, delta):
+def _check_bwd(q, k, v, out, lse, dout):
+    """What the backward kernels take, checked before the device so that
+    the CPU tests reach every refusal: float32 or bfloat16 throughout,
+    equal head counts, Dh in _HEAD_DIMS, bf16 rows 16-byte aligned, then
+    CUDA tensors."""
     b, h, sq, dh = q.shape
-    _check_operands("flash_attention_bwd", q, q=q, k=k, v=v, dout=dout)
+    what = "flash_attention_bwd"
+    _check_operands(what, q, q=q, k=k, v=v, out=out, dout=dout)
     if dh not in _HEAD_DIMS or k.shape[-1] != dh or v.shape != k.shape:
-        raise ValueError(f"flash_attention_bwd: head dim {dh} (q) / "
-                         f"{tuple(k.shape)} (k) / {tuple(v.shape)} (v); the "
-                         f"kernels take Dh in {_HEAD_DIMS} and equal k, v "
-                         "shapes")
+        raise ValueError(f"{what}: head dim {dh} (q) / {tuple(k.shape)} (k) "
+                         f"/ {tuple(v.shape)} (v); the kernels take Dh in "
+                         f"{_HEAD_DIMS} and equal k, v shapes")
     if k.shape[1] != h:
-        raise ValueError(f"flash_attention_bwd: {h} query heads and "
-                         f"{k.shape[1]} KV heads; the backward kernels take "
-                         "equal head counts (GQA backward is not written)")
-    if k.shape[0] != b or dout.shape != q.shape:
-        raise ValueError("flash_attention_bwd: q, k, dout do not match")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (not t.is_cuda or t.dtype != torch.float32
-                or t.shape != (b, h, sq) or not t.is_contiguous()):
-            raise ValueError(f"flash_attention_bwd: {name} must be a "
-                             "contiguous (B, H, Sq) float32 CUDA tensor")
+        raise ValueError(f"{what}: {h} query heads and {k.shape[1]} KV "
+                         "heads; the backward kernels take equal head "
+                         "counts (GQA backward is not written)")
+    if k.shape[0] != b or out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{what}: q, k, out, dout do not match")
+    _check_rows(what, q=q, k=k, v=v, out=out, dout=dout)
+    _check_cuda(what, q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"{what}: lse must be a contiguous (B, H, Sq) "
+                         "float32 CUDA tensor")
 
 
 def _grad_like(x):
@@ -148,55 +164,76 @@ def _strides(*tensors):
         *(st for t in tensors for st in t.stride()[:3]))
 
 
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=True,
-                           window=0, softcap=0.0):
-    """dq of FlashAttention (kernel ``flash_bwd_dq``).  q, dout: (B, H, Sq,
-    Dh); k, v: (B, H, Skv, Dh); lse and delta = rowsum(dout * out):
-    contiguous (B, H, Sq) float32.  Returns dq in q's dtype."""
-    global launches_dq
-    _check_bwd(q, k, v, dout, lse, delta)
-    dq = _grad_like(q)
-    _check_rows("flash_attention_bwd", q=q, k=k, v=v, dout=dout, dq=dq)
-    b, h, sq, dh = q.shape
-    err = _bwd_fn("flash_bwd_dq")(
-        _DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, dout, dq), b, h, sq, k.shape[2], int(bool(causal)),
-        int(window), float(softcap), 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_bwd_dq")
-    launches_dq += 1
-    return dq
+PREP, MAIN, POST = 1, 2, 4   # the backward's launches (``parts``)
+# keys per block of the bf16 main pass (HC and BC of csrc/flash_bwd.cu,
+# which refuses a missing accumulator over more than one such tile)
+KV_TILE = 128
 
 
-def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True,
-                            window=0, softcap=0.0):
-    """dk and dv of FlashAttention (kernel ``flash_bwd_dkv``); arguments as
-    ``flash_attention_bwd_dq``.  Returns (dk, dv) in k's dtype."""
-    global launches_dkv
-    _check_bwd(q, k, v, dout, lse, delta)
-    dk, dv = _grad_like(k), _grad_like(v)
-    _check_rows("flash_attention_bwd", q=q, k=k, v=v, dout=dout, dk=dk,
-                dv=dv)
+def bwd_buffers(q, skv):
+    """(delta, lse2, dq_acc) for q's shape over ``skv`` keys: per-row fp32
+    arrays (in bf16 with rows padded to the 64-row tiles the kernels copy
+    whole) and, in bf16 over more than one KV_TILE, the fp32 dQ
+    accumulator (over one, the one block that sees a q row writes dq)."""
     b, h, sq, dh = q.shape
-    err = _bwd_fn("flash_bwd_dkv")(
-        _DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, dout, dk, dv), b, h, sq, k.shape[2],
+    if q.dtype != torch.bfloat16:
+        return (torch.empty((b, h, sq), dtype=torch.float32,
+                            device=q.device), None, None)
+    rows = torch.empty((2, b, h, -(-sq // 64) * 64), dtype=torch.float32,
+                       device=q.device)
+    acc = (torch.empty((b, h, sq, dh), dtype=torch.float32, device=q.device)
+           if skv > KV_TILE else None)
+    return rows[0], rows[1], acc
+
+
+def bwd_parts(buffers):
+    """The launches ``flash_attention_bwd`` makes with ``buffers``: the
+    post-pass only where there is an accumulator to read."""
+    return PREP | MAIN | (POST if buffers[2] is not None else 0)
+
+
+def bwd_launch(parts, q, k, v, out, lse, dout, buffers, grads, *, causal,
+               window, softcap):
+    """In one call, the launches of ``csrc/flash_bwd.cu`` that ``parts``
+    names (PREP, MAIN, POST: the source's note says what each does), on
+    operands ``flash_attention_bwd`` has checked, ``buffers`` from
+    ``bwd_buffers`` (or with an accumulator where it would have none) and
+    ``grads`` = (dq, dk, dv).  chip_smoke.py times each alone."""
+    global launches_bwd_prep, launches_bwd, launches_bwd_post
+    b, h, sq, dh = q.shape
+    delta, lse2, acc = buffers
+    dq, dk, dv = grads
+    if parts & POST and acc is None:
+        raise ValueError("flash_attention_bwd: the post-pass reads the dQ "
+                         "accumulator, and there is none")
+    err = _bwd_fn()(
+        parts, _DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        None if lse2 is None else lse2.data_ptr(), delta.data_ptr(),
+        delta.shape[-1], dq.data_ptr(), None if acc is None else
+        acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, out, dout, dq, dk, dv), b, h, sq, k.shape[2],
         int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_bwd_dkv")
-    launches_dkv += 1
-    return dk, dv
+    build.check(err, "flash_bwd")
+    launches_bwd_prep += bool(parts & PREP)
+    launches_bwd += bool(parts & MAIN)
+    launches_bwd_post += bool(parts & POST)
+    if parts & MAIN:
+        launches_bwd_by_seq[sq] += 1
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                         softcap=0.0):
-    """FlashAttention-2 backward: delta = rowsum(dout * out) as one torch
-    reduction (the reference leaves it to XLA), then the dq kernel and the
-    dk/dv kernel.  Returns (dq, dk, dv)."""
-    delta = (dout.float() * out.float()).sum(-1).contiguous()
-    kw = dict(causal=causal, window=window, softcap=softcap)
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-    return dq, dk, dv
+    """FlashAttention-2 backward (kernels of ``csrc/flash_bwd.cu``).  q,
+    out, dout: (B, H, Sq, Dh); k, v: (B, H, Skv, Dh), CUDA tensors of one
+    dtype, any (batch, head, seq) strides with a contiguous head dim; lse:
+    contiguous (B, H, Sq) float32 from the forward.  Launches the pre-pass
+    (delta), the main pass and, in bf16, the post-pass.  Returns (dq, dk,
+    dv) in the model's (B, S, H, Dh) layout, seen as (B, H, S, Dh)."""
+    _check_bwd(q, k, v, out, lse, dout)
+    grads = (_grad_like(q), _grad_like(k), _grad_like(v))
+    buffers = bwd_buffers(q, k.shape[2])
+    bwd_launch(bwd_parts(buffers), q, k, v, out, lse, dout, buffers, grads,
+               causal=causal, window=window, softcap=softcap)
+    return grads

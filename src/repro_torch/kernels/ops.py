@@ -154,8 +154,7 @@ class _FlashAttention(torch.autograd.Function):
         if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(
                 st % 8 for st in dout.stride()[:3]):
             dout = dout.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                               **ctx.kw)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 
@@ -228,14 +227,22 @@ def lamb_leaf_update(w, g, m, v, *, lr, step: int, b1=0.9, b2=0.999,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel."""
-    return {"flash_fwd": _fa.launches, "flash_bwd_dq": _fa.launches_dq,
-            "flash_bwd_dkv": _fa.launches_dkv,
+    return {"flash_fwd": _fa.launches,
+            "flash_bwd_prep": _fa.launches_bwd_prep,
+            "flash_bwd": _fa.launches_bwd,
+            "flash_bwd_post": _fa.launches_bwd_post,
             "paged_decode": _pa.launches, "layernorm": _ln.launches,
             "bias_gelu": _bg.launches, "lamb_moments": _lu.launches,
-            "wkv6": _wkv.launches}
+            "wkv6": _wkv.launches,
+            # the main pass's launches by q's sequence length S, as
+            # "flash_bwd_s<S>", for the lengths launched so far
+            **{f"flash_bwd_s{s}": n
+               for s, n in sorted(_fa.launches_bwd_by_seq.items())}}
 
 
 def reset_launch_counts() -> None:
-    _fa.launches = _fa.launches_dq = _fa.launches_dkv = 0
+    _fa.launches = _fa.launches_bwd_prep = _fa.launches_bwd = 0
+    _fa.launches_bwd_post = 0
+    _fa.launches_bwd_by_seq.clear()
     _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0
     _wkv.launches = 0

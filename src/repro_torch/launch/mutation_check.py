@@ -1,20 +1,31 @@
-"""Would ``chip_smoke.py``'s path-parity check see a subtly wrong flash
-kernel?
+"""Would ``chip_smoke.py``'s per-call and model-level checks see a subtly
+wrong flash kernel?
 
   PYTHONPATH=src python -m repro_torch.launch.mutation_check
 
-Serving runs the bf16 tensor-core body of ``csrc/flash_fwd.cu``
-(``flash_fwd_mma_kernel``).  For the unchanged source and for each mutation
-in ``MUTATIONS`` (one small edit in that body), this writes the source under
-``build/mutants/<name>/``, builds it, loads it in place of the real flash
-library, and runs ``chip_smoke.path_parity`` on full-width deepseek-7b in
-bf16 with a paged cache: one request's prefill and 4 decode steps through
-the kernels and through the plain versions.  Per source it prints one JSON
-line: how many flash calls fell outside the bf16 tolerance against the plain
-version on the same inputs, the largest such error, the model-level rel L2
-of the logits, and which of the two checks fails.  Exits non-zero if the
-unchanged source fails a check or a mutation passes both.  Needs a CUDA
-device; the mutated sources never leave the build directory.
+Two families of deliberately wrong kernels, each a set of one-line edits
+inside the bf16 tensor-core code of one source:
+
+* ``MUTATIONS`` edit ``csrc/flash_fwd.cu`` (``flash_fwd_mma_kernel``, the
+  forward that serving runs).  Each copy runs ``chip_smoke.path_parity`` on
+  full-width deepseek-7b in bf16 with a paged cache: one request's prefill
+  and 4 decode steps through the kernels and through the plain versions.
+* ``BWD_MUTATIONS`` edit the bf16 route of ``csrc/flash_bwd.cu`` (the fused
+  main pass and its post-pass, the backward that training runs).  Each copy
+  runs ``chip_smoke.bwd_hold``: one bf16 gradient step of full-width
+  bert-large on a phase-2 batch (8 x 512 tokens: four KV tiles of 128 keys,
+  so a dQ written instead of accumulated shows) with every
+  ``flash_attention_bwd`` call held against the plain version on its
+  inputs, judged by ``chip_smoke.check_calls`` as chip_smoke.py judges it:
+  elementwise TOL and relative L2 ``CALL_REL_L2_BOUND``.
+
+For the unchanged sources and for each mutation, this writes the source
+under ``build/mutants/<name>/``, builds it, loads it in place of the real
+library, runs the check and prints one JSON line: calls outside the
+tolerance, the largest error, the relative L2 errors and which check fails.
+Exits non-zero if an unchanged source fails a check or a mutation passes
+all.  Needs a CUDA device; the mutated sources never leave the build
+directory.
 """
 from __future__ import annotations
 
@@ -37,20 +48,87 @@ MUTATIONS = {
     "scale_2pct": ("float x = s[n][e] * scale;",
                    "float x = s[n][e] * (scale * 1.02f);"),
 }
-_BODY = "flash_fwd_mma_kernel(const"
+BWD_MUTATIONS = {
+    # dQ's softmax scale dropped in the post-pass
+    "dq_scale_dropped": ("pack_bf16(f[2 * i] * scale, f[2 * i + 1] * scale)",
+                         "pack_bf16(f[2 * i], f[2 * i + 1])"),
+    # delta = rowsum(dO * O) read 2 % too large
+    "delta_2pct": ("dl = dl_s[col];", "dl = dl_s[col] * 1.02f;"),
+    # each KV tile's dQ part stored over the accumulator, not added to it
+    "dq_store_not_add": ("red.global.add.v4.f32", "st.global.v4.f32"),
+}
+# source -> (the text that opens its bf16 tensor-core code, its mutations)
+SOURCES = {
+    "flash_fwd": ("flash_fwd_mma_kernel(const", MUTATIONS),
+    "flash_bwd": ("// bf16 main pass at Dh 64: warpgroup", BWD_MUTATIONS),
+}
 
 
-def mutate(source: str, edit) -> str:
-    """``source`` with ``edit`` = (old, new) applied once inside the
-    tensor-core kernel's body; raises if ``old`` is not found there."""
+def mutate(source: str, edit, body: str) -> str:
+    """``source`` with ``edit`` = (old, new) applied once after ``body``
+    (the start of the tensor-core code); raises if ``old`` is not found
+    there."""
     if edit is None:
         return source
     old, new = edit
-    at = source.index(_BODY)
-    body = source[at:]
-    if old not in body:
+    at = source.index(body)
+    tail = source[at:]
+    if old not in tail:
         raise ValueError(f"mutation target {old!r} not in the kernel body")
-    return source[:at] + body.replace(old, new, 1)
+    return source[:at] + tail.replace(old, new, 1)
+
+
+def forward_check(smoke, T, serve_step, ops, cfg, params, pol) -> dict:
+    res = smoke.path_parity(T, serve_step, ops, cfg, params, pol, "paged")
+    k = "flash_attention"
+    return {"flash_calls": res["calls"][k],
+            "flash_calls_outside": res["calls_outside"][k],
+            "flash_call_max_err": res["call_max_err"][k],
+            "rel_l2": res["rel_l2"],
+            "fails_per_call_check": res["calls_outside"][k] > 0,
+            "fails_model_bound": res["rel_l2"] > smoke.LOGIT_REL_L2_BOUND[
+                pol.compute_dtype]}
+
+
+def backward_check(smoke, ops, ts, cfg, state, batch, tcfg, pol) -> dict:
+    res = smoke.bwd_hold(ops, ts, cfg, state, batch, tcfg, pol)
+    k = "flash_attention_bwd"
+    try:
+        smoke.check_calls("phase-2 backward hold", res)
+        fails = False
+    except AssertionError:
+        fails = True
+    return {"flash_bwd_calls": res["calls"][k],
+            "flash_bwd_calls_outside": res["calls_outside"][k],
+            "flash_bwd_call_max_err": res["call_max_err"][k],
+            "flash_bwd_call_max_rel_l2": res["call_max_rel"][k],
+            "fails_per_call_check": fails}
+
+
+def run_family(build, name, check) -> list:
+    """Each source of ``SOURCES[name]`` in turn; returns the names whose
+    verdict is unexpected."""
+    body, muts = SOURCES[name]
+    source = (build.CSRC / f"{name}.cu").read_text()
+    real_csrc, bad = build.CSRC, []
+    try:
+        for mname, edit in [("unchanged", None), *muts.items()]:
+            where = build.BUILD_DIR.parent / "mutants" / mname
+            where.mkdir(parents=True, exist_ok=True)
+            (where / f"{name}.cu").write_text(mutate(source, edit, body))
+            build.CSRC = where          # only this source is rebuilt from here
+            build._LIBS.pop(name, None)
+            res = check()
+            print(json.dumps({"source": f"{name}:{mname}", **res}),
+                  flush=True)
+            caught = any(v for key, v in res.items()
+                         if key.startswith("fails_"))
+            if (edit is None) == caught:
+                bad.append(mname)
+    finally:
+        build.CSRC = real_csrc
+        build._LIBS.pop(name, None)
+    return bad
 
 
 def main() -> int:
@@ -58,45 +136,35 @@ def main() -> int:
         raise SystemExit("mutation_check runs the kernels: no CUDA device")
     sys.path.insert(0, str(REPO))
     import chip_smoke as smoke
-    from repro_torch.configs import get_config
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import InputShape
     from repro_torch.core.amp import make_policy
     from repro_torch.kernels import build, ops
+    from repro_torch.models import api
     from repro_torch.models import transformer as T
     from repro_torch.serve import serve_step
+    from repro_torch.train import train_step as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smoke.nvidia_smi(), flush=True)
     build.build_all()
-    build.load("paged_decode")
-    cfg = get_config("deepseek-7b")
+    for name in build.sources():
+        build.load(name)
     pol = make_policy("bf16")
+
+    cfg = get_config("deepseek-7b")
     params = T.init_model(cfg, seed=smoke.SEED, dtype=pol.param_dtype,
                           device="cuda")
-    source = (build.CSRC / "flash_fwd.cu").read_text()
-    real_csrc, bad = build.CSRC, []
-    try:
-        for name, edit in [("unchanged", None), *MUTATIONS.items()]:
-            where = build.BUILD_DIR.parent / "mutants" / name
-            where.mkdir(parents=True, exist_ok=True)
-            (where / "flash_fwd.cu").write_text(mutate(source, edit))
-            build.CSRC = where          # only flash_fwd is rebuilt from here
-            build._LIBS.pop("flash_fwd", None)
-            res = smoke.path_parity(T, serve_step, ops, cfg, params, pol,
-                                    "paged")
-            k = "flash_attention"
-            by_calls = res["calls_outside"][k] > 0
-            by_model = res["rel_l2"] > smoke.LOGIT_REL_L2_BOUND[pol.compute_dtype]
-            print(json.dumps({
-                "source": name, "flash_calls": res["calls"][k],
-                "flash_calls_outside": res["calls_outside"][k],
-                "flash_call_max_err": res["call_max_err"][k],
-                "rel_l2": res["rel_l2"], "fails_per_call_check": by_calls,
-                "fails_model_bound": by_model}), flush=True)
-            if (edit is None) == (by_calls or by_model):
-                bad.append(name)
-    finally:
-        build.CSRC = real_csrc
-        build._LIBS.pop("flash_fwd", None)
+    bad = run_family(build, "flash_fwd", lambda: forward_check(
+        smoke, T, serve_step, ops, cfg, params, pol))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("bert-large")
+    inputs = smoke.bwd_hold_inputs(api, ts, TrainConfig, InputShape,
+                                   make_policy, cfg)
+    bad += run_family(build, "flash_bwd", lambda: backward_check(
+        smoke, ops, ts, cfg, *inputs))
     if bad:
         print(f"mutation_check: unexpected verdict for {bad}",
               file=sys.stderr)

@@ -3,6 +3,11 @@ interpret mode on the CPU), and the device dispatch of the kernel wrappers.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against these plain versions there."""
+import importlib.util
+import re
+import types
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,9 +149,9 @@ def test_cpu_tensors_take_the_plain_version():
     qg = q.clone().requires_grad_()
     ops.flash_attention_vjp(qg, k, v, causal=True).sum().backward()
     assert ops.launch_counts() == {
-        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "paged_decode": 0, "layernorm": 0, "bias_gelu": 0,
-        "lamb_moments": 0, "wkv6": 0}
+        "flash_fwd": 0, "flash_bwd_prep": 0, "flash_bwd": 0,
+        "flash_bwd_post": 0, "paged_decode": 0, "layernorm": 0,
+        "bias_gelu": 0, "lamb_moments": 0, "wkv6": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -163,8 +168,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     lse = torch.zeros((1, 2, 128))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd(x, x, x, x, lse, x)
+    xb = x.to(torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_attention_bwd_dkv(x, x, x, x, lse, lse)
+        tfa.flash_attention_bwd(xb, xb, xb, xb, lse, xb)
     rows = torch.zeros((4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tln.layernorm(rows, rows[0], rows[0])
@@ -182,7 +188,7 @@ def test_kernel_wrappers_refuse_float16():
     with pytest.raises(TypeError, match="float16"):
         tfa.flash_attention(h, h, h)
     with pytest.raises(TypeError, match="float16"):
-        tfa.flash_attention_bwd_dq(h, h, h, h, lse, lse)
+        tfa.flash_attention_bwd(h, h, h, h, lse, h)
     rows = torch.zeros((4, 64), dtype=torch.float16)
     with pytest.raises(TypeError, match="float16"):
         tln.layernorm(rows, rows[0], rows[0])
@@ -204,19 +210,136 @@ def test_build_names_every_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
-@pytest.mark.parametrize("name", sorted(mutation_check.MUTATIONS))
-def test_flash_mutations_edit_only_the_tensor_core_body(name):
+def _bwd_operands(case):
+    """(q, k, v, out, lse, dout) on the CPU that the backward kernels must
+    refuse for ``case``, and the error expected."""
+    b, h, s, dh = 1, 4, 128, 64
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    q = torch.zeros((b, h, s, dh), dtype=dtype)
+    kv = torch.zeros((b, 2 if case == "gqa" else h, s, dh), dtype=dtype)
+    if case == "misaligned_rows":   # rows of 66 elements, 132 bytes apart
+        q = torch.zeros((b, h, s, dh + 2), dtype=dtype)[..., :dh]
+    lse = torch.zeros((b, h, s))
+    return (q, kv, kv, q, lse, q), {
+        "gqa": (ValueError, "head counts"), "float16": (TypeError, "float16"),
+        "cpu": (ValueError, "CUDA"),
+        "misaligned_rows": (ValueError, "16-byte aligned")}[case]
+
+
+@pytest.mark.parametrize("case", ["gqa", "float16", "cpu",
+                                  "misaligned_rows"])
+def test_flash_bwd_wrapper_refuses(case):
+    """The backward's wrapper checks its operands before the device, so on
+    the CPU each refusal shows: GQA (the kernels take equal head counts),
+    f16, bf16 rows the kernels cannot move as 16-byte vectors, and -- for
+    operands it would take on the card -- CPU tensors."""
+    args, (err, match) = _bwd_operands(case)
+    with pytest.raises(err, match=match):
+        tfa.flash_attention_bwd(*args, causal=False)
+
+
+@pytest.mark.parametrize("dtype,skv,pitch,acc", [
+    (torch.bfloat16, 200, 256, True), (torch.bfloat16, 128, 256, False),
+    (torch.float32, 200, 200, False)])
+def test_flash_bwd_buffers(dtype, skv, pitch, acc):
+    """The backward's scratch: per-row fp32 arrays with bf16 rows padded to
+    whole 64-row tiles (the kernels copy them whole), and the fp32 dQ
+    accumulator only in bf16 over more than one 128-key tile; the
+    post-pass is launched only where there is an accumulator."""
+    q = torch.zeros((2, 3, 200, 64), dtype=dtype)
+    delta, lse2, dq_acc = tfa.bwd_buffers(q, skv)
+    assert delta.shape == (2, 3, pitch) and delta.dtype == torch.float32
+    assert delta.stride() == (3 * pitch, pitch, 1)
+    assert (lse2 is None) == (dtype == torch.float32)
+    if lse2 is not None:
+        assert lse2.shape == delta.shape and lse2.stride() == delta.stride()
+    assert (dq_acc is not None) == acc
+    if acc:
+        assert dq_acc.shape == q.shape and dq_acc.is_contiguous()
+    assert tfa.bwd_parts((delta, lse2, dq_acc)) == (
+        tfa.PREP | tfa.MAIN | (tfa.POST if acc else 0))
+
+
+def test_flash_bwd_kv_tile_matches_the_source():
+    """The wrapper's KV_TILE, which decides whether a call needs the dQ
+    accumulator, is the key tile that ``csrc/flash_bwd.cu`` declares (and
+    there holds both of its bf16 main passes to)."""
+    src = (build.CSRC / "flash_bwd.cu").read_text()
+    tiles = re.findall(r"constexpr int KV_TILE = (\d+);", src)
+    assert tiles == [str(tfa.KV_TILE)] == ["128"]
+    assert "static_assert(HC == KV_TILE && BC == KV_TILE" in src
+
+
+def test_backward_launches_are_counted_by_length(monkeypatch):
+    """``bwd_launch`` counts each launch it makes, the main pass also by
+    q's sequence length; ``launch_counts`` reports those and
+    ``reset_launch_counts`` clears them.  A post-pass without an
+    accumulator is refused before the library is called.  The library is
+    replaced by a stand-in that records ``parts``."""
+    parts = []
+    monkeypatch.setattr(tfa, "_bwd_fn",
+                        lambda: lambda *a: parts.append(a[0]) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    ops.reset_launch_counts()
+    for s in (128, 512, 512):
+        q = torch.zeros((1, 2, s, 64), dtype=torch.bfloat16)
+        bufs = tfa.bwd_buffers(q, s)
+        tfa.bwd_launch(tfa.bwd_parts(bufs), q, q, q, q, torch.zeros((1, 2, s)),
+                       q, bufs, (q, q, q), causal=False, window=0,
+                       softcap=0.0)
+    counts = ops.launch_counts()
+    assert parts == [3, 7, 7]
+    assert (counts["flash_bwd_prep"], counts["flash_bwd"],
+            counts["flash_bwd_post"]) == (3, 3, 2)
+    assert (counts["flash_bwd_s128"], counts["flash_bwd_s512"]) == (1, 2)
+    q = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="accumulator"):
+        tfa.bwd_launch(tfa.POST, q, q, q, q, torch.zeros((1, 2, 128)), q,
+                       tfa.bwd_buffers(q, 128), (q, q, q), causal=False,
+                       window=0, softcap=0.0)
+    assert parts == [3, 7, 7]
+    ops.reset_launch_counts()
+    assert not any(k.startswith("flash_bwd_s") for k in ops.launch_counts())
+
+
+def test_flash_bwd_bound_at_the_training_shapes():
+    """``chip_smoke.flash_bwd_bound`` for BERT-large's two attention shapes
+    (bf16, bidirectional): 269.5 MB and 85.9 GFLOP at phase 2, so 0.0869 ms
+    bound by operations; 134.7 MB and 10.7 GFLOP at phase 1, 0.0402 ms
+    bound by bytes."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.TRAIN_ATTN == ((64, 16, 128, 64), (32, 16, 512, 64))
+    ms, by = smoke.flash_bwd_bound(*smoke.TRAIN_ATTN[1])
+    assert by == "operations" and ms == pytest.approx(0.0869, abs=5e-5)
+    ms, by = smoke.flash_bwd_bound(*smoke.TRAIN_ATTN[0])
+    assert by == "bytes" and ms == pytest.approx(0.0402, abs=5e-5)
+    # causal counts only the S (S + 1) / 2 unmasked pairs: 43.1 GFLOP,
+    # 0.0436 ms, so the same bytes (0.0804 ms) bound it
+    ms, by = smoke.flash_bwd_bound(32, 16, 512, 64, causal=True)
+    assert by == "bytes" and ms == pytest.approx(0.0804, abs=5e-5)
+
+
+@pytest.mark.parametrize("source,name", [
+    (src, name) for src, (_, muts) in sorted(mutation_check.SOURCES.items())
+    for name in sorted(muts)])
+def test_flash_mutations_edit_only_the_tensor_core_body(source, name):
     """Each deliberately wrong flash kernel of ``launch/mutation_check.py``
-    still matches the source: one edit, inside the bf16 tensor-core body,
-    so the mutants calibrate the check of the kernel that serving runs."""
-    src = (build.CSRC / "flash_fwd.cu").read_text()
-    old, new = mutation_check.MUTATIONS[name]
-    got = mutation_check.mutate(src, (old, new))
-    at = src.index("flash_fwd_mma_kernel(const")
+    still matches its own source: one edit, inside the bf16 tensor-core
+    code, so the mutants calibrate the checks of the kernels that serving
+    (forward) and training (backward) run."""
+    src = (build.CSRC / f"{source}.cu").read_text()
+    body, muts = mutation_check.SOURCES[source]
+    old, new = muts[name]
+    got = mutation_check.mutate(src, (old, new), body)
+    at = src.index(body)
     assert got[:at] == src[:at]
     assert got[at:].count(new) == src[at:].count(new) + 1
     assert len(got) - len(src) == len(new) - len(old)
-    assert mutation_check.mutate(src, None) == src
+    assert mutation_check.mutate(src, None, body) == src
 
 
 # ---------------------------------------------------------------------------
