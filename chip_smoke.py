@@ -8,7 +8,11 @@
    source, all at once).
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card -- flash forward at the prefill shape (1, 32, 1024, 128) bf16 causal
-   plus small causal x window x softcap x GQA cases (out and lse); paged
+   plus small causal x window x softcap cases in f32 and bf16 (out and lse,
+   each within the tolerance below and the relative L2 bound of its dtype):
+   GQA at every head dim, S 256, 200, 130 (across a 128-row q tile) and 17
+   (under one), Dh 32, 64 and 128, and the model's (B, S, H, Dh) layout read
+   through transposed views with ``out=`` into one; paged
    decode at B = 8, page_size 16, bf16 and int8 pages, with one empty slot
    and one slot whose table points at the trash page, and at the serve
    phase's geometry (B = 4 live slots of 600-1040 tokens, disjoint tables).
@@ -39,8 +43,9 @@
    relative L2 bound of its dtype; LayerNorm and bias-GELU at the
    reference test shapes; LAMB at n in {128, 1000, 65553} -- then at the
    path shapes: flash forward and backward bidirectional at
-   (64, 16, 128, 64) and (32, 16, 512, 64) bf16 (the whole backward timed,
-   one JSON entry a shape, with the spread of each kernel it launches; at
+   (64, 16, 128, 64) and (32, 16, 512, 64) bf16 (the forward timed beside
+   SDPA's forward and the whole backward timed, one JSON entry each a
+   shape, with the spread of each kernel; at
    phase 1, where the main pass writes dq itself, the accumulator route is
    also held and timed on the same inputs; SDPA's forward and backward
    timed beside them), LayerNorm 8192 x 1024, bias-GELU 8192 x 4096, LAMB
@@ -74,8 +79,8 @@
    LAMB, accumulation 2, ``--batch 128``: 4 phase-1 steps of 128 x 128
    tokens and 1 phase-2 step of 64 x 512), launch counts zeroed before and
    read after (every kernel of the path must have launched; the flash
-   backward's main-pass launches, counted by the wrapper by sequence
-   length, must add up), every loss finite.  Then one step from a fresh
+   forward's and backward main pass's launches, counted by the wrapper by
+   sequence length, must add up), every loss finite.  Then one step from a fresh
    state on a phase-1 batch through the kernels and through the plain
    versions, in f32 and in bf16: loss, every gradient group and the
    master-weight update must agree within the bound stated for each dtype,
@@ -215,8 +220,9 @@ def check_close(name: str, got, want, dtype) -> float:
 def check_grad(name: str, got, want, dtype):
     """``check_close``, and raise unless the relative L2 error is within
     CALL_REL_L2_BOUND[dtype]: gradients of randn inputs run to ~0.05, where
-    the elementwise tolerance is mostly its absolute part.  Returns (max
-    abs error, relative L2 error)."""
+    the elementwise tolerance is mostly its absolute part (the flash
+    forward's out and lse are held the same way).  Returns (max abs error,
+    relative L2 error)."""
     err = check_close(name, got, want, dtype)
     rel = rel_l2(got, want)
     if not rel <= CALL_REL_L2_BOUND[dtype]:
@@ -245,34 +251,58 @@ def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
 # kernel phase
 # ---------------------------------------------------------------------------
 
+# the forward's small cases: (b, h, kv, s, dh, model_layout), each run over
+# causal x window x softcap in f32 and bf16.  Ragged lengths against the
+# bf16 Hopper kernel's 128-row q tiles and 64-key KV tiles (S 17: under one
+# tile; 130: across one), GQA at every head dim, and the model's
+# (B, S, H, Dh) layout read through transposed views with ``out=`` into one.
+FLASH_CASES = ((2, 4, 2, 256, 64, False), (1, 8, 8, 200, 128, False),
+               (1, 4, 1, 130, 32, False), (2, 4, 4, 130, 64, True),
+               (1, 8, 2, 130, 128, True), (1, 4, 2, 17, 64, True),
+               (1, 4, 4, 17, 128, False))
+
+
 def flash_phase(ops, timer):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
 
-    def rand(*shape, dtype):
+    def rand(*shape, dtype, model_layout=False):
+        if model_layout:   # (B, S, H, Dh) memory seen as (B, H, S, Dh)
+            b, h, s, d = shape
+            return torch.randn((b, s, h, d), generator=gen, device=DEVICE,
+                               dtype=torch.float32).to(dtype).transpose(1, 2)
         return torch.randn(*shape, generator=gen, device=DEVICE,
                            dtype=torch.float32).to(dtype)
 
-    # small cases: causal x window x softcap x GQA, ragged lengths
-    cases = 0
+    # small cases: causal x window x softcap x GQA, ragged lengths, both
+    # layouts; out and lse each within TOL and CALL_REL_L2_BOUND
+    cases, worst_rel = 0, collections.defaultdict(float)
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, h, kv, s, dh) in ((2, 4, 2, 256, 64), (1, 8, 8, 200, 128),
-                                  (1, 4, 1, 130, 32)):
+        for (b, h, kv, s, dh, ml) in FLASH_CASES:
             for causal in (True, False):
                 for window, softcap in ((0, 0.0), (64, 0.0), (0, 30.0),
                                         (64, 30.0)):
-                    q = rand(b, h, s, dh, dtype=dtype)
-                    k = rand(b, kv, s, dh, dtype=dtype)
-                    v = rand(b, kv, s, dh, dtype=dtype)
+                    q = rand(b, h, s, dh, dtype=dtype, model_layout=ml)
+                    k = rand(b, kv, s, dh, dtype=dtype, model_layout=ml)
+                    v = rand(b, kv, s, dh, dtype=dtype, model_layout=ml)
                     kw = dict(causal=causal, window=window, softcap=softcap)
-                    o, lse = ops.flash_attention(q, k, v, **kw)
+                    out = (torch.empty((b, s, h, dh), dtype=dtype,
+                                       device=DEVICE).transpose(1, 2)
+                           if ml else None)
+                    o, lse = ops.flash_attention(q, k, v, out=out, **kw)
                     ro, rlse = ops.flash_attention(q, k, v, impl="torch", **kw)
                     torch.cuda.synchronize()
                     tag = (f"flash {dtype} {(b, h, kv, s, dh)} causal={causal}"
-                           f" window={window} softcap={softcap}")
-                    check_close(tag + " out", o, ro, dtype)
-                    check_close(tag + " lse", lse, rlse, dtype)
+                           f" window={window} softcap={softcap} "
+                           f"model_layout={ml}")
+                    if ml and o.data_ptr() != out.data_ptr():
+                        raise AssertionError(f"{tag}: not written into out")
+                    rels = (check_grad(tag + " out", o, ro, dtype)[1],
+                            check_grad(tag + " lse", lse, rlse, dtype)[1])
+                    worst_rel[dtype] = max(worst_rel[dtype], *rels)
                     cases += 1
-    log(f"flash small cases: {cases} agree with the plain version")
+    log(f"flash small cases: {cases} agree with the plain version (worst "
+        "relative L2 of out, lse: " + ", ".join(
+            f"{dt} {r:.3e}" for dt, r in worst_rel.items()) + ")")
 
     # the prefill shape of the serve path
     b, h, s, dh = 1, 32, PREFILL_LEN, 128
@@ -281,20 +311,20 @@ def flash_phase(ops, timer):
     o, lse = ops.flash_attention(q, k, v, causal=True)
     ro, rlse = ops.flash_attention(q, k, v, causal=True, impl="torch")
     torch.cuda.synchronize()
-    err = check_close("flash path-shape out", o, ro, dtype)
-    check_close("flash path-shape lse", lse, rlse, dtype)
+    err = check_grad("flash path-shape out", o, ro, dtype)[0]
+    check_grad("flash path-shape lse", lse, rlse, dtype)
     times = timer.times(lambda: ops.flash_attention(q, k, v, causal=True))
     ms = float(np.mean(times))
     plain_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                     impl="torch"))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = timer.ms(lambda: sdpa(q, k, v, is_causal=True))
-    item = q.element_size()
-    bd = bound(4 * q.numel() * item + lse.numel() * 4,  # q, k, v, out, lse
-               4 * b * h * dh * (s * (s + 1) // 2))     # unmasked pairs only
+    lib_times = timer.times(lambda: sdpa(q, k, v, is_causal=True))
+    lib_ms = float(np.mean(lib_times))
+    bd = flash_fwd_bound(b, h, s, dh, causal=True)
     log(f"flash (1, 32, {s}, 128) bf16 causal: max err {err:.3e}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{bd[0]:.4f} ms ({bd[1]}); kernel {spread(times)}")
+        f"{ms:.4f} ms ({ms / lib_ms:.2f}x sdpa), plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); kernel "
+        f"{spread(times)}; sdpa {spread(lib_times)}")
     return entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:132", err,
                  ms, plain_ms, *bd, lib_ms)
 
@@ -876,6 +906,15 @@ TRAIN_ATTN = ((64, 16, 128, 64), (32, 16, 512, 64))
 TRAIN_ROWS, D_MODEL, D_FF = 64 * 128, 1024, 4096
 
 
+def flash_fwd_bound(b, h, s, dh, causal=False, item=2):
+    """(bound ms, by) of the flash forward as a function of its inputs: q,
+    k, v read and out written once (4 activations of B H S Dh at ``item``
+    bytes) plus lse (fp32), against 4 operations per (query, key) pair and
+    channel (the products S and P V), only unmasked pairs when causal."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return bound(4 * b * h * s * dh * item + b * h * s * 4, 4 * pairs * dh)
+
+
 def flash_bwd_bound(b, h, s, dh, causal=False, item=2):
     """(bound ms, by) of the whole FlashAttention backward as a function of
     its inputs: the bytes of q, k, v, out and dO read and dq, dk, dv
@@ -938,12 +977,28 @@ def flash_bwd_phase(ops, fa, timer):
         out, lse = ops.flash_attention(q, k, v, causal=False)
         want_out, want_lse = ops.flash_attention(q, k, v, causal=False,
                                                  impl="torch")
-        fwd_err = check_close(f"flash fwd {shape} bidirectional", out,
-                              want_out, dtype)
-        check_close(f"flash fwd {shape} bidirectional lse", lse, want_lse,
-                    dtype)
-        fwd_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=False))
-        fwd_lib_ms = timer.ms(lambda: sdpa(q, k, v))
+        fwd_err = check_grad(f"flash fwd {shape} bidirectional out", out,
+                             want_out, dtype)[0]
+        check_grad(f"flash fwd {shape} bidirectional lse", lse, want_lse,
+                   dtype)
+        fwd_times = timer.times(
+            lambda: ops.flash_attention(q, k, v, causal=False))
+        fwd_ms = float(np.mean(fwd_times))
+        fwd_lib_times = timer.times(lambda: sdpa(q, k, v))
+        fwd_lib_ms = float(np.mean(fwd_lib_times))
+        fwd_plain_ms = timer.ms(lambda: ops.flash_attention(
+            q, k, v, causal=False, impl="torch"))
+        fwd_bound = flash_fwd_bound(b, h, s, dh, item=q.element_size())
+        log(f"flash forward {shape} bf16 bidirectional: max err "
+            f"{fwd_err:.3e}, kernel {fwd_ms:.4f} ms ({fwd_ms / fwd_lib_ms:.2f}x"
+            f" sdpa), plain {fwd_plain_ms:.4f} ms, sdpa forward "
+            f"{fwd_lib_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+            f"({fwd_bound[1]}); kernel {spread(fwd_times)}; sdpa forward "
+            f"{spread(fwd_lib_times)}")
+        entries[f"flash_fwd_phase{phase}"] = entry(
+            f"flash_fwd_phase{phase}", "flash_fwd.cu",
+            "flash_attention.py:132", fwd_err, fwd_ms, fwd_plain_ms,
+            *fwd_bound, fwd_lib_ms)
         err = check(f"flash bwd {shape} bidirectional", q, k, v, do, dtype,
                     causal=False)
         # the whole backward as flash_attention_bwd launches it, then each
@@ -984,11 +1039,7 @@ def flash_bwd_phase(ops, fa, timer):
         lib_ms = float(np.mean(lib_times))
         del sdpa_out
         bd = flash_bwd_bound(b, h, s, dh, item=q.element_size())
-        fwd_bound = bound(4 * q.numel() * q.element_size() + b * h * s * 4,
-                          4 * b * h * s * s * dh)
-        log(f"flash {shape} bf16 bidirectional: forward max err "
-            f"{fwd_err:.3e}, {fwd_ms:.4f} ms, sdpa forward {fwd_lib_ms:.4f} "
-            f"ms (bound {fwd_bound[0]:.4f}); backward max err {err:.3e}, "
+        log(f"flash {shape} bf16 bidirectional: backward max err {err:.3e}, "
             f"{ms:.4f} ms ({' + '.join(parts)}; bound {bd[0]:.4f} "
             f"ms, {bd[1]}), {ms / lib_ms:.2f}x sdpa backward {lib_ms:.4f} "
             f"ms, plain backward {plain_ms:.4f} ms; backward "
@@ -1147,9 +1198,10 @@ HELD = ("flash_attention", "flash_attention_bwd", "layernorm_fwd",
 
 
 def train_run(ops, pretrain_bert, workdir):
-    """Returns the launch counts, among them the backward's main-pass
-    launches by sequence length (``flash_bwd_s128``, ``flash_bwd_s512``),
-    which must add up to the main pass's count."""
+    """Returns the launch counts, among them the forward's and the
+    backward main pass's launches by sequence length (``flash_fwd_s128``,
+    ``flash_fwd_s512``, ``flash_bwd_s128``, ``flash_bwd_s512``), which must
+    add up to each one's count."""
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     cfg, state, history = pretrain_bert.run(TRAIN_ARGS
@@ -1169,11 +1221,14 @@ def train_run(ops, pretrain_bert, workdir):
     for k in TRAIN_KERNELS:
         if counts[k] <= 0:
             raise AssertionError(f"train: kernel {k} never launched")
-    by_seq = {k: n for k, n in counts.items() if k.startswith("flash_bwd_s")}
-    if sum(by_seq.values()) != counts["flash_bwd"] or set(by_seq) != {
-            f"flash_bwd_s{s}" for _, _, s, _ in TRAIN_ATTN}:
-        raise AssertionError(f"train: main-pass launches by length {by_seq} "
-                             f"vs {counts['flash_bwd']} in all")
+    for kind in ("fwd", "bwd"):
+        by_seq = {k: n for k, n in counts.items()
+                  if k.startswith(f"flash_{kind}_s")}
+        if sum(by_seq.values()) != counts[f"flash_{kind}"] or set(by_seq) != {
+                f"flash_{kind}_s{s}" for _, _, s, _ in TRAIN_ATTN}:
+            raise AssertionError(f"train: flash_{kind} launches by length "
+                                 f"{by_seq} vs {counts[f'flash_{kind}']} in "
+                                 "all")
     log(f"train bert-large full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, launches {counts}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1341,8 +1396,8 @@ def main(argv=None) -> int:
     train_entries["bias_gelu"] = bias_gelu_phase(ops, timer)
     train_entries["lamb_moments"] = lamb_phase(ops, timer, largest)
     entries += [train_entries[k] for k in (
-        "flash_bwd_phase1", "flash_bwd_phase2", "layernorm", "bias_gelu",
-        "lamb_moments")]
+        "flash_fwd_phase1", "flash_fwd_phase2", "flash_bwd_phase1",
+        "flash_bwd_phase2", "layernorm", "bias_gelu", "lamb_moments")]
     entries.append(wkv6_phase(ops, timer))
     del timer
     torch.cuda.empty_cache()
@@ -1408,8 +1463,9 @@ def main(argv=None) -> int:
     }
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
     for phase, (_, _, s, _) in enumerate(TRAIN_ATTN, start=1):
-        by_name[f"flash_bwd_phase{phase}"] = launches["train"][
-            f"flash_bwd_s{s}"]
+        for kind in ("fwd", "bwd"):
+            by_name[f"flash_{kind}_phase{phase}"] = launches["train"][
+                f"flash_{kind}_s{s}"]
     by_name["layernorm"] += (launches["rwkv_raw"]["layernorm"]
                              + launches["rwkv_continuous"]["layernorm"])
     by_name["wkv6"] = (launches["rwkv_raw"]["wkv6"]

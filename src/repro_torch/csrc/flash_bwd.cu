@@ -80,9 +80,9 @@
 
 #include <type_traits>
 
-namespace {
+#include "hopper.cuh"
 
-constexpr float kLog2e = 1.4426950408889634f;
+namespace {
 
 // P and dS of one logit: `s` is the raw Q.K product, `dp` the dO.V one.
 __device__ __forceinline__ void probs_and_dlogits(
@@ -135,11 +135,6 @@ __device__ __forceinline__ void q_range(int k0, int bk, int bq, int Sq,
   if (window) *hi = min(*hi, (k0 + bk - 2 + window) / bq + 1);
 }
 
-struct Strides {
-  int64_t b, h, s;
-};
-
-typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // pre-pass: delta = rowsum(dO * O) in fp32; zero the dQ accumulator
@@ -473,9 +468,6 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: tensor-core building blocks
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 (or `bytes` < 16: the rest zero-filled) bytes global -> shared
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -517,19 +509,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
       : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Fragment addresses inside a row-major bf16 tile M with row stride `rs`
 // (lane = thread in the warp):
@@ -674,142 +653,6 @@ constexpr int H_DST = 2 * H_TILE_KV;
 constexpr int H_STAGES = 4 * H_TILE_KV;   // K, V, two dS^T buffers
 constexpr int H_BARS = H_STAGES + HS * H_STAGE;
 constexpr size_t hopper_smem() { return H_BARS + 8 * (1 + HS) + 1024; }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// until the phase of parity `parity` has completed; a wait of ~10 s (a
-// lost transfer) traps, so the launch fails instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) asm volatile("trap;");
-  }
-}
-
-// a (64 x rows) box at (0, row, h, b) of a (D, S, H, B) tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int row, int h, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma operand descriptor of a 128-byte-swizzled bf16 tile: K-major (rows
-// of the M or N dim, the K dim contiguous: 8-row groups 1024 bytes apart)
-// or MN-major (rows of the K dim, M or N contiguous: the same 1024 bytes
-// between groups of 8 K rows; M or N never exceeds the 64 of one row here)
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (+)= A B on a warpgroup, m64 nN k16, bf16 in, fp32 accumulator d (N / 2
-// registers a thread; `acc` 0 overwrites).  ss: A and B from shared memory
-// through descriptors; rs: A from registers (4 a thread, the mma.sync A
-// fragment of each warp's 16 rows).  TA / TB: 1 if that operand is
-// MN-major (the M or N dim contiguous), 0 if K-major.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da,
-                                           uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss32(float* d, uint64_t da,
-                                           uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
-                                           uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, "
-      "%38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
-        "n"(TB));
-}
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -1277,52 +1120,6 @@ int prepare(Kern kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// the (D = 64, S, H, B) tensor map of a strided bf16 (B, H, S, 64) tensor,
-// read in boxes of 64 x `rows`, 128-byte swizzled, rows past S zero-filled
-int tensor_map(CUtensorMap* map, const void* ptr, Strides st, int B, int H,
-               int S, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t bytes[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
-                               (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {HD, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, bytes, box, one,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 struct Maps {
   CUtensorMap q, k, v, dout;

@@ -11,23 +11,49 @@
 //
 // Translation.  On the TPU the KV tiles are a sequential grid axis whose
 // steps carry (m, l, acc) in VMEM scratch.  Here one thread block owns one
-// (batch, head, 64-row q tile) and walks the live KV tiles in a loop, so the
-// carry lives in registers.  GQA: query head h reads KV head h / (H / KV)
-// by index; K and V are never repeated.  q, k, v and out are read and
-// written through their (batch, head, seq) strides with the head dim
-// contiguous, so (B, S, H, Dh) activations are taken in place.
+// (batch, head, q tile) and walks the live KV tiles in a loop, so the carry
+// lives in registers.  GQA: query head h reads KV head h / (H / KV) by
+// index; K and V are never repeated.  q, k, v and out are read and written
+// through their (batch, head, seq) strides with the head dim contiguous, so
+// (B, S, H, Dh) activations are taken in place.
 //
 // Bound.  At the prefill shape (1, 32, 1024, 128) bf16 causal the work is
 // ~8.6 GFLOP against ~33 MB of q/k/v/out/lse: 8.7 us of bf16 tensor-core
 // time against 10.1 us of HBM traffic on an H100, so bytes bound it by a
-// little.  Two kernels, chosen by dtype:
+// little; BERT's bidirectional shapes (64, 16, 128, 64) and
+// (32, 16, 512, 64) are bound by bytes too (20 and 40 us).  Three kernels,
+// chosen by (dtype, Dh) in `flash_fwd` below:
 //
-// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
-//   fp32 accumulation, P rounded to bf16 for the PV product (see
-//   flash_fwd_mma_kernel).  No TMA, no wgmma and no load/compute overlap
-//   inside a block yet: blocks in flight on an SM hide each other's loads.
-// * fp32 (parity runs): CUDA-core fp32 products from shared memory
-//   (flash_fwd_kernel below), sized so three blocks fit on an SM
+// * bf16 at Dh 64 and 128 (serving's prefill, BERT's training; see
+//   flash_fwd_hopper_kernel): warpgroup products (wgmma) on tiles that TMA
+//   moves between global and 128-byte-swizzled shared memory.  A block owns
+//   128 q rows, two consumer warpgroups of 64.  Thread 0 loads Q and the
+//   first live KV tiles; the ring holds 3 tiles of 64 keys at Dh 64 (two
+//   blocks an SM, at most 128 registers a thread) and 2 of 128 keys at
+//   Dh 128 (one block); each stage has an mbarrier that counts its
+//   transaction bytes, and the last warp done with a tile refills its stage
+//   (a shared counter), so no thread waits to issue a load.  S = Q K^T
+//   reads both operands K-major from shared memory; the online softmax runs
+//   on the accumulator in registers in the exp2 domain (scale x log2 e
+//   folded into one FFMA, ex2.approx), the mask only on tiles that straddle
+//   the diagonal, the window's edge or the end of the keys, the softcap a
+//   template flag; O += P V takes P, rounded to bf16, from registers and V
+//   MN-major straight from its tile (no transpose).  A row of Dh 128 is 256
+//   bytes, twice the swizzle span: every tile is stored as 64-column
+//   halves, each read through its own descriptors (k-steps 4-7 of Q K^T,
+//   the second n64 product of P V).  The output goes through shared memory
+//   (the warpgroup's Q rows) to a TMA store, which clips the rows past Sq.
+//   Causal q tiles are launched longest first.  What holds it back at Dh 64
+//   (BERT) is not measured directly (no profiler on the card's machine):
+//   the exponentials take one special-function op a logit, as many SFU
+//   cycles as the tensor cores spend on the tile's two products, and with
+//   four warpgroups an SM neither a software-pipelined loop (S of tile i + 1
+//   issued beside P V of tile i) nor ping-pong ordering of the two
+//   warpgroups' products was faster (PERF.md).
+// * bf16 at Dh 32 (no path uses it): mma.sync m16n8k16 with fp32
+//   accumulation, synchronous loads (flash_fwd_mma_kernel).
+// * fp32 at every Dh (parity runs): CUDA-core fp32 products from shared
+//   memory (flash_fwd_kernel below), sized so three blocks fit on an SM
 //   (73 KB of shared memory each at Dh = 128).  Its layout inside a block
 //   (256 threads as 16 x 16):
 //     scores  S (64 x 32): thread (ty, tx) owns rows ty + 16 i, cols tx + 16 j
@@ -35,9 +61,12 @@
 //     output  O (64 x D): thread (ty, tx) owns rows ty + 16 i, cols tx + 16 j
 //   Shared-memory rows are padded by one float so column walks hit distinct
 //   banks.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -220,7 +249,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core version (mma.sync m16n8k16, fp32 accumulate)
+// bf16 at Dh 32: tensor-core version (mma.sync m16n8k16, fp32 accumulate)
 //
 // One block of 4 warps owns a 64-row q tile; warp w owns rows 16 w .. +15.
 // Q's fragments stay in registers for the whole KV walk.  Per 64-key tile,
@@ -241,20 +270,6 @@ constexpr int MT = 128;  // threads per block (4 warps)
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * (2 * MQ * (D + 8) + D * (MK + 8));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -445,6 +460,283 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at Dh 64 and 128: warpgroup products (wgmma) on TMA-loaded tiles
+//
+// Warpgroup wg of the block owns q rows q0 + 64 wg .. + 63; thread t of it
+// holds rows ra = 16 (warp % 4) + t / 4 and ra + 8 of those, columns
+// 8 j + 2 (t % 4) (+ 1) of every 8-wide n-tile j, in each accumulator (the
+// wgmma layout, that of mma.sync for each warp's 16 rows).  So a row lives
+// in the 4 lanes of a quad, and the S accumulator, packed to bf16, is the A
+// fragment of the P V product as it stands.  The row sum l is kept per lane
+// and added across the quad once, at the end.
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 128;  // q rows per block: two consumer warpgroups of 64
+constexpr int WT = 256;  // threads per block
+constexpr float kLn2 = 0.6931471805599453f;
+// the masked logit NEG_INF in the exp2 domain of the running max
+constexpr float kNegInf2 = kNegInf * kLog2e;
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (a
+// probability below 2^-126 adds nothing to a row sum of at least 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tiles of one head dim, and the shared memory of a block (bytes from a
+// 1024-aligned base): Q, the stages of (K, V), the mbarriers (Q's, then one
+// a stage).  Every tile is stored as D / 64 halves of 64 columns, each with
+// 128-byte rows in the swizzle TMA writes and wgmma reads.
+template <int D>
+struct WTile {
+  // keys per KV tile and stages of the ring: at Dh 64, 64 keys in 3 stages
+  // (65 KB) and at most 128 registers a thread, so that two blocks share
+  // an SM; at Dh 128, 128 keys (S = Q K^T one m64n128 product a k-step) in
+  // 2 stages (161 KB), one block an SM
+  static constexpr int BK = D == 64 ? 64 : 128;
+  static constexpr int WS = D == 64 ? 3 : 2;
+  static constexpr int HALVES = D / 64;
+  static constexpr int Q_HALF = WQ * 128;            // 16 KB
+  static constexpr int KV_HALF = BK * 128;
+  static constexpr int Q_BYTES = HALVES * Q_HALF;
+  static constexpr int KV_BYTES = HALVES * KV_HALF;  // one K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int BARS = Q_BYTES + WS * STAGE;
+  static constexpr size_t SMEM = BARS + 8 * (1 + WS) + 1024;
+};
+
+// One (batch, head, tile of WQ q rows) per block.  The grid is
+// (B H, q tiles) for causal attention, the longest tiles dispatched first,
+// and (q tiles, B H) otherwise, so that the q tiles of one head run side
+// by side while its K and V are in L2.  CAP: a tanh softcap is applied.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(WT, D == 64 ? 2 : 1)
+flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap to,
+                        float* __restrict__ lse, int H, int KV, int Sq,
+                        int Skv, int causal, int window, float softcap,
+                        float scale) {
+  using T = WTile<D>;
+  constexpr int WK = T::BK, WS = T::WS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int released[WS];  // warps done with the stage's tile, summed
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base, qbar = base + T::BARS;
+  auto full = [&](int st) { return qbar + 8 + 8 * st; };
+  auto kv_stage = [&](int st) { return base + T::Q_BYTES + st * T::STAGE; };
+
+  const int n_qt = (Sq + WQ - 1) / WQ;
+  const int bh = causal ? blockIdx.x : blockIdx.y;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.x) * WQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, g = lane >> 2, t4 = lane & 3;
+
+  // live KV tiles of the block (`_block_live`)
+  int j_lo = 0, j_hi = (Skv + WK - 1) / WK;
+  if (causal) j_hi = min(j_hi, (q0 + WQ - 1) / WK + 1);
+  if (window) {
+    const int t = q0 - window + 1;
+    if (t > 0) j_lo = t / WK;
+  }
+  const int n_tiles = max(j_hi - j_lo, 0);
+  // tile i (from j_lo) lands in stage i % WS and completes phase i / WS of
+  // full(i % WS): thread 0 issues the first WS tiles, and the last warp to
+  // be done with tile i issues tile i + WS into its stage
+  auto load_tile = [&](int i) {
+    const int st = i % WS, k0 = (j_lo + i) * WK;
+    const uint32_t ks = kv_stage(st);
+    mbar_expect_tx(full(st), T::STAGE);
+#pragma unroll
+    for (int hf = 0; hf < T::HALVES; ++hf) {
+      tma_load(ks + hf * T::KV_HALF, &tk, k0, kvh, b, full(st), 64 * hf);
+      tma_load(ks + T::KV_BYTES + hf * T::KV_HALF, &tv, k0, kvh, b, full(st),
+               64 * hf);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < WS; ++st) {
+      mbar_init(full(st), 1);
+      released[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qbar, T::Q_BYTES);
+#pragma unroll
+    for (int hf = 0; hf < T::HALVES; ++hf)
+      tma_load(Qs + hf * T::Q_HALF, &tq, q0, h, b, qbar, 64 * hf);
+    for (int i = 0; i < min(n_tiles, WS); ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  const int r_lo = q0 + 64 * wg;                    // the warpgroup's rows
+  const int ra = r_lo + (warp % 4) * 16 + g, rb = ra + 8;  // this thread's
+  const uint32_t Qw = Qs + wg * 64 * 128;
+  const float sl2 = scale * kLog2e;
+  float o[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  float m0 = kNegInf2, m1 = kNegInf2, l0 = 0.f, l1 = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % WS, k0 = (j_lo + i) * WK;
+    const uint32_t ks = kv_stage(st), vs = ks + T::KV_BYTES;
+    // does any row of this warpgroup see a key of this tile?
+    const bool live = r_lo < Sq && (!causal || k0 <= r_lo + 63) &&
+                      (!window || k0 + WK - 1 > r_lo - window);
+    mbar_wait(full(st), (i / WS) & 1);
+    if (live) {
+      // S = Q K^T (64 x WK): A (Q) and B (K) K-major, a k-step 32 bytes of
+      // a half
+      float s[WK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int at = (kk & 3) * 32;
+        const uint64_t dq = wg_desc(Qw + (kk >> 2) * T::Q_HALF + at);
+        const uint64_t dk = wg_desc(ks + (kk >> 2) * T::KV_HALF + at);
+        if constexpr (WK == 128)
+          wgmma_ss128<0, 0>(s, dq, dk, kk);
+        else
+          wgmma_ss64<0, 0>(s, dq, dk, kk);
+      }
+      wg_commit();
+      wg_wait<0>();
+      // the mask only where the tile straddles the diagonal, the window's
+      // edge or the end of the keys; then (or with a softcap) s holds the
+      // logits in the exp2 domain, else the raw products, scaled in the
+      // exponent's FFMA
+      const bool edge = k0 + WK > Skv || (causal && k0 + WK - 1 > r_lo) ||
+                        (window && k0 <= r_lo + 63 - window);
+      float mult = sl2;
+      if (edge || CAP) {
+#pragma unroll
+        for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = CAP ? softcap * kLog2e * tanhf(s[4 * j + e] *
+                                                     (scale / softcap))
+                          : s[4 * j + e] * sl2;
+            if (edge) {
+              const int qi = e < 2 ? ra : rb;
+              const int ki = k0 + 8 * j + 2 * t4 + (e & 1);
+              bool keep = ki < Skv;
+              if (causal) keep = keep && ki <= qi;
+              if (window) keep = keep && ki > qi - window;
+              x = keep ? x : kNegInf2;
+            }
+            s[4 * j + e] = x;
+          }
+        mult = 1.f;
+      }
+      float mx0 = fmaxf(s[0], s[1]), mx1 = fmaxf(s[2], s[3]);
+#pragma unroll
+      for (int j = 1; j < WK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0 * mult), mn1 = fmaxf(m1, mx1 * mult);
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], mult, -mn0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], mult, -mn0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], mult, -mn1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], mult, -mn1));
+        ps0 += s[4 * j] + s[4 * j + 1];
+        ps1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+      // P as bf16 A fragments: k-step kk covers keys 16 kk .. + 15, the
+      // n-tiles 2 kk and 2 kk + 1
+      uint32_t pa[WK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int x = 4 * (2 * kk + r / 2) + 2 * (r % 2);
+          pa[kk][r] = pack_bf16(s[x], s[x + 1]);
+        }
+      // O += P V: B (V) MN-major, a k-step 16 keys (2048 bytes) of a half;
+      // one n64 product per half of the head dim
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < T::HALVES; ++hf)
+          wgmma_rs64<1>(o + 32 * hf, pa[kk],
+                        wg_desc(vs + hf * T::KV_HALF + kk * 2048), 1);
+      wg_commit();
+      wg_wait<0>();
+    }
+    // this warp is done with tile i (its products have completed); the
+    // last of the block's warps refills the stage with tile i + WS, while
+    // the tiles between are in flight or landed.  Every warp waited for
+    // tile i above, so no count of tile i + WS can come before it.
+    if (lane == 0 && atomicAdd(&released[st], 1) % (WT / 32) == WT / 32 - 1 &&
+        i + WS < n_tiles)
+      load_tile(i + WS);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  const float il0 = 1.f / lc0, il1 = 1.f / lc1;
+  if (t4 == 0) {
+    if (ra < Sq) lse[(int64_t)bh * Sq + ra] = m0 * kLn2 + logf(lc0);
+    if (rb < Sq) lse[(int64_t)bh * Sq + rb] = m1 * kLn2 + logf(lc1);
+  }
+  // out = O / l as bf16 into this warpgroup's Q rows (read by no product
+  // any more) in the 128-byte swizzle (16-byte chunk c of row r at chunk
+  // c ^ (r % 8)), then one TMA store a half of the head dim; the map clips
+  // the rows past Sq
+  unsigned char* orow = smem_raw + (Qw - smem_u32(smem_raw)) +
+                        ((warp % 4) * 16 + g) * 128 + 4 * t4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    unsigned char* at = orow + (j / 8) * T::Q_HALF + (((j % 8) ^ g) << 4);
+    *reinterpret_cast<uint32_t*>(at) =
+        pack_bf16(o[4 * j] * il0, o[4 * j + 1] * il0);
+    *reinterpret_cast<uint32_t*>(at + 8 * 128) =
+        pack_bf16(o[4 * j + 2] * il1, o[4 * j + 3] * il1);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (wg == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+  if (tid % 128 == 0 && r_lo < Sq) {
+#pragma unroll
+    for (int hf = 0; hf < T::HALVES; ++hf)
+      tma_store(&to, Qw + hf * T::Q_HALF, 64 * hf, r_lo, h, b);
+    tma_store_drain();   // the tile is read before the block's memory goes
+  }
+}
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, const int64_t* st, int B, int H, int KV, int Sq,
@@ -465,23 +757,51 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-int launch_mma_d(int D, const void* q, const void* k, const void* v,
-                 void* out, float* lse, const int64_t* st, int B, int H,
-                 int KV, int Sq, int Skv, int causal, int window,
-                 float softcap, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_mma<32>(q, k, v, out, lse, st, B, H, KV, Sq, Skv, causal,
-                            window, softcap, scale, stream);
-    case 64:
-      return launch_mma<64>(q, k, v, out, lse, st, B, H, KV, Sq, Skv, causal,
-                            window, softcap, scale, stream);
-    case 128:
-      return launch_mma<128>(q, k, v, out, lse, st, B, H, KV, Sq, Skv,
-                             causal, window, softcap, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <int D, bool CAP>
+int launch_hopper(const CUtensorMap& mq, const CUtensorMap& mk,
+                  const CUtensorMap& mv, const CUtensorMap& mo, float* lse,
+                  int B, int H, int KV, int Sq, int Skv, int causal,
+                  int window, float softcap, float scale,
+                  cudaStream_t stream) {
+  auto kern = flash_fwd_hopper_kernel<D, CAP>;
+  const size_t smem = WTile<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (Sq + WQ - 1) / WQ;
+  const dim3 grid = causal ? dim3(B * H, n_qt) : dim3(n_qt, B * H);
+  kern<<<grid, WT, smem, stream>>>(mq, mk, mv, mo, lse, H, KV, Sq, Skv,
+                                   causal, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16: Dh 64 and 128 on the Hopper kernel (its tensor maps encoded here,
+// from the strides), Dh 32 on the mma.sync kernel
+int launch_bf16(int D, const void* q, const void* k, const void* v,
+                void* out, float* lse, const int64_t* st, int B, int H,
+                int KV, int Sq, int Skv, int causal, int window,
+                float softcap, float scale, cudaStream_t stream) {
+  if (D == 32)
+    return launch_mma<32>(q, k, v, out, lse, st, B, H, KV, Sq, Skv, causal,
+                          window, softcap, scale, stream);
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
+  CUtensorMap mq, mk, mv, mo;
+  const int bk = D == 64 ? WTile<64>::BK : WTile<128>::BK;
+  int err;
+  if ((err = tensor_map(&mq, q, sq, B, H, Sq, WQ, D)) ||
+      (err = tensor_map(&mk, k, sk, B, KV, Skv, bk, D)) ||
+      (err = tensor_map(&mv, v, sv, B, KV, Skv, bk, D)) ||
+      (err = tensor_map(&mo, out, so, B, H, Sq, 64, D)))
+    return err;
+  const bool cap = softcap > 0.f;
+  auto launch = D == 64 ? (cap ? launch_hopper<64, true>
+                               : launch_hopper<64, false>)
+                        : (cap ? launch_hopper<128, true>
+                               : launch_hopper<128, false>);
+  return launch(mq, mk, mv, mo, lse, B, H, KV, Sq, Skv, causal, window,
+                softcap, scale, stream);
 }
 
 template <int D>
@@ -524,10 +844,12 @@ int launch_f32_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel,
-// rows 16-byte aligned).  strides: 12 int64 values, the (batch, head, seq)
-// strides of q, k, v and out in elements (head dim contiguous).  lse is a contiguous (B, H, Sq) float32 buffer.  Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (rows 16-byte
+// aligned; the Hopper kernel at Dh 64 and 128, the mma.sync kernel at Dh
+// 32).  strides: 12 int64 values, the (batch, head, seq) strides of q, k, v
+// and out in elements (head dim contiguous).  lse is a contiguous
+// (B, H, Sq) float32 buffer.  Returns the first CUDA error (tensor-map
+// encoding, or cudaGetLastError() after the launch).
 extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
                          const void* v, void* out, float* lse,
                          const int64_t* strides, int B, int H, int KV, int Sq,
@@ -538,7 +860,7 @@ extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
     return launch_f32_d(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
                         causal, window, softcap, scale, s);
   if (dtype == 1)
-    return launch_mma_d(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
-                        causal, window, softcap, scale, s);
+    return launch_bf16(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
+                       causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

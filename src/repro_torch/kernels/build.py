@@ -4,11 +4,16 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch_kernels/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -I src/repro_torch/csrc \
+         -o build/repro_torch_kernels/<name>-<hash>.so
 
-and loaded with ``ctypes``.  The build directory is ``build/`` at the root
+and loaded with ``ctypes``.  The headers they share (``csrc/*.cuh``) are
+found through ``-I`` of the package's own ``csrc/`` (``INCLUDE``), also when
+``CSRC`` points elsewhere, as ``launch/mutation_check.py`` has it for a
+mutated copy of one source.  The build directory is ``build/`` at the root
 of the checkout (listed in ``.gitignore``); the file name carries a hash of
-the source, so an edited kernel is rebuilt and a stale library never loads.
+the source and of every header, so an edited kernel or header is rebuilt
+and a stale library never loads.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them; ``load(name)`` builds everything on first use.  Nothing here runs at
 import time: the CPU tests import every module on a machine without nvcc.
@@ -25,6 +30,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+INCLUDE = CSRC      # the shared headers: always the package's own csrc/
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,10 +53,20 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+def headers() -> list:
+    return sorted(INCLUDE.glob("*.cuh"))
+
+
 def lib_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for header in headers():
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def nvcc_command(src: Path, out: Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(out),
+            str(src)]
 
 
 def build_all() -> Dict[str, dict]:
@@ -58,7 +74,6 @@ def build_all() -> Dict[str, dict]:
     parallel.  Returns {name: {"seconds", "log"}} for the sources built now
     (the log holds ptxas's register and shared-memory report)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     for name, src in sources().items():
         out = lib_path(name)
@@ -66,7 +81,7 @@ def build_all() -> Dict[str, dict]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            nvcc_command(src, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter())
     report, failed = {}, []

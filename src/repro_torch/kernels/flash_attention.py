@@ -25,6 +25,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
 launches = 0            # forward launches in this process (ops.launch_counts)
+# forward launches by q's sequence length
+launches_by_seq = collections.Counter()
 launches_bwd_prep = 0   # backward pre-pass launches
 launches_bwd = 0        # backward main-pass launches
 launches_bwd_post = 0   # backward post-pass launches (bf16 only)
@@ -50,7 +52,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (float32 or bfloat16), any strides with the head dim contiguous.  GQA
     reads KV head h // (H // KV).  ``out`` (optional, (B, H, Sq, Dh) view of
     any strides with a contiguous head dim) receives the result in place.
-    Returns (out in q's dtype, lse (B, H, Sq) float32)."""
+    Returns (out in q's dtype, lse (B, H, Sq) float32).  The source picks
+    the kernel by (dtype, Dh): bf16 at Dh 64 and 128 the Hopper one (wgmma
+    on TMA-loaded tiles), bf16 at 32 the mma.sync one, float32 the CUDA-core
+    one."""
     global launches
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -79,6 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_fwd")
     launches += 1
+    launches_by_seq[sq] += 1
     return out, lse
 
 

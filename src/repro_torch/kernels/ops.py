@@ -234,8 +234,11 @@ def launch_counts() -> Dict[str, int]:
             "paged_decode": _pa.launches, "layernorm": _ln.launches,
             "bias_gelu": _bg.launches, "lamb_moments": _lu.launches,
             "wkv6": _wkv.launches,
-            # the main pass's launches by q's sequence length S, as
-            # "flash_bwd_s<S>", for the lengths launched so far
+            # the forward's and the backward main pass's launches by q's
+            # sequence length S, as "flash_fwd_s<S>" and "flash_bwd_s<S>",
+            # for the lengths launched so far
+            **{f"flash_fwd_s{s}": n
+               for s, n in sorted(_fa.launches_by_seq.items())},
             **{f"flash_bwd_s{s}": n
                for s, n in sorted(_fa.launches_bwd_by_seq.items())}}
 
@@ -243,6 +246,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     _fa.launches = _fa.launches_bwd_prep = _fa.launches_bwd = 0
     _fa.launches_bwd_post = 0
+    _fa.launches_by_seq.clear()
     _fa.launches_bwd_by_seq.clear()
     _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0
     _wkv.launches = 0

@@ -6,8 +6,9 @@ wrong flash kernel?
 Two families of deliberately wrong kernels, each a set of one-line edits
 inside the bf16 tensor-core code of one source:
 
-* ``MUTATIONS`` edit ``csrc/flash_fwd.cu`` (``flash_fwd_mma_kernel``, the
-  forward that serving runs).  Each copy runs ``chip_smoke.path_parity`` on
+* ``MUTATIONS`` edit ``csrc/flash_fwd.cu`` (``flash_fwd_hopper_kernel``,
+  the bf16 forward at Dh 64 and 128 that serving and training run).  Each
+  copy runs ``chip_smoke.path_parity`` on
   full-width deepseek-7b in bf16 with a paged cache: one request's prefill
   and 4 decode steps through the kernels and through the plain versions.
 * ``BWD_MUTATIONS`` edit the bf16 route of ``csrc/flash_bwd.cu`` (the fused
@@ -41,12 +42,12 @@ REPO = Path(__file__).resolve().parents[3]
 MUTATIONS = {
     # one accumulator element of the second row rescaled by the first
     # row's correction factor: a fragment-layout slip
-    "row1_fragment_rescale": ("o[n][2] *= c1;", "o[n][2] *= c0;"),
+    "row1_fragment_rescale": ("o[4 * j + 2] *= c1;", "o[4 * j + 2] *= c0;"),
     # the causal diagonal masked out (an off-by-one in the mask)
     "diagonal_masked": ("keep = keep && ki <= qi;", "keep = keep && ki < qi;"),
     # the softmax scale 2 % too large
-    "scale_2pct": ("float x = s[n][e] * scale;",
-                   "float x = s[n][e] * (scale * 1.02f);"),
+    "scale_2pct": ("const float sl2 = scale * kLog2e;",
+                   "const float sl2 = scale * 1.02f * kLog2e;"),
 }
 BWD_MUTATIONS = {
     # dQ's softmax scale dropped in the post-pass
@@ -59,7 +60,7 @@ BWD_MUTATIONS = {
 }
 # source -> (the text that opens its bf16 tensor-core code, its mutations)
 SOURCES = {
-    "flash_fwd": ("flash_fwd_mma_kernel(const", MUTATIONS),
+    "flash_fwd": ("flash_fwd_hopper_kernel(const", MUTATIONS),
     "flash_bwd": ("// bf16 main pass at Dh 64: warpgroup", BWD_MUTATIONS),
 }
 

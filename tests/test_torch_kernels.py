@@ -210,6 +210,73 @@ def test_build_names_every_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
+def test_headers_enter_the_library_hash(monkeypatch, tmp_path):
+    """An edit to a shared header (``csrc/*.cuh``) changes the name of every
+    library, so a stale one never loads; a source's own edit changes only
+    its own."""
+    for f in build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "INCLUDE", tmp_path)
+    assert [h.name for h in build.headers()] == ["hopper.cuh"]
+    before = {name: build.lib_path(name) for name in build.sources()}
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.lib_path(name) for name in build.sources()}
+    assert all(before[n] != after[n] for n in before)
+    src = tmp_path / "layernorm.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {name: build.lib_path(name) for name in build.sources()}
+    assert [n for n in again if again[n] != after[n]] == ["layernorm"]
+
+
+def test_nvcc_includes_the_package_csrc(monkeypatch, tmp_path):
+    """A source built from another directory (a mutated copy under
+    ``build/mutants/``) still finds the shared headers: nvcc gets ``-I`` of
+    the package's own ``csrc/``, whatever ``CSRC`` points at."""
+    real = Path(tfa.__file__).resolve().parents[1] / "csrc"
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    cmd = build.nvcc_command(tmp_path / "flash_fwd.cu", tmp_path / "x.so")
+    assert cmd[cmd.index("-I") + 1] == str(real) == str(build.INCLUDE)
+    assert cmd[0] == "nvcc" and cmd[-1] == str(tmp_path / "flash_fwd.cu")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert '#include "hopper.cuh"' in (real / name).read_text()
+
+
+@pytest.mark.parametrize("dtype,dh,code", [
+    (torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
+    (torch.bfloat16, 32, 1), (torch.float32, 64, 0)])
+def test_forward_launches_are_counted_by_length(monkeypatch, dtype, dh, code):
+    """``flash_attention`` passes the library the dtype code and head dim
+    the source routes on (bf16 at Dh 64 and 128: the Hopper kernel; bf16 at
+    32: mma.sync; float32: CUDA cores) and counts each launch, also by q's
+    sequence length; ``launch_counts`` reports those and
+    ``reset_launch_counts`` clears them.  The library is replaced by a
+    stand-in that records its arguments, and the CUDA check by a no-op."""
+    calls = []
+    monkeypatch.setattr(tfa, "_fn", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(tfa, "_check_cuda", lambda what, **t: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    ops.reset_launch_counts()
+    for s in (128, 512, 512):
+        q = torch.zeros((2, 4, s, dh), dtype=dtype)
+        kv = torch.zeros((2, 2, s, dh), dtype=dtype)
+        out, lse = tfa.flash_attention(q, kv, kv, causal=False)
+        assert out.shape == q.shape and lse.shape == (2, 4, s)
+    assert [(a[0], a[1], a[11], a[12], a[13]) for a in calls] == [
+        (code, dh, 128, 128, 0), (code, dh, 512, 512, 0),
+        (code, dh, 512, 512, 0)]
+    counts = ops.launch_counts()
+    assert counts["flash_fwd"] == 3
+    assert (counts["flash_fwd_s128"], counts["flash_fwd_s512"]) == (1, 2)
+    ops.reset_launch_counts()
+    assert not any(k.startswith("flash_fwd_s") for k in ops.launch_counts())
+
+
 def _bwd_operands(case):
     """(q, k, v, out, lse, dout) on the CPU that the backward kernels must
     refuse for ``case``, and the error expected."""
