@@ -13,24 +13,24 @@
 //
 // Translation.  The TPU runs two passes, each with its tile loop as a
 // sequential grid axis that carries the accumulator in VMEM scratch, and
-// leaves delta to XLA.  Here the bf16 route (the training path) is three
-// launches:
+// leaves delta to XLA.  Here the 16-bit route (the training path, bf16 or
+// the paper's f16: every kernel is templated on the element type T) is
+// three launches:
 //
 // * pre-pass (`bwd_prep_kernel`): delta in fp32 from one read of dO and O,
-//   lse2 = lse * log2(e), both with rows padded to whole 64-row tiles, and
-//   the fp32 dQ accumulator (B, H, Sq, Dh) zeroed.
+//   lse2 = lse * log2(e), both with rows padded to whole 64-row tiles.
 // * main pass: one block owns a (batch, head, tile of 128 keys), holds K
 //   and V in shared memory and dK, dV in fp32 registers, and streams the
 //   live q tiles of Q, dO, lse2 and delta through a ring of shared-memory
 //   stages, each loaded asynchronously while earlier tiles' products run.
 //   Per q tile, on tensor cores with fp32 accumulation:
 //     S^T = K Q^T and dP^T = V dO^T          (once: 4 units of B H S^2 Dh)
-//     P, dS in registers, rounded to bf16 as the A operand
+//     P, dS in registers, rounded to T as the A operand
 //     dV += P^T dO, dK += dS^T Q             (the operand layout reads dO
 //                                             and Q transposed, no copy)
-//     dS^T staged once to shared memory as bf16, then
-//     dQ_tile = dS K added into the fp32 accumulator with
-//     red.global.add.v4.f32.
+//     dS^T staged once to shared memory as T, then
+//     dQ_tile = dS K stored as this block's fp32 partial, in its own slice
+//     (its KV tile) of a (n KV tiles, B, H, Sq, Dh) buffer.
 //   That is 10 units of B H S^2 Dh of tensor-core work, the function's own
 //   count; the two-kernel version it replaces recomputed S and dP (14).
 //   Both stages of the Hopper design landed, chosen by the head dim:
@@ -47,14 +47,24 @@
 //     mma.sync m16n8k16 with ldmatrix(.trans) fragments and a 2-stage
 //     cp.async ring.
 //   With one KV tile (Skv <= 128) a block owns its q rows' dQ and writes
-//   dq itself: no accumulator, no atomics, no post-pass (the caller passes
-//   no accumulator; `flash_bwd` refuses that over more keys).
-// * post-pass (`bwd_post_kernel`): dQ = accumulator * scale as bf16 into
-//   dq's (B, S, H, Dh) memory.
+//   dq itself: no partials, no post-pass (the caller passes no partial
+//   buffer; `flash_bwd` refuses that over more keys).
+// * post-pass (`bwd_post_kernel`): dQ of a q row = the sum of its partials
+//   over the KV tiles whose blocks saw its q tile, in tile order, times
+//   scale, as T into dq's (B, S, H, Dh) memory.
 //
-// dQ is summed with atomics, in an order that varies from run to run: the
-// bf16 route's dQ is not bit-identical between runs (dK and dV are, as is
-// every gradient of the fp32 route).  Operands are read and gradients
+// Determinism.  Every sum has one order: dK and dV are each one block's
+// registers, dQ's partials are added by the post-pass in KV-tile order,
+// and no floating-point atomic is left, so the 16-bit route is
+// bit-identical from run to run, as the fp32 route is.  (The route before
+// added dQ with red.global.add.v4.f32, in an order that varied.)  The cost
+// is traffic: each main-pass block stores its partial (4 bytes a dQ
+// element a KV tile) and the post-pass reads them all, where an atomic
+// accumulator moved 4 bytes an element three times: at phase 2 (four KV
+// tiles) 268 MB written and read against 67 MB, ~0.06 ms at 3.35 TB/s.
+// FlashAttention-3's other deterministic design, adds into one accumulator
+// ordered by a per-tile semaphore, keeps 67 MB but makes blocks wait on
+// each other.  Operands are read and gradients
 // written through their (batch, head, seq) strides with the head dim
 // contiguous, so the (B, S, H, Dh) activations of the model are taken in
 // place.  Query and KV head counts must be equal (the wrapper raises for
@@ -68,7 +78,7 @@
 // registers), and per q tile a block-wide barrier before the dQ product
 // (it reads all 128 keys' dS^T), so the two warpgroups' exponentials and
 // products take turns on the SM more than they overlap; the pre- and
-// post-pass move the fp32 accumulator (4 bytes a dQ element, three times).
+// post-pass move the fp32 dQ partials (4 bytes a dQ element a KV tile).
 //
 // The fp32 route (parity runs) keeps two CUDA-core kernels, one for dQ and
 // one for dK and dV (256 threads as 16 x 16, rows padded by one float),
@@ -126,7 +136,9 @@ __device__ __forceinline__ void kv_range(int q0, int bq, int bk, int Skv,
   }
 }
 
-// live q tiles [lo, hi) of the KV tile starting at k0
+// live q tiles [lo, hi) of the KV tile starting at k0: exactly the q tiles
+// whose live KV tiles (kv_range) hold it, so the post-pass finds a q row's
+// dQ partials in the KV tiles whose blocks wrote them
 __device__ __forceinline__ void q_range(int k0, int bk, int bq, int Sq,
                                         int causal, int window, int* lo,
                                         int* hi) {
@@ -135,24 +147,36 @@ __device__ __forceinline__ void q_range(int k0, int bk, int bq, int Sq,
   if (window) *hi = min(*hi, (k0 + bk - 2 + window) / bq + 1);
 }
 
+// keys per block of the 16-bit main pass, at every head dim; the wrapper's
+// KV_TILE (kernels/flash_attention.py) names it when it decides whether a
+// call needs the dQ partials
+constexpr int KV_TILE = 128;
+
+// q rows per streamed tile of the 16-bit main pass: 32 at Dh 128 keeps the
+// mma.sync kernel's dK, dV, S and dP (Dh + 2 BR fp32 a thread) within the
+// register file
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return D == 128 ? 32 : 64;
+}
+
 
 // ---------------------------------------------------------------------------
-// pre-pass: delta = rowsum(dO * O) in fp32; zero the dQ accumulator
+// pre-pass: delta = rowsum(dO * O) in fp32, lse2 = lse * log2(e)
 // ---------------------------------------------------------------------------
 
 constexpr int PT = 256;  // threads per block of the pre- and post-pass
 
-// D / 8 threads per row.  bf16 rows are read as one 16-byte vector a thread;
-// fp32 rows element by element (their rows need no alignment).  delta (and
-// lse2 = lse * log2(e), when asked for) are written with a row pitch of
-// `pitch` per (batch, head); lse is contiguous (B, H, Sq).
+// D / 8 threads per row.  16-bit rows are read as one 16-byte vector a
+// thread; fp32 rows element by element (their rows need no alignment).
+// delta (and lse2 = lse * log2(e), when asked for) are written with a row
+// pitch of `pitch` per (batch, head); lse is contiguous (B, H, Sq).
 template <typename T, int D>
 __global__ void __launch_bounds__(PT)
 bwd_prep_kernel(const T* __restrict__ dout, const T* __restrict__ out,
                 Strides sdo, Strides so, const float* __restrict__ lse,
-                float* __restrict__ lse2, float* __restrict__ delta,
-                float* __restrict__ dq_acc, int H, int Sq, int pitch,
-                int64_t rows) {
+                float* __restrict__ lse2, float* __restrict__ delta, int H,
+                int Sq, int pitch, int64_t rows) {
   constexpr int TPR = D / 8;
   const int64_t row = ((int64_t)blockIdx.x * PT + threadIdx.x) / TPR;
   const int part = threadIdx.x % TPR;
@@ -163,24 +187,20 @@ bwd_prep_kernel(const T* __restrict__ dout, const T* __restrict__ out,
     const int s = (int)(row % Sq), b = (int)(bh / H), h = (int)(bh % H);
     const T* dr = dout + b * sdo.b + h * sdo.h + s * sdo.s;
     const T* orow = out + b * so.b + h * so.h + s * so.s;
-    if constexpr (std::is_same<T, bf16>::value) {
+    if constexpr (!std::is_same<T, float>::value) {
       const uint4 a = *reinterpret_cast<const uint4*>(dr + part * 8);
       const uint4 o = *reinterpret_cast<const uint4*>(orow + part * 8);
-      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+      const uint32_t* a2 = reinterpret_cast<const uint32_t*>(&a);
+      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&o);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(a2[i]);
-        const float2 y = __bfloat1622float2(o2[i]);
+        const float2 x = unpack<T>(a2[i]);
+        const float2 y = unpack<T>(o2[i]);
         acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
       }
     } else {
 #pragma unroll
       for (int i = part; i < D; i += TPR) acc = fmaf(dr[i], orow[i], acc);
-    }
-    if (dq_acc != nullptr) {
-      float4* z = reinterpret_cast<float4*>(dq_acc + row * D + part * 8);
-      z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 #pragma unroll
@@ -465,7 +485,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core building blocks
+// 16-bit: tensor-core building blocks
 // ---------------------------------------------------------------------------
 
 
@@ -493,16 +513,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// four 8 x 8 bf16 matrices; thread t gives the address of row t % 8 of
-// matrix t / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+// four 8 x 8 matrices of 16-bit elements; thread t gives the address of
+// row t % 8 of matrix t / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -510,37 +530,41 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
 }
 
 
-// Fragment addresses inside a row-major bf16 tile M with row stride `rs`
+// Fragment addresses inside a row-major 16-bit tile M with row stride `rs`
 // (lane = thread in the warp):
 //   a_rm : A (16 x 16) of rows r0.., cols k0.. of M            (ldsm_x4)
 //   b_nk : B (16 x 16: k x two n-tiles) with B[k][n] = M[n0 + n][k0 + k]
 //          -- b0, b1 of n-tile n0, then of n0 + 8               (ldsm_x4)
 //   b_kn : B with B[k][n] = M[k0 + k][n0 + n], same order       (ldsm_x4_t)
 //   a_km : A with A[m][k] = M[k0 + k][m0 + m]                   (ldsm_x4_t)
-__device__ __forceinline__ const bf16* a_rm(const bf16* M, int rs, int r0,
-                                            int k0, int lane) {
+template <typename T>
+__device__ __forceinline__ const T* a_rm(const T* M, int rs, int r0, int k0,
+                                         int lane) {
   return M + (r0 + (lane & 15)) * rs + k0 + ((lane >> 4) << 3);
 }
-__device__ __forceinline__ const bf16* b_nk(const bf16* M, int rs, int n0,
-                                            int k0, int lane) {
+template <typename T>
+__device__ __forceinline__ const T* b_nk(const T* M, int rs, int n0, int k0,
+                                         int lane) {
   return M + (n0 + (lane & 7) + ((lane >> 4) << 3)) * rs + k0 +
          (((lane >> 3) & 1) << 3);
 }
-__device__ __forceinline__ const bf16* b_kn(const bf16* M, int rs, int k0,
-                                            int n0, int lane) {
+template <typename T>
+__device__ __forceinline__ const T* b_kn(const T* M, int rs, int k0, int n0,
+                                         int lane) {
   return M + (k0 + (lane & 15)) * rs + n0 + ((lane >> 4) << 3);
 }
-__device__ __forceinline__ const bf16* a_km(const bf16* M, int rs, int k0,
-                                            int m0, int lane) {
+template <typename T>
+__device__ __forceinline__ const T* a_km(const T* M, int rs, int k0, int m0,
+                                         int lane) {
   return M + (k0 + (lane & 7) + ((lane >> 4) << 3)) * rs + m0 +
          (((lane >> 3) & 1) << 3);
 }
 
 // C[n] (16 x 8 each, n < N) = A_w B for A_w rows r0.. of row-major M
-// (16 x D) and B[k][n] = T[n][k] for row-major T (N*8 x D): S^T = K Q^T
-template <int N, int D>
-__device__ __forceinline__ void mma_rows_by_rows(float (*c)[4], const bf16* M,
-                                                 int r0, const bf16* T,
+// (16 x D) and B[k][n] = Tt[n][k] for row-major Tt (N*8 x D): S^T = K Q^T
+template <typename T, int N, int D>
+__device__ __forceinline__ void mma_rows_by_rows(float (*c)[4], const T* M,
+                                                 int r0, const T* Tt,
                                                  int lane) {
   constexpr int RS = D + 8;
 #pragma unroll
@@ -552,20 +576,20 @@ __device__ __forceinline__ void mma_rows_by_rows(float (*c)[4], const bf16* M,
 #pragma unroll
     for (int n = 0; n < N; n += 2) {
       uint32_t b[4];
-      ldsm_x4(b, b_nk(T, RS, n * 8, kk * 16, lane));
-      mma_bf16(c[n], a, b[0], b[1]);
-      mma_bf16(c[n + 1], a, b[2], b[3]);
+      ldsm_x4(b, b_nk(Tt, RS, n * 8, kk * 16, lane));
+      mma16<T>(c[n], a, b[0], b[1]);
+      mma16<T>(c[n + 1], a, b[2], b[3]);
     }
   }
 }
 
 // acc[n] (16 x 8 each, n < D / 8) += X B, X = the accumulator tiles
-// x[0 .. KS*2) rounded to bf16 (16 x 16 KS) and B[k][n] = T[k][n] for a
-// row-major shared tile T (16 KS x D): dV += P^T dO, dK += dS^T Q
-template <int KS, int D>
+// x[0 .. KS*2) rounded to T (16 x 16 KS) and B[k][n] = Tt[k][n] for a
+// row-major shared tile Tt (16 KS x D): dV += P^T dO, dK += dS^T Q
+template <typename T, int KS, int D>
 __device__ __forceinline__ void mma_regs_by_tile(float (*acc)[4],
                                                  const uint32_t (*x)[2],
-                                                 const bf16* T, int lane) {
+                                                 const T* Tt, int lane) {
   constexpr int RS = D + 8;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
@@ -574,67 +598,67 @@ __device__ __forceinline__ void mma_regs_by_tile(float (*acc)[4],
 #pragma unroll
     for (int n = 0; n < D / 8; n += 2) {
       uint32_t b[4];
-      ldsm_x4_t(b, b_kn(T, RS, kk * 16, n * 8, lane));
-      mma_bf16(acc[n], a, b[0], b[1]);
-      mma_bf16(acc[n + 1], a, b[2], b[3]);
+      ldsm_x4_t(b, b_kn(Tt, RS, kk * 16, n * 8, lane));
+      mma16<T>(acc[n], a, b[0], b[1]);
+      mma16<T>(acc[n + 1], a, b[2], b[3]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 main pass at Dh 64: warpgroup products (wgmma) on TMA-loaded tiles
+// 16-bit main pass at Dh 64: warpgroup products (wgmma) on TMA-loaded tiles
 // ---------------------------------------------------------------------------
-
-// the dQ accumulation (both bf16 main passes): 4 fp32 a thread
-__device__ __forceinline__ void red_add_v4(float* p, float a, float b,
-                                           float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
-               "f"(a), "f"(b), "f"(c), "f"(d)
-               : "memory");
-}
 
 // One thread's part of a dQ tile: frag[4 j + e] is row r0 (+ 8 for
 // e >= 2), column c0 + 8 j + 2 t4 (+ 1 for odd e), j < N -- the layout of
-// an mma.sync or wgmma accumulator.  With an accumulator it is added, four
-// adjacent columns of one row a lane (lanes t4 and t4 ^ 1 swap halves:
-// t4 even adds row r0, t4 odd row r0 + 8).  Without one (a single KV tile,
-// whose block owns these rows) dq = frag * scale is stored in bf16.
-template <int N, int D>
-__device__ __forceinline__ void dq_out(const float* frag, float* dq_acc,
-                                       bf16* dq, Strides sdq, int b, int h,
-                                       int bh, int Sq, int r0, int c0, int t4,
+// an mma.sync or wgmma accumulator.  With partials, `part` is this block's
+// slice of the (n KV tiles, B, H, Sq, D) fp32 buffer and the tile is stored
+// there, four adjacent columns of one row a lane (lanes t4 and t4 ^ 1 swap
+// halves: t4 even stores row r0, t4 odd row r0 + 8), for the post-pass to
+// add.  Without (a single KV tile, whose block owns these rows) dq =
+// frag * scale is stored as T.  Both main passes call it.
+template <typename T, int N, int D>
+__device__ __forceinline__ void dq_out(const float* frag, float* part, T* dq,
+                                       Strides sdq, int b, int h, int bh,
+                                       int Sq, int r0, int c0, int t4,
                                        float scale) {
-  if (dq_acc == nullptr) {
-    bf16* base = dq + b * sdq.b + h * sdq.h + c0 + 2 * t4;
+  if (part == nullptr) {
+    T* base = dq + b * sdq.b + h * sdq.h + c0 + 2 * t4;
 #pragma unroll
     for (int j = 0; j < N; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = r0 + 8 * half;
         if (row < Sq)
-          *reinterpret_cast<__nv_bfloat162*>(base + (int64_t)row * sdq.s +
-                                             8 * j) =
-              __floats2bfloat162_rn(frag[4 * j + 2 * half] * scale,
-                                    frag[4 * j + 2 * half + 1] * scale);
+          *reinterpret_cast<uint32_t*>(base + (int64_t)row * sdq.s + 8 * j) =
+              pack<T>(frag[4 * j + 2 * half] * scale,
+                      frag[4 * j + 2 * half + 1] * scale);
       }
     return;
   }
   const bool odd = t4 & 1;
   const int row = r0 + (odd ? 8 : 0);
-  float* dst = dq_acc + ((int64_t)bh * Sq + row) * D + c0 + (t4 & 2) * 2;
+  float* dst = part + ((int64_t)bh * Sq + row) * D + c0 + (t4 & 2) * 2;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const float y0 = __shfl_xor_sync(
         0xffffffffu, odd ? frag[4 * j] : frag[4 * j + 2], 1);
     const float y1 = __shfl_xor_sync(
         0xffffffffu, odd ? frag[4 * j + 1] : frag[4 * j + 3], 1);
-    if (row < Sq) {
-      if (odd)
-        red_add_v4(dst + 8 * j, y0, y1, frag[4 * j + 2], frag[4 * j + 3]);
-      else
-        red_add_v4(dst + 8 * j, frag[4 * j], frag[4 * j + 1], y0, y1);
-    }
+    if (row < Sq)
+      *reinterpret_cast<float4*>(dst + 8 * j) =
+          odd ? make_float4(y0, y1, frag[4 * j + 2], frag[4 * j + 3])
+              : make_float4(frag[4 * j], frag[4 * j + 1], y0, y1);
   }
+}
+
+// this block's slice (its KV tile) of the dQ partials, or null (the block
+// writes dq): the grid is (KV tiles, B H) in both main passes
+template <int D>
+__device__ __forceinline__ float* block_part(float* dq_part, int Sq) {
+  return dq_part == nullptr
+             ? nullptr
+             : dq_part + (int64_t)blockIdx.x * gridDim.y * Sq * D;
 }
 
 constexpr int HD = 64;    // head dim: one 128-byte row a key or query
@@ -644,7 +668,7 @@ constexpr int HT = 256;   // two warpgroups; thread 0 also issues the loads
 constexpr int HS = 3;     // stages of the q-tile ring
 // shared memory (bytes from a 1024-aligned base): K and V, two dS^T tiles
 // (tile i writes one while the other may still be read for tile i - 1),
-// HS stages of (Q, dO, lse2, delta), the mbarriers.  Every bf16 tile has rows
+// HS stages of (Q, dO, lse2, delta), the mbarriers.  Every T tile has rows
 // of 128 bytes in the 128-byte swizzle that TMA writes and wgmma reads.
 constexpr int H_TILE_KV = HC * HD * 2;          // 16 KB
 constexpr int H_TILE_Q = HR * HD * 2;           // 8 KB
@@ -660,9 +684,10 @@ __device__ __forceinline__ void consumers_sync() {
 
 // One (batch, head, KV tile of 128 keys) per block, Dh 64: two warpgroups
 // of 64 keys each; thread 0 also issues the loads.  lse2 = lse * log2(e) and
-// delta are (B H, pitch) fp32 with pitch a multiple of 64; dq_acc is the
-// contiguous (B, H, Sq, 64) fp32 accumulator, zeroed by the pre-pass, or
-// null: then dq is written (see dq_out).
+// delta are (B H, pitch) fp32 with pitch a multiple of 64; dq_part is the
+// contiguous (n KV tiles, B, H, Sq, 64) fp32 partial buffer, or null: then
+// dq is written (see dq_out).
+template <typename T>
 __global__ void __launch_bounds__(HT, 1)
 bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -670,11 +695,12 @@ bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse2,
                   const float* __restrict__ delta, int pitch,
-                  float* __restrict__ dq_acc, bf16* __restrict__ dq,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdq,
+                  float* __restrict__ dq_part, T* __restrict__ dq,
+                  T* __restrict__ dk, T* __restrict__ dv, Strides sdq,
                   Strides sdk, Strides sdv, int H,
                   int Sq, int Skv, int causal, int window, float softcap,
                   float scale) {
+  float* const part = block_part<HD>(dq_part, Sq);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* sbase = smem_raw + (base - smem_u32(smem_raw));
@@ -737,13 +763,13 @@ bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss64<0, 0>(s, wg_desc(Ks + wg * 8192 + kk * 32),
-                       wg_desc(Qs + kk * 32), kk);
+      wgmma_ss64<T, 0, 0>(s, wg_desc(Ks + wg * 8192 + kk * 32),
+                          wg_desc(Qs + kk * 32), kk);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss64<0, 0>(dp, wg_desc(Vs + wg * 8192 + kk * 32),
-                       wg_desc(dOs + kk * 32), kk);
+      wgmma_ss64<T, 0, 0>(dp, wg_desc(Vs + wg * 8192 + kk * 32),
+                          wg_desc(dOs + kk * 32), kk);
     wg_commit();
     // P and dS: s[4 j + e] is key kr (+ 8 for e >= 2), query 8 j + 2 t4
     // (+ 1 for odd e), as in an mma.sync accumulator of n-tile j.  Inside
@@ -785,7 +811,7 @@ bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
           dp[x] = ds;
         }
       }
-    // P^T and dS^T as bf16 A fragments: k-step kk covers queries
+    // P^T and dS^T as T A fragments: k-step kk covers queries
     // 16 kk .. + 15, the n-tiles 2 kk and 2 kk + 1
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
@@ -793,8 +819,8 @@ bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int x = 4 * (2 * kk + r / 2) + 2 * (r % 2);
-        pa[kk][r] = pack_bf16(s[x], s[x + 1]);
-        da[kk][r] = pack_bf16(dp[x], dp[x + 1]);
+        pa[kk][r] = pack<T>(s[x], s[x + 1]);
+        da[kk][r] = pack<T>(dp[x], dp[x + 1]);
       }
     // dS^T (128 keys x 64 queries) into its swizzled tile: 16-byte chunk c
     // of row r sits at chunk c ^ (r % 8).  Stored before the products that
@@ -816,10 +842,10 @@ bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs64<1>(dva, pa[kk], wg_desc(dOs + kk * 2048), 1);
+      wgmma_rs64<T, 1>(dva, pa[kk], wg_desc(dOs + kk * 2048), 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs64<1>(dka, da[kk], wg_desc(Qs + kk * 2048), 1);
+      wgmma_rs64<T, 1>(dka, da[kk], wg_desc(Qs + kk * 2048), 1);
     wg_commit();
     consumers_sync();  // all of dS^T is in; every warpgroup is done with
                        // tile i - 1, whose stage takes tile i + HS - 1
@@ -832,98 +858,108 @@ bwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HC / 16; ++kk)
-      wgmma_ss32<1, 1>(dqa,
-                       wg_desc(dSt + (i & 1) * H_TILE_KV + kk * 2048),
-                       wg_desc(Ks + kk * 2048 + wg * 64), kk);
+      wgmma_ss32<T, 1, 1>(dqa,
+                          wg_desc(dSt + (i & 1) * H_TILE_KV + kk * 2048),
+                          wg_desc(Ks + kk * 2048 + wg * 64), kk);
     wg_commit();
     wg_wait<0>();   // and the dV, dK products
 
-    dq_out<4, HD>(dqa, dq_acc, dq, sdq, b, h, bh, Sq,
-                  q0 + (warp % 4) * 16 + g, wg * 32, t4, scale);
+    dq_out<T, 4, HD>(dqa, part, dq, sdq, b, h, bh, Sq,
+                     q0 + (warp % 4) * 16 + g, wg * 32, t4, scale);
   }
 
-  bf16* dkb = dk + b * sdk.b + h * sdk.h;
-  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+  T* dkb = dk + b * sdk.b + h * sdk.h;
+  T* dvb = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int d = j * 8 + t4 * 2;
     if (key0 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)key0 * sdk.s + d) =
-          __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)key0 * sdv.s + d) =
-          __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dkb + (int64_t)key0 * sdk.s + d) =
+          pack<T>(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (int64_t)key0 * sdv.s + d) =
+          pack<T>(dva[4 * j], dva[4 * j + 1]);
     }
     if (key1 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)key1 * sdk.s + d) =
-          __floats2bfloat162_rn(dka[4 * j + 2] * scale,
-                                dka[4 * j + 3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)key1 * sdv.s + d) =
-          __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dkb + (int64_t)key1 * sdk.s + d) =
+          pack<T>(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (int64_t)key1 * sdv.s + d) =
+          pack<T>(dva[4 * j + 2], dva[4 * j + 3]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// post-pass: dq = accumulator * scale as bf16, in dq's strided layout
+// post-pass: dq = the sum of a row's dQ partials in KV-tile order, times
+// scale, as T in dq's strided layout
 // ---------------------------------------------------------------------------
 
-template <int D>
+// f += the 8 floats at p (two 16-byte loads)
+__device__ __forceinline__ void add8(float* f, const float* p) {
+  const float4 x = reinterpret_cast<const float4*>(p)[0];
+  const float4 y = reinterpret_cast<const float4*>(p)[1];
+  const float s[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] += s[i];
+}
+
+// One thread per 8 columns of a dQ row.  The row's q tile (tile_rows<D>()
+// rows, as the main pass streams them) was seen by the blocks of its live
+// KV tiles (kv_range), each of which stored its partial in its own slice
+// of `part` (n KV tiles, rows = B H Sq, D); they are added in tile order.
+template <typename T, int D>
 __global__ void __launch_bounds__(PT)
-bwd_post_kernel(const float* __restrict__ acc, bf16* __restrict__ dq,
-                Strides sdq, int H, int Sq, int64_t rows, float scale) {
-  constexpr int CH = D / 8;
+bwd_post_kernel(const float* __restrict__ part, T* __restrict__ dq,
+                Strides sdq, int H, int Sq, int Skv, int causal, int window,
+                int64_t rows, float scale) {
+  constexpr int CH = D / 8, BR = tile_rows<D>();
   const int64_t e = (int64_t)blockIdx.x * PT + threadIdx.x;
   const int64_t row = e / CH;
   if (row >= rows) return;
   const int c = (int)(e % CH);
   const int64_t bh = row / Sq;
   const int s = (int)(row % Sq), b = (int)(bh / H), h = (int)(bh % H);
-  const float4* src = reinterpret_cast<const float4*>(acc + row * D + c * 8);
-  const float4 x = src[0], y = src[1];
-  const float f[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+  int lo, hi;
+  kv_range(s / BR * BR, BR, KV_TILE, Skv, causal, window, &lo, &hi);
+  float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const float* src = part + row * D + c * 8;
+  for (int t = lo; t < hi; ++t) add8(f, src + t * rows * D);
   uint32_t o[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    o[i] = pack_bf16(f[2 * i] * scale, f[2 * i + 1] * scale);
+    o[i] = pack<T>(f[2 * i] * scale, f[2 * i + 1] * scale);
   *reinterpret_cast<uint4*>(dq + b * sdq.b + h * sdq.h + s * sdq.s + c * 8) =
       make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 main pass at Dh 32 and 128: mma.sync m16n8k16, cp.async stages
+// 16-bit main pass at Dh 32 and 128: mma.sync m16n8k16, cp.async stages
 // ---------------------------------------------------------------------------
 
 constexpr int NW = 8;         // warps per block
 constexpr int BC = 16 * NW;   // keys per block: 16 a warp
 constexpr int FT = 32 * NW;   // threads per block
 
-// q rows per streamed tile: 32 at Dh 128 keeps dK, dV, S and dP (Dh + 2 BR
-// fp32 a thread) within the register file
-template <int D>
-__host__ __device__ constexpr int tile_rows() {
-  return D == 128 ? 32 : 64;
-}
-
 template <int D>
 constexpr size_t fused_smem() {
   constexpr int BR = tile_rows<D>();
-  // K, V and dS^T, then two stages of (Q, dO, lse, delta); bf16 rows padded
-  // by 8 elements (16 bytes) so ldmatrix's eight row reads hit distinct banks
-  return sizeof(bf16) * (2 * BC * (D + 8) + BC * (BR + 8)) +
-         2 * (sizeof(bf16) * 2 * BR * (D + 8) + sizeof(float) * 2 * BR);
+  // K, V and dS^T, then two stages of (Q, dO, lse, delta); 16-bit rows
+  // padded by 8 elements (16 bytes) so ldmatrix's eight row reads hit
+  // distinct banks
+  return 2 * (2 * BC * (D + 8) + BC * (BR + 8)) +
+         2 * (2 * 2 * BR * (D + 8) + sizeof(float) * 2 * BR);
 }
 
 // One (batch, head, KV tile of BC keys) per block.  lse (here lse * log2 e)
-// and delta are (B H, pitch) fp32; dq_acc is the contiguous (B, H, Sq, D)
-// fp32 accumulator, zeroed by the pre-pass, or null (see dq_out).
-template <int D>
+// and delta are (B H, pitch) fp32; dq_part is the contiguous (n KV tiles,
+// B, H, Sq, D) fp32 partial buffer, or null (see dq_out).
+template <typename T, int D>
 __global__ void __launch_bounds__(FT, 1)
-bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, int pitch,
-                 float* __restrict__ dq_acc, bf16* __restrict__ dq,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq_,
+                 float* __restrict__ dq_part, T* __restrict__ dq,
+                 T* __restrict__ dk, T* __restrict__ dv, Strides sq_,
                  Strides sk, Strides sv, Strides sdo, Strides sdq,
                  Strides sdk, Strides sdv, int H, int Sq, int Skv, int causal,
                  int window,
@@ -935,25 +971,26 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // NW / WR column groups of NQ n-tiles
   constexpr int WR = BR / 16, NQ = D / (NW / WR) / 8;
   static_assert(NW % WR == 0 && NQ % 2 == 0 && NQ <= 4, "tiles");
-  constexpr int STAGE = 2 * BR * RS + 4 * BR;  // in bf16 units
+  constexpr int STAGE = 2 * BR * RS + 4 * BR;  // in 16-bit units
+  float* const part = block_part<D>(dq_part, Sq);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BC * RS;
-  bf16* dSt = Vs + BC * RS;          // dS^T (BC x BR), bf16
-  bf16* stages = dSt + BC * PS;      // Q, dO, lse, delta per stage
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + BC * RS;
+  T* dSt = Vs + BC * RS;          // dS^T (BC x BR), T
+  T* stages = dSt + BC * PS;      // Q, dO, lse, delta per stage
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int k0 = blockIdx.x * BC, bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const bf16* qb = q + b * sq_.b + h * sq_.h;
-  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const T* qb = q + b * sq_.b + h * sq_.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
   const float* lse_b = lse + (int64_t)bh * pitch;
   const float* dl_b = delta + (int64_t)bh * pitch;
 
   // rows [r0, r0 + n) of a strided (seq, D) matrix into a padded tile;
   // rows at or past `lim` are zero-filled
-  auto load_rows = [&](bf16* dst, const bf16* src, int64_t ss, int r0,
+  auto load_rows = [&](T* dst, const T* src, int64_t ss, int r0,
                        int n, int lim) {
     for (int e = tid; e < n * CH; e += FT) {
       const int r = e / CH, c = e % CH, ri = r0 + r;
@@ -963,7 +1000,7 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
   auto load_q_tile = [&](int it, int st) {
-    bf16* Qs = stages + st * STAGE;
+    T* Qs = stages + st * STAGE;
     const int q0 = it * BR;
     load_rows(Qs, qb, sq_.s, q0, BR, Sq);
     load_rows(Qs + BR * RS, dob, sdo.s, q0, BR, Sq);
@@ -1005,21 +1042,21 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();  // this tile landed; the previous dQ product is done
-    const bf16* Qs = stages + st * STAGE;
-    const bf16* dOs = Qs + BR * RS;
+    const T* Qs = stages + st * STAGE;
+    const T* dOs = Qs + BR * RS;
     const float* lse_s = reinterpret_cast<const float*>(dOs + BR * RS);
     const float* dl_s = lse_s + BR;
 
     // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys, columns
     // the tile's BR queries
     float s[NS][4], dp[NS][4];
-    mma_rows_by_rows<NS, D>(s, Ks, wr, Qs, lane);
-    mma_rows_by_rows<NS, D>(dp, Vs, wr, dOs, lane);
+    mma_rows_by_rows<T, NS, D>(s, Ks, wr, Qs, lane);
+    mma_rows_by_rows<T, NS, D>(dp, Vs, wr, dOs, lane);
 
     const bool full = q0 + BR <= Sq && k0 + BC <= Skv &&
                       (!causal || k0 + BC - 1 <= q0) &&
                       (!window || k0 > q0 + BR - 1 - window);
-    uint32_t pf[NS][2], dsf[NS][2];  // P^T, dS^T as bf16 A fragments
+    uint32_t pf[NS][2], dsf[NS][2];  // P^T, dS^T as T A fragments
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       float p[4], ds[4];
@@ -1044,17 +1081,17 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
       }
-      pf[n][0] = pack_bf16(p[0], p[1]);
-      pf[n][1] = pack_bf16(p[2], p[3]);
-      dsf[n][0] = pack_bf16(ds[0], ds[1]);
-      dsf[n][1] = pack_bf16(ds[2], ds[3]);
+      pf[n][0] = pack<T>(p[0], p[1]);
+      pf[n][1] = pack<T>(p[2], p[3]);
+      dsf[n][0] = pack<T>(ds[0], ds[1]);
+      dsf[n][1] = pack<T>(ds[2], ds[3]);
       *reinterpret_cast<uint32_t*>(dSt + (wr + g) * PS + n * 8 + t4 * 2) =
           dsf[n][0];
       *reinterpret_cast<uint32_t*>(dSt + (wr + g + 8) * PS + n * 8 +
                                    t4 * 2) = dsf[n][1];
     }
-    mma_regs_by_tile<BR / 16, D>(dva, pf, dOs, lane);   // dV += P^T dO
-    mma_regs_by_tile<BR / 16, D>(dka, dsf, Qs, lane);   // dK += dS^T Q
+    mma_regs_by_tile<T, BR / 16, D>(dva, pf, dOs, lane);   // dV += P^T dO
+    mma_regs_by_tile<T, BR / 16, D>(dka, dsf, Qs, lane);   // dK += dS^T Q
     __syncthreads();  // dS^T complete; this stage's Q, dO are consumed
 
     // dQ_tile (BR x D) = dS K: this warp's 16 rows x NQ * 8 columns
@@ -1070,31 +1107,31 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < NQ; n += 2) {
         uint32_t bb[4];
         ldsm_x4_t(bb, b_kn(Ks, RS, kk * 16, qc + n * 8, lane));
-        mma_bf16(dqa[n], a, bb[0], bb[1]);
-        mma_bf16(dqa[n + 1], a, bb[2], bb[3]);
+        mma16<T>(dqa[n], a, bb[0], bb[1]);
+        mma16<T>(dqa[n + 1], a, bb[2], bb[3]);
       }
     }
-    dq_out<NQ, D>(&dqa[0][0], dq_acc, dq, sdq, b, h, bh, Sq, q0 + qr + g, qc,
-                  t4, scale);
+    dq_out<T, NQ, D>(&dqa[0][0], part, dq, sdq, b, h, bh, Sq, q0 + qr + g,
+                     qc, t4, scale);
   }
   cp_async_wait<0>();  // no copy outlives the block (no live q tile)
 
-  bf16* dkb = dk + b * sdk.b + h * sdk.h;
-  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+  T* dkb = dk + b * sdk.b + h * sdk.h;
+  T* dvb = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int d = n * 8 + t4 * 2;
     if (key0 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)key0 * sdk.s + d) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)key0 * sdv.s + d) =
-          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+      *reinterpret_cast<uint32_t*>(dkb + (int64_t)key0 * sdk.s + d) =
+          pack<T>(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (int64_t)key0 * sdv.s + d) =
+          pack<T>(dva[n][0], dva[n][1]);
     }
     if (key1 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)key1 * sdk.s + d) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)key1 * sdv.s + d) =
-          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+      *reinterpret_cast<uint32_t*>(dkb + (int64_t)key1 * sdk.s + d) =
+          pack<T>(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (int64_t)key1 * sdv.s + d) =
+          pack<T>(dva[n][2], dva[n][3]);
     }
   }
 }
@@ -1102,11 +1139,13 @@ bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *out, *dout;
   const float* lse;
-  float *lse2, *delta, *dq_acc;
+  float *lse2, *delta, *dq_part;
   void *dq, *dk, *dv;
   Strides s[8];  // q, k, v, out, dout, dq, dk, dv
   int B, H, Sq, Skv, pitch, causal, window;
@@ -1125,31 +1164,34 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
+template <typename T>
 int encode_maps(Maps* m, const Args& a) {
   int err;
-  if ((err = tensor_map(&m->q, a.q, a.s[SQ], a.B, a.H, a.Sq, HR)) ||
-      (err = tensor_map(&m->k, a.k, a.s[SK], a.B, a.H, a.Skv, HC)) ||
-      (err = tensor_map(&m->v, a.v, a.s[SV], a.B, a.H, a.Skv, HC)) ||
-      (err = tensor_map(&m->dout, a.dout, a.s[SDO], a.B, a.H, a.Sq, HR)))
+  if ((err = tensor_map<T>(&m->q, a.q, a.s[SQ], a.B, a.H, a.Sq, HR)) ||
+      (err = tensor_map<T>(&m->k, a.k, a.s[SK], a.B, a.H, a.Skv, HC)) ||
+      (err = tensor_map<T>(&m->v, a.v, a.s[SV], a.B, a.H, a.Skv, HC)) ||
+      (err = tensor_map<T>(&m->dout, a.dout, a.s[SDO], a.B, a.H, a.Sq, HR)))
     return err;
   return 0;
 }
 
+template <typename T>
 int launch_hopper(const Maps& m, const Args& a, cudaStream_t st) {
-  int err = prepare(bwd_hopper_kernel, hopper_smem());
+  int err = prepare(bwd_hopper_kernel<T>, hopper_smem());
   if (err) return err;
   dim3 grid((a.Skv + HC - 1) / HC, a.B * a.H);
-  bwd_hopper_kernel<<<grid, HT, hopper_smem(), st>>>(
-      m.q, m.k, m.v, m.dout, a.lse2, a.delta, a.pitch, a.dq_acc,
-      (bf16*)a.dq, (bf16*)a.dk, (bf16*)a.dv, a.s[SDQ], a.s[SDK], a.s[SDV],
-      a.H, a.Sq, a.Skv, a.causal, a.window, a.softcap, a.scale);
+  bwd_hopper_kernel<T><<<grid, HT, hopper_smem(), st>>>(
+      m.q, m.k, m.v, m.dout, a.lse2, a.delta, a.pitch, a.dq_part, (T*)a.dq,
+      (T*)a.dk, (T*)a.dv, a.s[SDQ], a.s[SDK], a.s[SDV], a.H, a.Sq, a.Skv,
+      a.causal, a.window, a.softcap, a.scale);
   return (int)cudaGetLastError();
 }
 
-// fp32: the dQ kernel, then the dK/dV kernel; bf16: the fused kernel
-template <int D>
-int launch_main(int dtype, const Maps& m, const Args& a, cudaStream_t st) {
-  if (dtype == 0) {
+// fp32: the dQ kernel, then the dK/dV kernel; 16-bit: the Hopper kernel at
+// Dh 64, the fused mma.sync kernel at 32 and 128
+template <typename T, int D>
+int launch_main(const Maps& m, const Args& a, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
     dim3 grid_q((a.Sq + FQ - 1) / FQ, a.B * a.H);
     size_t smem = dq_f32_smem<D>();
     int err = prepare(dq_f32_kernel<D>, smem);
@@ -1169,92 +1211,99 @@ int launch_main(int dtype, const Maps& m, const Args& a, cudaStream_t st) {
         a.s[SQ], a.s[SK], a.s[SV], a.s[SDO], a.s[SDK], a.s[SDV], a.H, a.Sq,
         a.Skv, a.causal, a.window, a.softcap, a.scale);
   } else if constexpr (D == HD) {
-    return launch_hopper(m, a, st);
+    return launch_hopper<T>(m, a, st);
   } else {
     dim3 grid((a.Skv + BC - 1) / BC, a.B * a.H);
     const size_t smem = fused_smem<D>();
-    int err = prepare(bwd_fused_kernel<D>, smem);
+    int err = prepare(bwd_fused_kernel<T, D>, smem);
     if (err) return err;
-    bwd_fused_kernel<D><<<grid, FT, smem, st>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-        (const bf16*)a.dout, a.lse2, a.delta, a.pitch, a.dq_acc,
-        (bf16*)a.dq, (bf16*)a.dk, (bf16*)a.dv, a.s[SQ], a.s[SK], a.s[SV],
-        a.s[SDO], a.s[SDQ], a.s[SDK], a.s[SDV], a.H, a.Sq, a.Skv, a.causal,
-        a.window, a.softcap, a.scale);
+    bwd_fused_kernel<T, D><<<grid, FT, smem, st>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+        a.lse2, a.delta, a.pitch, a.dq_part, (T*)a.dq, (T*)a.dk, (T*)a.dv,
+        a.s[SQ], a.s[SK], a.s[SV], a.s[SDO], a.s[SDQ], a.s[SDK], a.s[SDV],
+        a.H, a.Sq, a.Skv, a.causal, a.window, a.softcap, a.scale);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_prep(int dtype, const Args& a, cudaStream_t st) {
+template <typename T, int D>
+int launch_prep(const Args& a, cudaStream_t st) {
   const int64_t rows = (int64_t)a.B * a.H * a.Sq;
   const unsigned blocks = (unsigned)((rows * (D / 8) + PT - 1) / PT);
-  if (dtype == 0)
-    bwd_prep_kernel<float, D><<<blocks, PT, 0, st>>>(
-        (const float*)a.dout, (const float*)a.out, a.s[SDO], a.s[SO], a.lse,
-        nullptr, a.delta, nullptr, a.H, a.Sq, a.pitch, rows);
-  else
-    bwd_prep_kernel<bf16, D><<<blocks, PT, 0, st>>>(
-        (const bf16*)a.dout, (const bf16*)a.out, a.s[SDO], a.s[SO], a.lse,
-        a.lse2, a.delta, a.dq_acc, a.H, a.Sq, a.pitch, rows);
+  bwd_prep_kernel<T, D><<<blocks, PT, 0, st>>>(
+      (const T*)a.dout, (const T*)a.out, a.s[SDO], a.s[SO], a.lse,
+      std::is_same<T, float>::value ? nullptr : a.lse2, a.delta, a.H, a.Sq,
+      a.pitch, rows);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_post(const Args& a, cudaStream_t st) {
-  const int64_t rows = (int64_t)a.B * a.H * a.Sq;
-  const unsigned blocks = (unsigned)((rows * (D / 8) + PT - 1) / PT);
-  bwd_post_kernel<D><<<blocks, PT, 0, st>>>(a.dq_acc, (bf16*)a.dq, a.s[SDQ],
-                                            a.H, a.Sq, rows, a.scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    return (int)cudaErrorInvalidValue;   // fp32 writes dq in the main pass
+  } else {
+    const int64_t rows = (int64_t)a.B * a.H * a.Sq;
+    const unsigned blocks = (unsigned)((rows * (D / 8) + PT - 1) / PT);
+    bwd_post_kernel<T, D><<<blocks, PT, 0, st>>>(
+        a.dq_part, (T*)a.dq, a.s[SDQ], a.H, a.Sq, a.Skv, a.causal, a.window,
+        rows, a.scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 // the launches `parts` asks for, in order; the host work (tensor maps)
 // comes before the first, so the kernels follow each other on the stream
-template <int D>
-int launch(int parts, int dtype, const Args& a, cudaStream_t st) {
+template <typename T, int D>
+int launch_t(int parts, const Args& a, cudaStream_t st) {
   Maps m;
   int err = 0;
-  if constexpr (D == HD)
-    if ((parts & 2) && dtype == 1 && (err = encode_maps(&m, a))) return err;
-  if ((parts & 1) && (err = launch_prep<D>(dtype, a, st))) return err;
-  if ((parts & 2) && (err = launch_main<D>(dtype, m, a, st))) return err;
-  if (parts & 4) err = launch_post<D>(a, st);
+  if constexpr (D == HD && !std::is_same<T, float>::value)
+    if ((parts & 2) && (err = encode_maps<T>(&m, a))) return err;
+  if ((parts & 1) && (err = launch_prep<T, D>(a, st))) return err;
+  if ((parts & 2) && (err = launch_main<T, D>(m, a, st))) return err;
+  if (parts & 4) err = launch_post<T, D>(a, st);
   return err;
 }
 
-// keys per block of the bf16 main pass, at every head dim; the wrapper's
-// KV_TILE (kernels/flash_attention.py) names it when it decides whether a
-// call needs the dQ accumulator
-constexpr int KV_TILE = 128;
+template <int D>
+int launch(int parts, int dtype, const Args& a, cudaStream_t st) {
+  if (dtype == 0) return launch_t<float, D>(parts, a, st);
+  if (dtype == 1) return launch_t<bf16, D>(parts, a, st);
+  return launch_t<f16, D>(parts, a, st);
+}
+
 static_assert(HC == KV_TILE && BC == KV_TILE,
-              "both bf16 main passes take KV_TILE keys a block");
+              "both 16-bit main passes take KV_TILE keys a block");
+static_assert(tile_rows<HD>() == HR,
+              "the post-pass finds the Dh-64 q tiles by tile_rows");
 
 }  // namespace
 
 // The backward's launches, chosen by the bits of `parts`: 1 the pre-pass, 2
-// the main pass, 4 the post-pass (bf16 only).  dtype: 0 = float32, 1 =
-// bfloat16 (rows 16-byte aligned).  D: 32, 64 or 128.  strides: the
-// (batch, head, seq) strides in elements of q, k, v, out, dout, dq, dk, dv
-// (24 values).  lse is the forward's contiguous (B, H, Sq) fp32; delta and,
-// in bf16, lse2 = lse * log2(e) are (B H, pitch) fp32, pitch Sq in fp32 and
-// Sq rounded up to a multiple of 64 in bf16; dq_acc (bf16 only) is the
-// contiguous (B, H, Sq, D) fp32 dQ accumulator; it may be null when Skv <=
-// KV_TILE: then each q row's dQ comes from one block, which writes dq
-// itself (no zeroing, no atomics, no post-pass).  A null accumulator over
-// more keys, or a post-pass without one, is refused (cudaErrorInvalidValue).
-// In fp32 the main pass always writes dq itself and dq_acc must be null.
-// Returns the first failing launch's cudaGetLastError().
+// the main pass, 4 the post-pass (16-bit only).  dtype: 0 = float32, 1 =
+// bfloat16, 2 = float16 (16-bit rows 16-byte aligned).  D: 32, 64 or 128.
+// strides: the (batch, head, seq) strides in elements of q, k, v, out,
+// dout, dq, dk, dv (24 values).  lse is the forward's contiguous (B, H, Sq)
+// fp32; delta and, in 16 bits, lse2 = lse * log2(e) are (B H, pitch) fp32,
+// pitch Sq in fp32 and Sq rounded up to a multiple of 64 in 16 bits;
+// dq_part (16-bit only) is the contiguous (ceil(Skv / KV_TILE), B, H, Sq,
+// D) fp32 buffer of the main pass's dQ partials, one slice a KV tile, which
+// the post-pass adds in tile order; it may be null when Skv <= KV_TILE:
+// then each q row's dQ comes from one block, which writes dq itself (no
+// partials, no post-pass).  A null buffer over more keys, or a post-pass
+// without one, is refused (cudaErrorInvalidValue).  In fp32 the main pass
+// always writes dq itself and dq_part must be null.  Returns the first
+// failing launch's cudaGetLastError().
 extern "C" int flash_bwd(int parts, int dtype, int D, const void* q,
                          const void* k, const void* v, const void* out,
                          const void* dout, const float* lse, float* lse2,
-                         float* delta, int pitch, void* dq, float* dq_acc,
+                         float* delta, int pitch, void* dq, float* dq_part,
                          void* dk, void* dv, const int64_t* strides, int B,
                          int H, int Sq, int Skv, int causal, int window,
                          float softcap, float scale, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (dq_acc == nullptr ? (parts & 4) || (dtype == 1 && Skv > KV_TILE)
-                        : dtype == 0)
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  if (dq_part == nullptr ? (parts & 4) || (dtype != 0 && Skv > KV_TILE)
+                         : dtype == 0)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.q = q;
@@ -1265,7 +1314,7 @@ extern "C" int flash_bwd(int parts, int dtype, int D, const void* q,
   a.lse = lse;
   a.lse2 = lse2;
   a.delta = delta;
-  a.dq_acc = dq_acc;
+  a.dq_part = dq_part;
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;

@@ -22,9 +22,11 @@
 // time against 10.1 us of HBM traffic on an H100, so bytes bound it by a
 // little; BERT's bidirectional shapes (64, 16, 128, 64) and
 // (32, 16, 512, 64) are bound by bytes too (20 and 40 us).  Three kernels,
-// chosen by (dtype, Dh) in `flash_fwd` below:
+// chosen by (dtype, Dh) in `flash_fwd` below.  The two 16-bit kernels are
+// templated on the element type T, bf16 or f16 (the paper's f16 training):
+// P is rounded to T as the A operand of P V, everything else is fp32.
 //
-// * bf16 at Dh 64 and 128 (serving's prefill, BERT's training; see
+// * 16-bit at Dh 64 and 128 (serving's prefill, BERT's training; see
 //   flash_fwd_hopper_kernel): warpgroup products (wgmma) on tiles that TMA
 //   moves between global and 128-byte-swizzled shared memory.  A block owns
 //   128 q rows, two consumer warpgroups of 64.  Thread 0 loads Q and the
@@ -37,7 +39,7 @@
 //   on the accumulator in registers in the exp2 domain (scale x log2 e
 //   folded into one FFMA, ex2.approx), the mask only on tiles that straddle
 //   the diagonal, the window's edge or the end of the keys, the softcap a
-//   template flag; O += P V takes P, rounded to bf16, from registers and V
+//   template flag; O += P V takes P, rounded to T, from registers and V
 //   MN-major straight from its tile (no transpose).  A row of Dh 128 is 256
 //   bytes, twice the swizzle span: every tile is stored as 64-column
 //   halves, each read through its own descriptors (k-steps 4-7 of Q K^T,
@@ -50,7 +52,7 @@
 //   four warpgroups an SM neither a software-pipelined loop (S of tile i + 1
 //   issued beside P V of tile i) nor ping-pong ordering of the two
 //   warpgroups' products was faster (PERF.md).
-// * bf16 at Dh 32 (no path uses it): mma.sync m16n8k16 with fp32
+// * 16-bit at Dh 32 (no path uses it): mma.sync m16n8k16 with fp32
 //   accumulation, synchronous loads (flash_fwd_mma_kernel).
 // * fp32 at every Dh (parity runs): CUDA-core fp32 products from shared
 //   memory (flash_fwd_kernel below), sized so three blocks fit on an SM
@@ -249,15 +251,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at Dh 32: tensor-core version (mma.sync m16n8k16, fp32 accumulate)
+// 16-bit at Dh 32: tensor-core version (mma.sync m16n8k16, fp32 accumulate)
 //
 // One block of 4 warps owns a 64-row q tile; warp w owns rows 16 w .. +15.
 // Q's fragments stay in registers for the whole KV walk.  Per 64-key tile,
 // K is staged row-major and V transposed in shared memory (rows padded by 8
-// bf16 so fragment loads hit distinct banks), S = Q K^T is accumulated in
-// fp32 fragments, masked and soft-capped in place, the online softmax runs
-// on the fragments (a row lives in the 4 lanes of a quad), and P, rounded to
-// bf16, is fed straight back as the A operand of O += P V -- the
+// elements so fragment loads hit distinct banks), S = Q K^T is accumulated
+// in fp32 fragments, masked and soft-capped in place, the online softmax
+// runs on the fragments (a row lives in the 4 lanes of a quad), and P,
+// rounded to T, is fed straight back as the A operand of O += P V -- the
 // accumulator layout of two adjacent 8-column S tiles is the A layout of one
 // 16-deep k-step.  m, l and O stay fp32.  Loads are 16-byte vectors, so the
 // wrapper requires 16-byte aligned rows.
@@ -269,25 +271,24 @@ constexpr int MT = 128;  // threads per block (4 warps)
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * MQ * (D + 8) + D * (MK + 8));
+  return 2 * (2 * MQ * (D + 8) + D * (MK + 8));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+__device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(MT)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse,
                      int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
                      int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
                      int64_t vss, int64_t osb, int64_t osh, int64_t oss,
                      int H, int KV, int Sq, int Skv, int causal, int window,
                      float softcap, float scale) {
-  constexpr int RS = D + 8;        // Q / K smem row stride (bf16)
+  constexpr int RS = D + 8;        // Q / K smem row stride (elements)
   constexpr int VS = MK + 8;       // V^T smem row stride
   constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
   constexpr int NS = MK / 8;       // 8-wide column tiles of S
@@ -295,9 +296,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int CH = D / 8;        // 16-byte chunks per row
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + MQ * RS;
-  __nv_bfloat16* Vt = Ks + MK * RS;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + MQ * RS;
+  T* Vt = Ks + MK * RS;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
@@ -305,9 +306,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + kvh * ksh;
+  const T* vb = v + b * vsb + kvh * vsh;
   const uint4 zero = make_uint4(0, 0, 0, 0);
 
   for (int e = tid; e < MQ * CH; e += MT) {
@@ -362,7 +363,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       uint4 raw = ki < Skv ? *reinterpret_cast<const uint4*>(
                                  vb + (int64_t)ki * vss + c * 8)
                            : zero;
-      const __nv_bfloat16* el = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      const T* el = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int i = 0; i < 8; ++i) Vt[(c * 8 + i) * VS + r] = el[i];
     }
@@ -372,10 +373,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (n * 8 + g) * RS + t4 * 2;
+      const T* kr = Ks + (n * 8 + g) * RS + t4 * 2;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        mma_bf16(s[n], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+        mma16<T>(s[n], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
     }
 
     float mx0 = kNegInf, mx1 = kNegInf;
@@ -430,14 +431,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < MK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[0] = pack<T>(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack<T>(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vr = Vt + (n * 8 + g) * VS + kk * 16 + t4 * 2;
-        mma_bf16(o[n], pa, ld32(vr), ld32(vr + 8));
+        const T* vr = Vt + (n * 8 + g) * VS + kk * 16 + t4 * 2;
+        mma16<T>(o[n], pa, ld32(vr), ld32(vr + 8));
       }
     }
   }
@@ -447,27 +448,27 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (row0 < Sq) lse[(int64_t)bh * Sq + row0] = m0 + logf(lc0);
     if (row1 < Sq) lse[(int64_t)bh * Sq + row1] = m1 + logf(lc1);
   }
-  __nv_bfloat16* ob = out + b * osb + h * osh;
+  T* ob = out + b * osb + h * osh;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int d = n * 8 + t4 * 2;
     if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row0 * oss + d) =
-          __floats2bfloat162_rn(o[n][0] / lc0, o[n][1] / lc0);
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)row0 * oss + d) =
+          pack<T>(o[n][0] / lc0, o[n][1] / lc0);
     if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row1 * oss + d) =
-          __floats2bfloat162_rn(o[n][2] / lc1, o[n][3] / lc1);
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)row1 * oss + d) =
+          pack<T>(o[n][2] / lc1, o[n][3] / lc1);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at Dh 64 and 128: warpgroup products (wgmma) on TMA-loaded tiles
+// 16-bit at Dh 64 and 128: warpgroup products (wgmma) on TMA-loaded tiles
 //
 // Warpgroup wg of the block owns q rows q0 + 64 wg .. + 63; thread t of it
 // holds rows ra = 16 (warp % 4) + t / 4 and ra + 8 of those, columns
 // 8 j + 2 (t % 4) (+ 1) of every 8-wide n-tile j, in each accumulator (the
 // wgmma layout, that of mma.sync for each warp's 16 rows).  So a row lives
-// in the 4 lanes of a quad, and the S accumulator, packed to bf16, is the A
+// in the 4 lanes of a quad, and the S accumulator, packed to T, is the A
 // fragment of the P V product as it stands.  The row sum l is kept per lane
 // and added across the quad once, at the end.
 // ---------------------------------------------------------------------------
@@ -512,7 +513,7 @@ struct WTile {
 // (B H, q tiles) for causal attention, the longest tiles dispatched first,
 // and (q tiles, B H) otherwise, so that the q tiles of one head run side
 // by side while its K and V are in L2.  CAP: a tanh softcap is applied.
-template <int D, bool CAP>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(WT, D == 64 ? 2 : 1)
 flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -521,14 +522,14 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         float* __restrict__ lse, int H, int KV, int Sq,
                         int Skv, int causal, int window, float softcap,
                         float scale) {
-  using T = WTile<D>;
-  constexpr int WK = T::BK, WS = T::WS;
+  using W = WTile<D>;
+  constexpr int WK = W::BK, WS = W::WS;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int released[WS];  // warps done with the stage's tile, summed
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t Qs = base, qbar = base + T::BARS;
+  const uint32_t Qs = base, qbar = base + W::BARS;
   auto full = [&](int st) { return qbar + 8 + 8 * st; };
-  auto kv_stage = [&](int st) { return base + T::Q_BYTES + st * T::STAGE; };
+  auto kv_stage = [&](int st) { return base + W::Q_BYTES + st * W::STAGE; };
 
   const int n_qt = (Sq + WQ - 1) / WQ;
   const int bh = causal ? blockIdx.x : blockIdx.y;
@@ -551,11 +552,11 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_tile = [&](int i) {
     const int st = i % WS, k0 = (j_lo + i) * WK;
     const uint32_t ks = kv_stage(st);
-    mbar_expect_tx(full(st), T::STAGE);
+    mbar_expect_tx(full(st), W::STAGE);
 #pragma unroll
-    for (int hf = 0; hf < T::HALVES; ++hf) {
-      tma_load(ks + hf * T::KV_HALF, &tk, k0, kvh, b, full(st), 64 * hf);
-      tma_load(ks + T::KV_BYTES + hf * T::KV_HALF, &tv, k0, kvh, b, full(st),
+    for (int hf = 0; hf < W::HALVES; ++hf) {
+      tma_load(ks + hf * W::KV_HALF, &tk, k0, kvh, b, full(st), 64 * hf);
+      tma_load(ks + W::KV_BYTES + hf * W::KV_HALF, &tv, k0, kvh, b, full(st),
                64 * hf);
     }
   };
@@ -567,10 +568,10 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
       released[st] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(qbar, T::Q_BYTES);
+    mbar_expect_tx(qbar, W::Q_BYTES);
 #pragma unroll
-    for (int hf = 0; hf < T::HALVES; ++hf)
-      tma_load(Qs + hf * T::Q_HALF, &tq, q0, h, b, qbar, 64 * hf);
+    for (int hf = 0; hf < W::HALVES; ++hf)
+      tma_load(Qs + hf * W::Q_HALF, &tq, q0, h, b, qbar, 64 * hf);
     for (int i = 0; i < min(n_tiles, WS); ++i) load_tile(i);
   }
   __syncthreads();
@@ -587,7 +588,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % WS, k0 = (j_lo + i) * WK;
-    const uint32_t ks = kv_stage(st), vs = ks + T::KV_BYTES;
+    const uint32_t ks = kv_stage(st), vs = ks + W::KV_BYTES;
     // does any row of this warpgroup see a key of this tile?
     const bool live = r_lo < Sq && (!causal || k0 <= r_lo + 63) &&
                       (!window || k0 + WK - 1 > r_lo - window);
@@ -600,12 +601,12 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int at = (kk & 3) * 32;
-        const uint64_t dq = wg_desc(Qw + (kk >> 2) * T::Q_HALF + at);
-        const uint64_t dk = wg_desc(ks + (kk >> 2) * T::KV_HALF + at);
+        const uint64_t dq = wg_desc(Qw + (kk >> 2) * W::Q_HALF + at);
+        const uint64_t dk = wg_desc(ks + (kk >> 2) * W::KV_HALF + at);
         if constexpr (WK == 128)
-          wgmma_ss128<0, 0>(s, dq, dk, kk);
+          wgmma_ss128<T, 0, 0>(s, dq, dk, kk);
         else
-          wgmma_ss64<0, 0>(s, dq, dk, kk);
+          wgmma_ss64<T, 0, 0>(s, dq, dk, kk);
       }
       wg_commit();
       wg_wait<0>();
@@ -669,7 +670,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
         o[4 * j + 2] *= c1;
         o[4 * j + 3] *= c1;
       }
-      // P as bf16 A fragments: k-step kk covers keys 16 kk .. + 15, the
+      // P as T A fragments: k-step kk covers keys 16 kk .. + 15, the
       // n-tiles 2 kk and 2 kk + 1
       uint32_t pa[WK / 16][4];
 #pragma unroll
@@ -677,7 +678,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int x = 4 * (2 * kk + r / 2) + 2 * (r % 2);
-          pa[kk][r] = pack_bf16(s[x], s[x + 1]);
+          pa[kk][r] = pack<T>(s[x], s[x + 1]);
         }
       // O += P V: B (V) MN-major, a k-step 16 keys (2048 bytes) of a half;
       // one n64 product per half of the head dim
@@ -685,9 +686,9 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < WK / 16; ++kk)
 #pragma unroll
-        for (int hf = 0; hf < T::HALVES; ++hf)
-          wgmma_rs64<1>(o + 32 * hf, pa[kk],
-                        wg_desc(vs + hf * T::KV_HALF + kk * 2048), 1);
+        for (int hf = 0; hf < W::HALVES; ++hf)
+          wgmma_rs64<T, 1>(o + 32 * hf, pa[kk],
+                        wg_desc(vs + hf * W::KV_HALF + kk * 2048), 1);
       wg_commit();
       wg_wait<0>();
     }
@@ -710,7 +711,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
     if (ra < Sq) lse[(int64_t)bh * Sq + ra] = m0 * kLn2 + logf(lc0);
     if (rb < Sq) lse[(int64_t)bh * Sq + rb] = m1 * kLn2 + logf(lc1);
   }
-  // out = O / l as bf16 into this warpgroup's Q rows (read by no product
+  // out = O / l as T into this warpgroup's Q rows (read by no product
   // any more) in the 128-byte swizzle (16-byte chunk c of row r at chunk
   // c ^ (r % 8)), then one TMA store a half of the head dim; the map clips
   // the rows past Sq
@@ -718,11 +719,11 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         ((warp % 4) * 16 + g) * 128 + 4 * t4;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    unsigned char* at = orow + (j / 8) * T::Q_HALF + (((j % 8) ^ g) << 4);
+    unsigned char* at = orow + (j / 8) * W::Q_HALF + (((j % 8) ^ g) << 4);
     *reinterpret_cast<uint32_t*>(at) =
-        pack_bf16(o[4 * j] * il0, o[4 * j + 1] * il0);
+        pack<T>(o[4 * j] * il0, o[4 * j + 1] * il0);
     *reinterpret_cast<uint32_t*>(at + 8 * 128) =
-        pack_bf16(o[4 * j + 2] * il1, o[4 * j + 3] * il1);
+        pack<T>(o[4 * j + 2] * il1, o[4 * j + 3] * il1);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   if (wg == 0)
@@ -731,39 +732,38 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("bar.sync 2, 128;\n" ::: "memory");
   if (tid % 128 == 0 && r_lo < Sq) {
 #pragma unroll
-    for (int hf = 0; hf < T::HALVES; ++hf)
-      tma_store(&to, Qw + hf * T::Q_HALF, 64 * hf, r_lo, h, b);
+    for (int hf = 0; hf < W::HALVES; ++hf)
+      tma_store(&to, Qw + hf * W::Q_HALF, 64 * hf, r_lo, h, b);
     tma_store_drain();   // the tile is read before the block's memory goes
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, const int64_t* st, int B, int H, int KV, int Sq,
                int Skv, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
-  auto kern = flash_fwd_mma_kernel<D>;
+  auto kern = flash_fwd_mma_kernel<T, D>;
   const size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + MQ - 1) / MQ, B * H);
   kern<<<grid, MT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
       lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], H, KV, Sq, Skv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool CAP>
+template <typename T, int D, bool CAP>
 int launch_hopper(const CUtensorMap& mq, const CUtensorMap& mk,
                   const CUtensorMap& mv, const CUtensorMap& mo, float* lse,
                   int B, int H, int KV, int Sq, int Skv, int causal,
                   int window, float softcap, float scale,
                   cudaStream_t stream) {
-  auto kern = flash_fwd_hopper_kernel<D, CAP>;
+  auto kern = flash_fwd_hopper_kernel<T, D, CAP>;
   const size_t smem = WTile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -775,31 +775,32 @@ int launch_hopper(const CUtensorMap& mq, const CUtensorMap& mk,
   return (int)cudaGetLastError();
 }
 
-// bf16: Dh 64 and 128 on the Hopper kernel (its tensor maps encoded here,
-// from the strides), Dh 32 on the mma.sync kernel
-int launch_bf16(int D, const void* q, const void* k, const void* v,
+// 16-bit (T: bf16 or f16): Dh 64 and 128 on the Hopper kernel (its tensor
+// maps encoded here, from the strides), Dh 32 on the mma.sync kernel
+template <typename T>
+int launch_16(int D, const void* q, const void* k, const void* v,
                 void* out, float* lse, const int64_t* st, int B, int H,
                 int KV, int Sq, int Skv, int causal, int window,
                 float softcap, float scale, cudaStream_t stream) {
   if (D == 32)
-    return launch_mma<32>(q, k, v, out, lse, st, B, H, KV, Sq, Skv, causal,
-                          window, softcap, scale, stream);
+    return launch_mma<T, 32>(q, k, v, out, lse, st, B, H, KV, Sq, Skv,
+                             causal, window, softcap, scale, stream);
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   CUtensorMap mq, mk, mv, mo;
   const int bk = D == 64 ? WTile<64>::BK : WTile<128>::BK;
   int err;
-  if ((err = tensor_map(&mq, q, sq, B, H, Sq, WQ, D)) ||
-      (err = tensor_map(&mk, k, sk, B, KV, Skv, bk, D)) ||
-      (err = tensor_map(&mv, v, sv, B, KV, Skv, bk, D)) ||
-      (err = tensor_map(&mo, out, so, B, H, Sq, 64, D)))
+  if ((err = tensor_map<T>(&mq, q, sq, B, H, Sq, WQ, D)) ||
+      (err = tensor_map<T>(&mk, k, sk, B, KV, Skv, bk, D)) ||
+      (err = tensor_map<T>(&mv, v, sv, B, KV, Skv, bk, D)) ||
+      (err = tensor_map<T>(&mo, out, so, B, H, Sq, 64, D)))
     return err;
   const bool cap = softcap > 0.f;
-  auto launch = D == 64 ? (cap ? launch_hopper<64, true>
-                               : launch_hopper<64, false>)
-                        : (cap ? launch_hopper<128, true>
-                               : launch_hopper<128, false>);
+  auto launch = D == 64 ? (cap ? launch_hopper<T, 64, true>
+                               : launch_hopper<T, 64, false>)
+                        : (cap ? launch_hopper<T, 128, true>
+                               : launch_hopper<T, 128, false>);
   return launch(mq, mk, mv, mo, lse, B, H, KV, Sq, Skv, causal, window,
                 softcap, scale, stream);
 }
@@ -844,10 +845,10 @@ int launch_f32_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (rows 16-byte
-// aligned; the Hopper kernel at Dh 64 and 128, the mma.sync kernel at Dh
-// 32).  strides: 12 int64 values, the (batch, head, seq) strides of q, k, v
-// and out in elements (head dim contiguous).  lse is a contiguous
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16, 2 = float16 (rows
+// 16-byte aligned; the Hopper kernel at Dh 64 and 128, the mma.sync kernel
+// at Dh 32).  strides: 12 int64 values, the (batch, head, seq) strides of
+// q, k, v and out in elements (head dim contiguous).  lse is a contiguous
 // (B, H, Sq) float32 buffer.  Returns the first CUDA error (tensor-map
 // encoding, or cudaGetLastError() after the launch).
 extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
@@ -860,7 +861,10 @@ extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
     return launch_f32_d(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
                         causal, window, softcap, scale, s);
   if (dtype == 1)
-    return launch_bf16(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
-                       causal, window, softcap, scale, s);
+    return launch_16<bf16>(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
+                           causal, window, softcap, scale, s);
+  if (dtype == 2)
+    return launch_16<f16>(D, q, k, v, out, lse, strides, B, H, KV, Sq, Skv,
+                          causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

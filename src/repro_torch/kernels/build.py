@@ -113,3 +113,11 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error (cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def check_cuda(what: str, **tensors) -> None:
+    """Raise unless every tensor lies on the card: a wrapper launches its
+    kernel or refuses, and never falls back to the plain version."""
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is not a CUDA tensor")

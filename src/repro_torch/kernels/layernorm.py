@@ -1,11 +1,14 @@
-"""Row LayerNorm on the card: wrapper of ``csrc/layernorm.cu``.
+"""Row LayerNorm on the card: wrappers of ``csrc/layernorm.cu``.
 
-Replaces ``repro/kernels/layernorm.py:27`` ``layernorm`` (Pallas kernel
-``_layernorm_kernel``).  The kernel's design notes are at the top of the
-CUDA source.  The wrapper checks what the kernel takes, allocates the
-outputs, launches on PyTorch's current stream and counts the launch.  The
-plain version is ``kernels.ref.layernorm_ref``; ``kernels.ops`` picks
-between them by device and pairs either with the backward.
+``layernorm`` replaces ``repro/kernels/layernorm.py:27`` ``layernorm``
+(Pallas kernel ``_layernorm_kernel``).  ``layernorm_bwd`` is its backward,
+which the JAX package leaves to XLA's autodiff: a kernel of the port's own
+(deterministic: fixed-order column sums, no atomics).  The kernels' design
+notes are at the top of the CUDA source.  The wrappers check what the
+kernels take, allocate the outputs and scratch, launch on PyTorch's
+current stream and count the launches.  The plain versions are
+``kernels.ref.layernorm_ref`` and ``layernorm_bwd_ref``; ``kernels.ops``
+picks between them by device and pairs the forward with the backward.
 """
 from __future__ import annotations
 
@@ -15,10 +18,17 @@ import torch
 
 from repro_torch.kernels import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_VECTORS_PER_LANE = 32
+# the backward keeps a row's share in registers: at most 8 vectors a lane
+# (d <= 1024 in f32, 2048 in 16 bits)
+_MAX_VECTORS_PER_LANE_BWD = 8
+# the backward's row tiles (one block each, one fp32 partial row each):
+# at most MAX_TILES, of at least WARPS_BWD rows (one a warp)
+MAX_TILES, WARPS_BWD = 256, 8
 
-launches = 0   # launches of the kernel in this process (see ops.launch_counts)
+launches = 0       # forward launches in this process (see ops.launch_counts)
+launches_bwd = 0   # backward launches (one a call: both of its kernels)
 
 
 def _fn():
@@ -31,41 +41,65 @@ def _fn():
     return fn
 
 
-def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-              eps: float = 1e-6):
-    """x: (..., d) contiguous CUDA tensor, float32 or bfloat16; scale, bias:
-    (d,) in x's dtype or float32.  Returns (y in x's dtype and shape, mean
-    (rows,) float32, rstd (rows,) float32)."""
-    global launches
-    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
-        if t.dtype == torch.float16:
-            raise TypeError(f"layernorm: {name} is float16; the kernel takes "
-                            "float32 or bfloat16 (f16 kernels are not "
-                            "written yet)")
-        if not t.is_cuda:
-            raise ValueError(f"layernorm: {name} is not a CUDA tensor")
+def _bwd_fn():
+    fn = build.load("layernorm").layernorm_bwd
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i32, i32, i32] + [ptr] * 9 + [i32, i32, i32, ptr]
+        fn.restype = i32
+    return fn
+
+
+def _check(what, x, params, max_vectors):
+    """What both kernels take: x a contiguous, 16-byte aligned (..., d)
+    float32, bfloat16 or float16 CUDA tensor with d a multiple of the
+    16-byte vector; ``params`` ((name, tensor) of shape (d,)) in x's dtype
+    or float32, all alike.  Dtypes, shapes and alignment are checked before
+    the device, so the CPU tests reach every refusal.  Returns (rows, d,
+    vectors a lane)."""
     if x.dtype not in _DTYPES:
-        raise TypeError(f"layernorm: x has dtype {x.dtype}; the kernel "
-                        "takes float32 or bfloat16")
-    if scale.dtype != bias.dtype or scale.dtype not in (x.dtype,
-                                                        torch.float32):
-        raise TypeError("layernorm: scale and bias must share x's dtype or "
-                        "be float32")
+        raise TypeError(f"{what}: x has dtype {x.dtype}; the kernel takes "
+                        "float32, bfloat16 or float16")
+    pdt = params[0][1].dtype
+    if any(t.dtype != pdt for _, t in params) or pdt not in (x.dtype,
+                                                             torch.float32):
+        raise TypeError(f"{what}: {' and '.join(n for n, _ in params)} "
+                        "must share x's dtype or be float32")
     d = x.shape[-1]
     per_vec = 16 // x.element_size()
-    if (scale.shape != (d,) or bias.shape != (d,) or d % per_vec
+    if (any(t.shape != (d,) for _, t in params) or d % per_vec
             or not x.is_contiguous() or x.data_ptr() % 16):
-        raise ValueError(f"layernorm: x {tuple(x.shape)} must be contiguous "
+        raise ValueError(f"{what}: x {tuple(x.shape)} must be contiguous "
                          f"and 16-byte aligned with d a multiple of "
-                         f"{per_vec}, scale and bias of shape ({d},)")
+                         f"{per_vec}, " + " and ".join(n for n, _ in params)
+                         + f" of shape ({d},)")
     lanes = -(-d // per_vec)
     nv = 1
     while 32 * nv < lanes:
         nv *= 2
-    if nv > _MAX_VECTORS_PER_LANE:
-        raise ValueError(f"layernorm: rows of {d} exceed the kernel's "
-                         f"{32 * _MAX_VECTORS_PER_LANE * per_vec}")
-    rows = x.numel() // d
+    if nv > max_vectors:
+        raise ValueError(f"{what}: rows of {d} exceed the kernel's "
+                         f"{32 * max_vectors * per_vec}")
+    build.check_cuda(what, x=x, **dict(params))
+    return x.numel() // d, d, nv
+
+
+def bwd_tiles(rows: int):
+    """(tiles, rows a tile) of the backward over ``rows`` rows: at most
+    MAX_TILES tiles of at least WARPS_BWD rows.  A function of the shape
+    alone, so the order of every sum is too."""
+    tile = max(WARPS_BWD, -(-rows // MAX_TILES))
+    return -(-rows // tile), tile
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              eps: float = 1e-6):
+    """x: (..., d) contiguous CUDA tensor, float32, bfloat16 or float16;
+    scale, bias: (d,) in x's dtype or float32.  Returns (y in x's dtype and
+    shape, mean (rows,) float32, rstd (rows,) float32)."""
+    global launches
+    rows, d, nv = _check("layernorm", x, (("scale", scale), ("bias", bias)),
+                         _MAX_VECTORS_PER_LANE)
     y = torch.empty_like(x)
     mean = torch.empty((rows,), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
@@ -76,3 +110,42 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     build.check(err, "layernorm")
     launches += 1
     return y, mean, rstd
+
+
+def layernorm_bwd(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                  mean: torch.Tensor, rstd: torch.Tensor):
+    """The gradient of ``layernorm``'s y: dy and x (..., d) contiguous CUDA
+    tensors of one dtype (float32, bfloat16 or float16), scale (d,) in x's
+    dtype or float32, mean and rstd the forward's (rows,) float32.  Returns
+    (dx in x's dtype and shape, dscale, dbias in scale's dtype), the same
+    bits from run to run."""
+    global launches_bwd
+    if dy.dtype != x.dtype:
+        raise TypeError(f"layernorm_bwd: dy {dy.dtype} and x {x.dtype} "
+                        "must share a dtype")
+    if (dy.shape != x.shape or not dy.is_contiguous() or dy.data_ptr() % 16):
+        raise ValueError("layernorm_bwd: dy must be a contiguous, 16-byte "
+                         "aligned tensor of x's shape")
+    rows = x.numel() // x.shape[-1]
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if (t.dtype != torch.float32 or t.shape != (rows,)
+                or not t.is_contiguous()):
+            raise ValueError(f"layernorm_bwd: {name} must be the forward's "
+                             f"contiguous ({rows},) float32 tensor")
+    rows, d, nv = _check("layernorm_bwd", x, (("scale", scale),),
+                         _MAX_VECTORS_PER_LANE_BWD)
+    build.check_cuda("layernorm_bwd", dy=dy, mean=mean, rstd=rstd)
+    tiles, tile = bwd_tiles(rows)
+    dx = torch.empty_like(x)
+    dscale, dbias = (torch.empty((d,), dtype=scale.dtype, device=x.device)
+                     for _ in range(2))
+    part = torch.empty((tiles, 2 * d), dtype=torch.float32, device=x.device)
+    err = _bwd_fn()(_DTYPES[x.dtype], _DTYPES[scale.dtype], nv, x.data_ptr(),
+                    dy.data_ptr(), scale.contiguous().data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                    dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(),
+                    rows, d, tile,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "layernorm_bwd")
+    launches_bwd += 1
+    return dx, dscale, dbias

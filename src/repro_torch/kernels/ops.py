@@ -10,23 +10,26 @@ card.
 Two layers:
 
 * one dispatcher per kernel (``flash_attention``, ``flash_attention_bwd``,
-  ``layernorm_fwd``, ``bias_gelu_fwd``, ``lamb_moments``,
-  ``paged_decode_attention``, ``wkv6``): kernel or plain version, nothing
-  else.
+  ``layernorm_fwd``, ``layernorm_bwd``, ``bias_gelu_fwd``,
+  ``bias_gelu_bwd``, ``lamb_moments``, ``paged_decode_attention``,
+  ``wkv6``): kernel or plain version, nothing else.
 * the differentiable ops the models call (``flash_attention_vjp``,
   ``layernorm``, ``bias_gelu``) and the optimizer's ``lamb_leaf_update``.
-  They call the dispatchers by name at call time, so a wrapper set on
-  this module in their place (``chip_smoke.py`` does, to hold every call
-  against the plain version) sees every launch.  The flash
-  backward is a kernel, as on the TPU; the JAX package has no LayerNorm
-  or bias-GELU backward kernel (XLA differentiates the forward), so those
-  backwards are plain PyTorch from the saved inputs and statistics.
+  They call the dispatchers by name at call time, forward and backward,
+  so a wrapper set on this module in their place (``chip_smoke.py`` does,
+  to hold every call against the plain version) sees every launch.  The
+  flash backward is a kernel, as on the TPU.  The JAX package has no
+  LayerNorm or bias-GELU backward kernel (XLA differentiates and fuses the
+  forward); the port's are hand-written kernels too, from the saved inputs
+  and statistics.  Every backward kernel gives the same bits from run to
+  run.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import bias_gelu as _bg
 from repro_torch.kernels import flash_attention as _fa
@@ -86,11 +89,27 @@ def layernorm_fwd(x, scale, bias, *, eps: float = 1e-6,
     return ref.layernorm_ref(x, scale, bias, eps)
 
 
+def layernorm_bwd(dy, x, scale, mean, rstd, *, impl: Optional[str] = None):
+    """LayerNorm's gradient from the saved mean and rstd.  Returns (dx in
+    x's dtype, dscale, dbias in scale's dtype)."""
+    if _use_kernel(x, impl):
+        return _ln.layernorm_bwd(dy, x, scale, mean, rstd)
+    return ref.layernorm_bwd_ref(dy, x, scale, mean, rstd)
+
+
 def bias_gelu_fwd(x, b, *, impl: Optional[str] = None):
     """GELU-tanh(x + b) in fp32, rounded once to x's dtype."""
     if _use_kernel(x, impl):
         return _bg.bias_gelu(x, b)
     return ref.bias_gelu_ref(x, b)
+
+
+def bias_gelu_bwd(dy, x, b, *, impl: Optional[str] = None):
+    """The gradient of GELU-tanh(x + b), in fp32 rounded once.  Returns
+    (dx in x's dtype, db in b's dtype)."""
+    if _use_kernel(x, impl):
+        return _bg.bias_gelu_bwd(dy, x, b)
+    return ref.bias_gelu_bwd_ref(dy, x, b)
 
 
 def lamb_moments(w, g, m, v, *, step: int, b1=0.9, b2=0.999, eps=1e-6,
@@ -131,6 +150,14 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 64,
 # ---------------------------------------------------------------------------
 # differentiable ops
 # ---------------------------------------------------------------------------
+
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the row kernels read it (a
+    copy only where it is not)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
 
 class _FlashAttention(torch.autograd.Function):
     """The flash forward paired with the flash backward kernels, as
@@ -174,19 +201,30 @@ class _LayerNorm(torch.autograd.Function):
         y, mean, rstd = layernorm_fwd(x, scale, bias, eps=eps,
                                             impl=impl)
         ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.impl = impl
         return y
 
     @staticmethod
     def backward(ctx, dy):
+        # under non-reentrant checkpoint the first unpack of a saved tensor
+        # recomputes the whole block: the span below holds the backward
+        # alone, so a profile splits the two (launch/profile_train.py)
         x, scale, mean, rstd = ctx.saved_tensors
-        dx, dscale, dbias = ref.layernorm_bwd_ref(dy, x, scale, mean, rstd)
+        with record_function(LAYERNORM_BWD_SPAN):
+            dx, dscale, dbias = layernorm_bwd(_rows16(dy), x, scale, mean,
+                                              rstd, impl=ctx.impl)
         return dx, dscale, dbias, None, None
+
+
+# the profiler span around the LayerNorm backward's own work
+LAYERNORM_BWD_SPAN = "repro_torch::layernorm_bwd"
 
 
 def layernorm(x, scale, bias, *, eps: float = 1e-6,
               impl: Optional[str] = None):
     """Differentiable LayerNorm over the last dim: the kernel (or the plain
-    version) forward, the backward from its saved statistics."""
+    version) forward, the kernel (or plain) backward from its saved
+    statistics."""
     return _LayerNorm.apply(x.contiguous(), scale, bias, float(eps), impl)
 
 
@@ -195,12 +233,13 @@ class _BiasGelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, b, impl):
         ctx.save_for_backward(x, b)
+        ctx.impl = impl
         return bias_gelu_fwd(x, b, impl=impl)
 
     @staticmethod
     def backward(ctx, dy):
         x, b = ctx.saved_tensors
-        dx, db = ref.bias_gelu_bwd_ref(dy, x, b)
+        dx, db = bias_gelu_bwd(_rows16(dy), x, b, impl=ctx.impl)
         return dx, db, None
 
 
@@ -232,7 +271,8 @@ def launch_counts() -> Dict[str, int]:
             "flash_bwd": _fa.launches_bwd,
             "flash_bwd_post": _fa.launches_bwd_post,
             "paged_decode": _pa.launches, "layernorm": _ln.launches,
-            "bias_gelu": _bg.launches, "lamb_moments": _lu.launches,
+            "layernorm_bwd": _ln.launches_bwd, "bias_gelu": _bg.launches,
+            "bias_gelu_bwd": _bg.launches_bwd, "lamb_moments": _lu.launches,
             "wkv6": _wkv.launches,
             # the forward's and the backward main pass's launches by q's
             # sequence length S, as "flash_fwd_s<S>" and "flash_bwd_s<S>",
@@ -249,4 +289,4 @@ def reset_launch_counts() -> None:
     _fa.launches_by_seq.clear()
     _fa.launches_bwd_by_seq.clear()
     _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0
-    _wkv.launches = 0
+    _ln.launches_bwd = _bg.launches_bwd = _wkv.launches = 0

@@ -54,6 +54,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, kv_len, *,
     if quant:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
     for name, t in tensors.items():
+        if t.dtype == torch.float16:
+            raise TypeError(f"paged_decode_attention: {name} is float16; the "
+                            "kernel takes float32 or bfloat16 (no serving "
+                            "path is f16: only BERT training runs the f16 "
+                            "policy)")
+    for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"paged_decode_attention: {name} is not a CUDA "
                              "tensor")

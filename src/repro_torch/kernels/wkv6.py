@@ -50,8 +50,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in named:
         if t.dtype == torch.float16:
             raise TypeError(f"wkv6: {name} is float16; the kernel takes "
-                            "float32 or bfloat16 (f16 kernels are not "
-                            "written yet)")
+                            "float32 or bfloat16 (no serving path is f16: "
+                            "only BERT training runs the f16 policy)")
         if not t.is_cuda:
             raise ValueError(f"wkv6: {name} is not a CUDA tensor")
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, u)):

@@ -1,24 +1,27 @@
 """Would ``chip_smoke.py``'s per-call and model-level checks see a subtly
-wrong flash kernel?
+wrong kernel?
 
   PYTHONPATH=src python -m repro_torch.launch.mutation_check
 
-Two families of deliberately wrong kernels, each a set of one-line edits
-inside the bf16 tensor-core code of one source:
+Families of deliberately wrong kernels, each a set of one-line edits
+inside the code of one source that the main paths run:
 
 * ``MUTATIONS`` edit ``csrc/flash_fwd.cu`` (``flash_fwd_hopper_kernel``,
-  the bf16 forward at Dh 64 and 128 that serving and training run).  Each
-  copy runs ``chip_smoke.path_parity`` on
-  full-width deepseek-7b in bf16 with a paged cache: one request's prefill
-  and 4 decode steps through the kernels and through the plain versions.
-* ``BWD_MUTATIONS`` edit the bf16 route of ``csrc/flash_bwd.cu`` (the fused
-  main pass and its post-pass, the backward that training runs).  Each copy
+  the 16-bit forward at Dh 64 and 128 that serving and training run).
+  Each copy runs ``chip_smoke.path_parity`` on full-width deepseek-7b in
+  bf16 with a paged cache: one request's prefill and 4 decode steps
+  through the kernels and through the plain versions.
+* ``BWD_MUTATIONS`` edit the 16-bit route of ``csrc/flash_bwd.cu`` (the
+  fused main pass and the post-pass that adds its dQ partials in a fixed
+  order), ``LN_BWD_MUTATIONS`` the LayerNorm backward of
+  ``csrc/layernorm.cu`` and ``GELU_BWD_MUTATIONS`` the bias-GELU backward
+  of ``csrc/bias_gelu.cu``: the backwards that training runs.  Each copy
   runs ``chip_smoke.bwd_hold``: one bf16 gradient step of full-width
   bert-large on a phase-2 batch (8 x 512 tokens: four KV tiles of 128 keys,
-  so a dQ written instead of accumulated shows) with every
-  ``flash_attention_bwd`` call held against the plain version on its
-  inputs, judged by ``chip_smoke.check_calls`` as chip_smoke.py judges it:
-  elementwise TOL and relative L2 ``CALL_REL_L2_BOUND``.
+  so the flash backward's dQ partials are added) with every call of each
+  backward kernel held against the plain version on its inputs, judged by
+  ``chip_smoke.check_calls`` as chip_smoke.py judges it: elementwise TOL
+  and relative L2 ``CALL_REL_L2_BOUND``.
 
 For the unchanged sources and for each mutation, this writes the source
 under ``build/mutants/<name>/``, builds it, loads it in place of the real
@@ -51,18 +54,33 @@ MUTATIONS = {
 }
 BWD_MUTATIONS = {
     # dQ's softmax scale dropped in the post-pass
-    "dq_scale_dropped": ("pack_bf16(f[2 * i] * scale, f[2 * i + 1] * scale)",
-                         "pack_bf16(f[2 * i], f[2 * i + 1])"),
+    "dq_scale_dropped": ("pack<T>(f[2 * i] * scale, f[2 * i + 1] * scale)",
+                         "pack<T>(f[2 * i], f[2 * i + 1])"),
     # delta = rowsum(dO * O) read 2 % too large
     "delta_2pct": ("dl = dl_s[col];", "dl = dl_s[col] * 1.02f;"),
-    # each KV tile's dQ part stored over the accumulator, not added to it
-    "dq_store_not_add": ("red.global.add.v4.f32", "st.global.v4.f32"),
+    # each KV tile's dQ partial stored over the sum, not added to it
+    "dq_store_not_add": ("f[i] += s[i];", "f[i] = s[i];"),
+    # the first live KV tile's dQ partial skipped by the post-pass
+    "dq_partial_skipped": ("for (int t = lo; t < hi; ++t)",
+                           "for (int t = lo + 1; t < hi; ++t)"),
 }
-# source -> (the text that opens its bf16 tensor-core code, its mutations)
+LN_BWD_MUTATIONS = {
+    # dscale summed as dy alone (dbias) instead of dy * xhat
+    "dscale_as_dbias": ("ds[i][e] += gv[e] * h;", "ds[i][e] += gv[e];"),
+}
+GELU_BWD_MUTATIONS = {
+    # the tanh term of GELU's derivative taken with the wrong sign
+    "tanh_sign": ("0.5f * (1.f + t)", "0.5f * (1.f - t)"),
+}
+# source -> (the text that opens the code the mutations edit, the mutations)
 SOURCES = {
     "flash_fwd": ("flash_fwd_hopper_kernel(const", MUTATIONS),
-    "flash_bwd": ("// bf16 main pass at Dh 64: warpgroup", BWD_MUTATIONS),
+    "flash_bwd": ("// 16-bit main pass at Dh 64: warpgroup", BWD_MUTATIONS),
+    "layernorm": ("layernorm_bwd_kernel(const", LN_BWD_MUTATIONS),
+    "bias_gelu": ("bias_gelu_bwd_kernel(const", GELU_BWD_MUTATIONS),
 }
+# the sources whose mutants the backward hold judges
+BWD_SOURCES = ("flash_bwd", "layernorm", "bias_gelu")
 
 
 def mutate(source: str, edit, body: str) -> str:
@@ -93,16 +111,15 @@ def forward_check(smoke, T, serve_step, ops, cfg, params, pol) -> dict:
 
 def backward_check(smoke, ops, ts, cfg, state, batch, tcfg, pol) -> dict:
     res = smoke.bwd_hold(ops, ts, cfg, state, batch, tcfg, pol)
-    k = "flash_attention_bwd"
     try:
         smoke.check_calls("phase-2 backward hold", res)
         fails = False
     except AssertionError:
         fails = True
-    return {"flash_bwd_calls": res["calls"][k],
-            "flash_bwd_calls_outside": res["calls_outside"][k],
-            "flash_bwd_call_max_err": res["call_max_err"][k],
-            "flash_bwd_call_max_rel_l2": res["call_max_rel"][k],
+    return {**{f"{k}_{field}": res[key][k] for k in smoke.BWD_HELD
+               for field, key in (("calls", "calls"),
+                                  ("calls_outside", "calls_outside"),
+                                  ("call_max_rel_l2", "call_max_rel"))},
             "fails_per_call_check": fails}
 
 
@@ -164,8 +181,9 @@ def main() -> int:
     cfg = get_config("bert-large")
     inputs = smoke.bwd_hold_inputs(api, ts, TrainConfig, InputShape,
                                    make_policy, cfg)
-    bad += run_family(build, "flash_bwd", lambda: backward_check(
-        smoke, ops, ts, cfg, *inputs))
+    for name in BWD_SOURCES:
+        bad += run_family(build, name, lambda: backward_check(
+            smoke, ops, ts, cfg, *inputs))
     if bad:
         print(f"mutation_check: unexpected verdict for {bad}",
               file=sys.stderr)

@@ -56,8 +56,9 @@ def _kernel_times(prof):
 # the port's kernels by the name of their CUDA function
 PORT_KERNELS = ("flash_fwd", "bwd_prep", "bwd_hopper", "bwd_fused",
                 "bwd_post", "dq_f32", "dkv_f32", "paged_decode",
-                "layernorm_kernel", "bias_gelu_kernel", "lamb_kernel",
-                "wkv6_kernel")
+                "layernorm_kernel", "layernorm_bwd_kernel",
+                "bias_gelu_kernel", "bias_gelu_bwd_kernel", "colsum_kernel",
+                "lamb_kernel", "wkv6_kernel")
 # device time by kind of kernel, matched on the kernel's name in order
 KINDS = (("port kernels", PORT_KERNELS),
          ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),

@@ -13,8 +13,13 @@ phase it prints one JSON line, as ``profile_serve.py`` does: wall time per
 step (host clock around an unprofiled loop that ends in a synchronize),
 device busy time (the sum of the CUDA kernels' durations in the trace of a
 second, profiled loop), the idle share (1 - busy / wall), the device time
-by kind of kernel, the kernels that took the most device time and the
-device time of each autograd function's backward.  Needs a CUDA device.
+by kind of kernel, the kernels that took the most device time, the device
+time of each autograd function's backward, and how the LayerNorm
+backward's time splits: under non-reentrant checkpoint the first
+LayerNorm backward of a block recomputes the block's forward, so
+``_LayerNormBackward`` holds that recompute, and the span
+``kernels.ops.LAYERNORM_BWD_SPAN`` inside it holds the LayerNorm backward
+alone.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 from repro_torch.configs import TrainConfig, get_config, smoke_variant
 from repro_torch.configs.base import InputShape
 from repro_torch.core.amp import make_policy
+from repro_torch.kernels import ops
 from repro_torch.launch.profile_serve import _phase
 from repro_torch.models import api
 from repro_torch.train.train_step import init_train_state, train_step_fn
@@ -70,21 +76,33 @@ def main(argv=None):
         _phase(f"train_step_{name}", step, args.steps, extra=_backward_fns)
 
 
+def _device_us(e):
+    us = getattr(e, "device_time_total", None)
+    return e.cuda_time_total if us is None else us
+
+
 def _backward_fns(prof, iters):
     """Device time of each autograd function's backward (its kernels
-    included), per step: where the backward pass spends the card."""
-    rows = []
+    included), per step: where the backward pass spends the card; and the
+    LayerNorm backward's split into its own work (the span) and the rest
+    (the checkpointed blocks' recompute)."""
+    rows, span = [], {"ms_per_iter": 0.0, "calls_per_iter": 0.0}
     for e in prof.key_averages():
+        if e.key == ops.LAYERNORM_BWD_SPAN:
+            span = {"ms_per_iter": _device_us(e) / 1e3 / iters,
+                    "calls_per_iter": e.count / iters}
         head, _, fn = e.key.partition("autograd::engine::evaluate_function: ")
         if head or not fn:
             continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        rows.append({"fn": fn, "ms_per_iter": us / 1e3 / iters,
+        rows.append({"fn": fn, "ms_per_iter": _device_us(e) / 1e3 / iters,
                      "calls_per_iter": e.count / iters})
     rows.sort(key=lambda r: -r["ms_per_iter"])
-    return {"backward_by_fn": rows[:12]}
+    ln = next((r["ms_per_iter"] for r in rows
+               if r["fn"] == "_LayerNormBackward"), 0.0)
+    return {"backward_by_fn": rows[:12],
+            "layernorm_backward_split": {
+                "fn_ms_per_iter": ln, "span": span,
+                "rest_ms_per_iter": ln - span["ms_per_iter"]}}
 
 
 if __name__ == "__main__":

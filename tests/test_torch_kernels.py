@@ -24,6 +24,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import lamb_update as tlu
 from repro_torch.kernels import layernorm as tln
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import wkv6 as twkv
 from repro_torch.launch import mutation_check
 
 
@@ -146,12 +147,20 @@ def test_cpu_tensors_take_the_plain_version():
     m2, v2, upd = ops.lamb_moments(x, x, x, x.abs(), step=3)
     assert torch.equal(upd, ref.lamb_moments_ref(x, x, x, x.abs(),
                                                  step=3)[2])
+    _, mean, rstd = ref.layernorm_ref(x, sc, bi)
+    for g, w in zip(ops.layernorm_bwd(x, x, sc, mean, rstd),
+                    ref.layernorm_bwd_ref(x, x, sc, mean, rstd)):
+        assert torch.equal(g, w)
+    for g, w in zip(ops.bias_gelu_bwd(x, x, bi),
+                    ref.bias_gelu_bwd_ref(x, x, bi)):
+        assert torch.equal(g, w)
     qg = q.clone().requires_grad_()
     ops.flash_attention_vjp(qg, k, v, causal=True).sum().backward()
     assert ops.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_prep": 0, "flash_bwd": 0,
         "flash_bwd_post": 0, "paged_decode": 0, "layernorm": 0,
-        "bias_gelu": 0, "lamb_moments": 0, "wkv6": 0}
+        "layernorm_bwd": 0, "bias_gelu": 0, "bias_gelu_bwd": 0,
+        "lamb_moments": 0, "wkv6": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -178,24 +187,47 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tbg.bias_gelu(rows, rows[0])
     with pytest.raises(ValueError, match="CUDA"):
         tlu.lamb_moments(rows, rows, rows, rows, step=1)
+    stats = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layernorm_bwd(rows, rows, rows[0], stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbg.bias_gelu_bwd(rows, rows, rows[0])
 
 
 def test_kernel_wrappers_refuse_float16():
-    """No kernel takes f16 yet: each new wrapper raises on it (before it
-    looks at the device), so an f16 run cannot reach a kernel by mistake."""
+    """The paper's f16 setting: the kernels of the BERT path (flash forward
+    and backward, LayerNorm and bias-GELU, forward and backward) take
+    float16, so on CPU tensors each wrapper gets past its dtype check and
+    refuses the device; the serving kernels (paged decode, wkv6; no
+    serving path is f16) and LAMB (fp32 optimizer state) still raise a
+    TypeError on f16, before they look at the device."""
     h = torch.zeros((1, 2, 128, 32), dtype=torch.float16)
     lse = torch.zeros((1, 2, 128))
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(h, h, h)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd(h, h, h, h, lse, h)
     rows = torch.zeros((4, 64), dtype=torch.float16)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(ValueError, match="CUDA"):
         tln.layernorm(rows, rows[0], rows[0])
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layernorm(rows, rows[0].float(), rows[0].float())
+    with pytest.raises(ValueError, match="CUDA"):
         tbg.bias_gelu(rows, rows[0])
+    stats = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layernorm_bwd(rows, rows, rows[0], stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbg.bias_gelu_bwd(rows, rows, rows[0])
     with pytest.raises(TypeError, match="float16"):
         tlu.lamb_moments(rows, rows, rows, rows, step=1)
+    q, kp, vp, bt, kvl, _ = _paged_inputs(False)
+    with pytest.raises(TypeError, match="no serving path is f16"):
+        tpa.paged_decode_attention(_t(q).half(), _t(kp).half(),
+                                   _t(vp).half(), _t(bt), _t(kvl))
+    r = torch.zeros((1, 64, 2, 64), dtype=torch.float16)
+    with pytest.raises(TypeError, match="no serving path is f16"):
+        twkv.wkv6(r, r, r, r.float(), r[0, 0], torch.zeros((1, 2, 64, 64)))
 
 
 def test_build_names_every_source():
@@ -219,7 +251,7 @@ def test_headers_enter_the_library_hash(monkeypatch, tmp_path):
             (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     monkeypatch.setattr(build, "INCLUDE", tmp_path)
-    assert [h.name for h in build.headers()] == ["hopper.cuh"]
+    assert [h.name for h in build.headers()] == ["hopper.cuh", "rows.cuh"]
     before = {name: build.lib_path(name) for name in build.sources()}
     header = tmp_path / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -248,17 +280,18 @@ def test_nvcc_includes_the_package_csrc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("dtype,dh,code", [
     (torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
-    (torch.bfloat16, 32, 1), (torch.float32, 64, 0)])
+    (torch.bfloat16, 32, 1), (torch.float32, 64, 0),
+    (torch.float16, 64, 2), (torch.float16, 128, 2), (torch.float16, 32, 2)])
 def test_forward_launches_are_counted_by_length(monkeypatch, dtype, dh, code):
     """``flash_attention`` passes the library the dtype code and head dim
-    the source routes on (bf16 at Dh 64 and 128: the Hopper kernel; bf16 at
+    the source routes on (16-bit at Dh 64 and 128: the Hopper kernel; at
     32: mma.sync; float32: CUDA cores) and counts each launch, also by q's
     sequence length; ``launch_counts`` reports those and
     ``reset_launch_counts`` clears them.  The library is replaced by a
     stand-in that records its arguments, and the CUDA check by a no-op."""
     calls = []
     monkeypatch.setattr(tfa, "_fn", lambda: lambda *a: calls.append(a) or 0)
-    monkeypatch.setattr(tfa, "_check_cuda", lambda what, **t: None)
+    monkeypatch.setattr(build, "check_cuda", lambda what, **t: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
     ops.reset_launch_counts()
@@ -288,7 +321,7 @@ def _bwd_operands(case):
         q = torch.zeros((b, h, s, dh + 2), dtype=dtype)[..., :dh]
     lse = torch.zeros((b, h, s))
     return (q, kv, kv, q, lse, q), {
-        "gqa": (ValueError, "head counts"), "float16": (TypeError, "float16"),
+        "gqa": (ValueError, "head counts"), "float16": (ValueError, "CUDA"),
         "cpu": (ValueError, "CUDA"),
         "misaligned_rows": (ValueError, "16-byte aligned")}[case]
 
@@ -298,8 +331,9 @@ def _bwd_operands(case):
 def test_flash_bwd_wrapper_refuses(case):
     """The backward's wrapper checks its operands before the device, so on
     the CPU each refusal shows: GQA (the kernels take equal head counts),
-    f16, bf16 rows the kernels cannot move as 16-byte vectors, and -- for
-    operands it would take on the card -- CPU tensors."""
+    16-bit rows the kernels cannot move as 16-byte vectors, and -- for
+    operands it would take on the card, f16 ones included -- CPU
+    tensors."""
     args, (err, match) = _bwd_operands(case)
     with pytest.raises(err, match=match):
         tfa.flash_attention_bwd(*args, causal=False)
@@ -307,23 +341,29 @@ def test_flash_bwd_wrapper_refuses(case):
 
 @pytest.mark.parametrize("dtype,skv,pitch,acc", [
     (torch.bfloat16, 200, 256, True), (torch.bfloat16, 128, 256, False),
-    (torch.float32, 200, 200, False)])
+    (torch.float32, 200, 200, False), (torch.float16, 200, 256, True),
+    (torch.float16, 128, 256, False), (torch.bfloat16, 512, 256, True)])
 def test_flash_bwd_buffers(dtype, skv, pitch, acc):
-    """The backward's scratch: per-row fp32 arrays with bf16 rows padded to
-    whole 64-row tiles (the kernels copy them whole), and the fp32 dQ
-    accumulator only in bf16 over more than one 128-key tile; the
-    post-pass is launched only where there is an accumulator."""
+    """The backward's scratch: per-row fp32 arrays with 16-bit rows padded
+    to whole 64-row tiles (the kernels copy them whole), and, only in 16
+    bits over more than one 128-key tile, the fp32 dQ partials: one
+    (B, H, Sq, Dh) slice a KV tile, which each main-pass block fills for
+    its own tile and the post-pass adds in tile order (no atomics, the same
+    bits every run); the post-pass is launched only where there are
+    partials."""
     q = torch.zeros((2, 3, 200, 64), dtype=dtype)
-    delta, lse2, dq_acc = tfa.bwd_buffers(q, skv)
+    delta, lse2, dq_part = tfa.bwd_buffers(q, skv)
     assert delta.shape == (2, 3, pitch) and delta.dtype == torch.float32
     assert delta.stride() == (3 * pitch, pitch, 1)
     assert (lse2 is None) == (dtype == torch.float32)
     if lse2 is not None:
         assert lse2.shape == delta.shape and lse2.stride() == delta.stride()
-    assert (dq_acc is not None) == acc
+    assert (dq_part is not None) == acc
     if acc:
-        assert dq_acc.shape == q.shape and dq_acc.is_contiguous()
-    assert tfa.bwd_parts((delta, lse2, dq_acc)) == (
+        tiles = -(-skv // tfa.KV_TILE)
+        assert dq_part.shape == (tiles,) + tuple(q.shape)
+        assert dq_part.dtype == torch.float32 and dq_part.is_contiguous()
+    assert tfa.bwd_parts((delta, lse2, dq_part)) == (
         tfa.PREP | tfa.MAIN | (tfa.POST if acc else 0))
 
 
@@ -340,8 +380,8 @@ def test_flash_bwd_kv_tile_matches_the_source():
 def test_backward_launches_are_counted_by_length(monkeypatch):
     """``bwd_launch`` counts each launch it makes, the main pass also by
     q's sequence length; ``launch_counts`` reports those and
-    ``reset_launch_counts`` clears them.  A post-pass without an
-    accumulator is refused before the library is called.  The library is
+    ``reset_launch_counts`` clears them.  A post-pass without dQ partials
+    is refused before the library is called.  The library is
     replaced by a stand-in that records ``parts``."""
     parts = []
     monkeypatch.setattr(tfa, "_bwd_fn",
@@ -361,7 +401,7 @@ def test_backward_launches_are_counted_by_length(monkeypatch):
             counts["flash_bwd_post"]) == (3, 3, 2)
     assert (counts["flash_bwd_s128"], counts["flash_bwd_s512"]) == (1, 2)
     q = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="accumulator"):
+    with pytest.raises(ValueError, match="partials"):
         tfa.bwd_launch(tfa.POST, q, q, q, q, torch.zeros((1, 2, 128)), q,
                        tfa.bwd_buffers(q, 128), (q, q, q), causal=False,
                        window=0, softcap=0.0)
@@ -394,10 +434,11 @@ def test_flash_bwd_bound_at_the_training_shapes():
     (src, name) for src, (_, muts) in sorted(mutation_check.SOURCES.items())
     for name in sorted(muts)])
 def test_flash_mutations_edit_only_the_tensor_core_body(source, name):
-    """Each deliberately wrong flash kernel of ``launch/mutation_check.py``
-    still matches its own source: one edit, inside the bf16 tensor-core
-    code, so the mutants calibrate the checks of the kernels that serving
-    (forward) and training (backward) run."""
+    """Each deliberately wrong kernel of ``launch/mutation_check.py`` still
+    matches its own source: one edit, inside the code it names (the 16-bit
+    flash kernels, the LayerNorm and bias-GELU backwards), so the mutants
+    calibrate the checks of the kernels that serving (forward) and
+    training (backward) run."""
     src = (build.CSRC / f"{source}.cu").read_text()
     body, muts = mutation_check.SOURCES[source]
     old, new = muts[name]
@@ -413,36 +454,49 @@ def test_flash_mutations_edit_only_the_tensor_core_body(source, name):
 # the training slice's kernels
 # ---------------------------------------------------------------------------
 
+# f16 tolerances, between bf16's and f32's: f16 keeps 11 significant bits
+# (2**-11 relative rounding) where bf16 keeps 8
+F16_TOL = 1e-2          # elementwise, rtol = atol
+F16_REL_L2 = 5e-3       # ||got - want|| / ||want||
+
+
+def _rel_l2(got, want):
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
 @pytest.mark.parametrize("rows,d", [(64, 128), (100, 384), (7, 512),
                                     (1, 128), (300, 1024)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_bias_gelu_ref_matches_pallas_kernel(rows, d, dtype):
-    """The shapes and tolerances of tests/test_kernels.py:10-22."""
+    """The shapes and tolerances of tests/test_kernels.py:10-22; f16 at
+    F16_TOL."""
     rng = np.random.default_rng(rows + d)
     x = jnp.asarray(rng.standard_normal((rows, d)), dtype)
     b = jnp.asarray(rng.standard_normal(d), dtype)
     want = jops.bias_gelu(x, b, impl="pallas_interpret")
     got = ops.bias_gelu(_jt(x), _jt(b))
     assert got.dtype == _jt(x).dtype
-    tol = 1e-5 if dtype == "float32" else 2e-2
+    tol = {"float32": 1e-5, "bfloat16": 2e-2, "float16": F16_TOL}[dtype]
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
 
 
 @pytest.mark.parametrize("rows,d", [(64, 128), (33, 256), (256, 1024)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_layernorm_ref_matches_pallas_kernel(rows, d, dtype):
     """The shapes and tolerances of tests/test_kernels.py:25-36 (scale and
-    bias in f32), at the Pallas kernel's default eps; BERT's 1e-12 is held
-    against the reference's own LayerNorm in test_torch_layers.py."""
+    bias in f32), at the Pallas kernel's default eps, f16 at F16_TOL;
+    BERT's 1e-12 is held against the reference's own LayerNorm in
+    test_torch_layers.py."""
     rng = np.random.default_rng(rows)
     x = jnp.asarray(rng.standard_normal((rows, d)), dtype)
     s = jnp.asarray(1 + 0.1 * rng.standard_normal(d), jnp.float32)
     b = jnp.asarray(0.1 * rng.standard_normal(d), jnp.float32)
     want = jops.layernorm(x, s, b, impl="pallas_interpret")
     got, mean, rstd = ref.layernorm_ref(_jt(x), _jt(s), _jt(b))
-    tol = 2e-4 if dtype == "float32" else 2e-2
+    tol = {"float32": 2e-4, "bfloat16": 2e-2, "float16": F16_TOL}[dtype]
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
@@ -556,6 +610,182 @@ def test_layernorm_and_bias_gelu_backward_match_jax_grad():
     for a, b_ in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_layernorm_and_bias_gelu_backward_match_jax_grad_in_f16():
+    """The plain backwards on f16 tensors (the paper's setting: what the
+    kernels are held against on the card) against ``jax.vjp`` of the
+    reference's jnp functions in f16, within F16_TOL elementwise and
+    F16_REL_L2.  Both compute in fp32 from the f16 inputs and round each
+    gradient once, except where the reference rounds on the way: its
+    ``bias_gelu_ref`` adds x + b in f16 before it upcasts."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float16)
+    s = (1 + 0.1 * rng.standard_normal(64)).astype(np.float16)
+    b = (0.1 * rng.standard_normal(64)).astype(np.float16)
+    dy = rng.standard_normal((3, 5, 64)).astype(np.float16)
+    eps = 1e-12
+    _, vjp = jax.vjp(lambda x, s, b: jref.layernorm_ref(x, s, b, eps),
+                     *(jnp.asarray(t) for t in (x, s, b)))
+    want = vjp(jnp.asarray(dy))
+    tx, ts, tb = (_t(t).requires_grad_() for t in (x, s, b))
+    got = torch.autograd.grad(ops.layernorm(tx, ts, tb, eps=eps),
+                              (tx, ts, tb), _t(dy))
+    _, vjp = jax.vjp(jref.bias_gelu_ref, jnp.asarray(x), jnp.asarray(b))
+    tx, tb = _t(x).requires_grad_(), _t(b).requires_grad_()
+    got += torch.autograd.grad(ops.bias_gelu(tx, tb), (tx, tb), _t(dy))
+    want += vjp(jnp.asarray(dy))
+    for a, b_, name in zip(got, want, ("ln dx", "ln dscale", "ln dbias",
+                                       "gelu dx", "gelu db")):
+        assert a.dtype == torch.float16, name
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b_, np.float32), rtol=F16_TOL,
+                                   atol=F16_TOL, err_msg=name)
+        assert _rel_l2(a.float().numpy(), b_) <= F16_REL_L2, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_matches_pallas_kernels_in_f16(causal):
+    """The plain flash forward and FA-2 backward on f16 tensors against the
+    Pallas kernels run in f16 in interpret mode (``flash_attention`` and
+    ``flash_attention_bwd(..., interpret=True)``), S = 128 in 64-row tiles,
+    Dh 64 (BERT's): out, lse, dq, dk and dv within F16_TOL elementwise and
+    F16_REL_L2.  The Pallas kernels round P and dS to f16 inside; the plain
+    versions keep them in fp32."""
+    q, k, v, do = (t.astype(np.float16) for t in _bwd_inputs(3, s=128))
+    jq, jk, jv, jdo = (jnp.asarray(t) for t in (q, k, v, do))
+    out, lse = jfa.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                   block_k=64, interpret=True,
+                                   return_lse=True)
+    got_out, got_lse = ops.flash_attention(_t(q), _t(k), _t(v),
+                                           causal=causal)
+    assert got_out.dtype == torch.float16
+    want = jfa.flash_attention_bwd(jq, jk, jv, out, lse, jdo, causal=causal,
+                                   block_q=64, block_k=64, interpret=True)
+    got = ops.flash_attention_bwd(_t(q), _t(k), _t(v), _jt(out), _jt(lse),
+                                  _t(do), causal=causal)
+    pairs = [(got_out, out, "out"), (got_lse, lse, "lse")] + [
+        (g, w, "d" + n) for g, w, n in zip(got, want, "qkv")]
+    for g, w, name in pairs:
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), rtol=F16_TOL,
+                                   atol=F16_TOL, err_msg=name)
+        assert _rel_l2(g.float().numpy(), w) <= F16_REL_L2, name
+
+
+def _row_bwd_call(kernel, case):
+    """A call of ``layernorm_bwd`` or ``bias_gelu_bwd`` on CPU tensors that
+    the wrapper must refuse for ``case``, and the error expected."""
+    x = torch.zeros((4, 64))
+    dy = x.clone()
+    if case == "misaligned_rows":      # 4 bytes off a 16-byte boundary
+        x = torch.zeros(4 * 64 + 1)[1:].view(4, 64)
+    if case == "mismatched_dtypes":
+        dy = dy.to(torch.bfloat16)
+    if kernel == "layernorm_bwd":
+        stats = torch.zeros(4)
+        call = lambda: tln.layernorm_bwd(dy, x, torch.ones(64), stats, stats)
+    else:
+        call = lambda: tbg.bias_gelu_bwd(dy, x, torch.zeros(64))
+    return call, {"cpu": (ValueError, "CUDA"),
+                  "misaligned_rows": (ValueError, "16-byte aligned"),
+                  "mismatched_dtypes": (TypeError, "dtype|float32")}[case]
+
+
+@pytest.mark.parametrize("case", ["cpu", "misaligned_rows",
+                                  "mismatched_dtypes"])
+@pytest.mark.parametrize("kernel", ["layernorm_bwd", "bias_gelu_bwd"])
+def test_row_bwd_wrappers_refuse(kernel, case):
+    """The new backward wrappers check dtypes, shapes and alignment before
+    the device, so on the CPU each refusal shows: rows the kernel cannot
+    read as 16-byte vectors, dy of another dtype than x, and -- for
+    operands it would take on the card -- CPU tensors."""
+    call, (err, match) = _row_bwd_call(kernel, case)
+    with pytest.raises(err, match=match):
+        call()
+
+
+def test_layernorm_bwd_tiles():
+    """The LayerNorm backward's row tiles: at most 256 (one fp32 partial
+    row each, summed in tile order), of at least 8 rows (one a warp); a
+    function of the row count alone, so the order of every sum is too."""
+    assert tln.bwd_tiles(16384) == (256, 64)     # phase 2: 32 x 512
+    assert tln.bwd_tiles(8192) == (256, 32)      # phase 1: 64 x 128
+    assert tln.bwd_tiles(2560) == (256, 10)      # MLM head, phase 2
+    assert tln.bwd_tiles(1280) == (160, 8)       # MLM head, phase 1
+    assert tln.bwd_tiles(7) == (1, 8)
+
+
+@pytest.mark.parametrize("dtype,pdtype,codes,nv", [
+    (torch.float16, torch.float32, (2, 0), 1),
+    (torch.bfloat16, torch.bfloat16, (1, 1), 1),
+    (torch.float32, torch.float32, (0, 0), 2)])
+def test_row_bwd_wrappers_pass_the_kernel_its_tiles(monkeypatch, dtype,
+                                                    pdtype, codes, nv):
+    """``layernorm_bwd`` and ``bias_gelu_bwd`` pass the library the dtype
+    codes (f16 = 2) and vectors a lane the sources route on, the row tile
+    and a partial buffer of one fp32 row a tile, allocate outputs in x's
+    and the parameters' dtypes and count one launch a call.  The library is
+    replaced by a stand-in that records its arguments, the CUDA check by a
+    no-op."""
+    calls = []
+    rec = lambda *a: calls.append(a) or 0
+    for mod in (tln, tbg):
+        monkeypatch.setattr(mod, "_bwd_fn", lambda: rec)
+    monkeypatch.setattr(build, "check_cuda", lambda what, **t: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    parts = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: parts.append(
+        (a, k.get("dtype"))) or empty(*a, **k))
+    ops.reset_launch_counts()
+    rows, d = 300, 256
+    x = torch.zeros((3, 100, d), dtype=dtype)
+    stats = torch.zeros(rows)
+    dx, dscale, dbias = tln.layernorm_bwd(x, x, torch.ones(d, dtype=pdtype),
+                                          stats, stats)
+    assert (dx.shape, dx.dtype) == (x.shape, dtype)
+    assert dscale.dtype == dbias.dtype == pdtype and dscale.shape == (d,)
+    a = calls[-1]
+    tiles, tile = tln.bwd_tiles(rows)
+    assert (a[0], a[1], a[2], a[-4], a[-3], a[-2]) == (*codes, nv, rows, d,
+                                                       tile)
+    assert ((tiles, 2 * d),) in [p[0] for p in parts if p[1] ==
+                                 torch.float32]
+    dx, db = tbg.bias_gelu_bwd(x, x, torch.zeros(d, dtype=dtype))
+    assert (dx.shape, dx.dtype, db.shape, db.dtype) == (x.shape, dtype, (d,),
+                                                        dtype)
+    a = calls[-1]
+    assert (a[0], a[-4], a[-3], a[-2]) == (codes[0], rows, d, tbg.TILE_ROWS)
+    assert ((-(-rows // tbg.TILE_ROWS), d),) in [
+        p[0] for p in parts if p[1] == torch.float32]
+    counts = ops.launch_counts()
+    assert (counts["layernorm_bwd"], counts["bias_gelu_bwd"]) == (1, 1)
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["layernorm_bwd"] == 0
+
+
+def test_row_backwards_go_through_the_dispatchers(monkeypatch):
+    """The LayerNorm and bias-GELU autograd functions call
+    ``ops.layernorm_bwd`` and ``ops.bias_gelu_bwd`` by name at call time,
+    with the forward's ``impl``, so chip_smoke.py's per-call hold sees every
+    backward call; the LayerNorm backward runs inside the profiler span
+    that launch/profile_train.py reads."""
+    seen = []
+    for name in ("layernorm_bwd", "bias_gelu_bwd"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _f=fn, **k: (
+            seen.append((_n, k.get("impl"))) or _f(*a, **k)))
+    x = torch.randn(6, 64, requires_grad=True)
+    sc, bi = (torch.ones(64, requires_grad=True),
+              torch.zeros(64, requires_grad=True))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = ops.layernorm(x, sc, bi, impl="torch")
+        (ops.bias_gelu(y, bi) * 2).sum().backward()
+    assert seen == [("bias_gelu_bwd", None), ("layernorm_bwd", "torch")]
+    assert ops.LAYERNORM_BWD_SPAN in {e.key for e in prof.key_averages()}
 
 
 def _jt(x):
