@@ -14,9 +14,15 @@
    GQA at every head dim, S 256, 200, 130 (across a 128-row q tile) and 17
    (under one), Dh 32, 64 and 128, and the model's (B, S, H, Dh) layout read
    through transposed views with ``out=`` into one; paged
-   decode at B = 8, page_size 16, bf16 and int8 pages, with one empty slot
-   and one slot whose table points at the trash page, and at the serve
-   phase's geometry (B = 4 live slots of 600-1040 tokens, disjoint tables).
+   decode with page_size 16 over f32, bf16 and int8 pages, H/KV 1, 2, 4
+   and 8, at B = 5 and B = 8 with one empty slot and one slot whose table
+   points at the trash page, at tables the split kernel splits (one slot
+   of 600-1040 tokens, two of 2000-4800 in 300-page tables), at short
+   contexts (B = 4 slots of 16-64 tokens in the serve tables) and at the
+   serve phase's geometry (B = 4 live slots of 600-1040 tokens, disjoint
+   tables); the split tables and the serve geometry must give the same
+   bits when launched twice, all but the small cases are timed, and the
+   split plan and the split kernel's ptxas registers are logged.
    Tolerance: 3e-2 for bf16, 1e-2 for f16, 2e-4 for f32.  Times the path
    shapes (paged:
    the serve geometry) with CUDA events after warm-up, the L2 cache flushed
@@ -51,7 +57,8 @@
    of each kernel; at phase 1, where the main pass writes dq itself, the
    partials route is also held and timed on the same inputs; SDPA's
    forward and backward timed beside them) and in f16 (held and timed
-   beside SDPA in f16), LayerNorm 8192 x 1024, its backward at 8192 and
+   beside SDPA in f16), LayerNorm 8192 x 1024 (and, logged only, 16384 x
+   1024 and the rwkv prefill's 4096 x 2048), its backward at 8192 and
    16384 x 1024, bias-GELU 8192 x 4096, its backward at 8192 and 16384 x
    4096 (and the MLM head's 1280 and 2560 x 1024, held only), in bf16 and
    f16, LAMB over the largest leaf group; timed as above beside the plain
@@ -117,6 +124,7 @@ import collections
 import contextlib
 import json
 import logging
+import re
 import subprocess
 import sys
 import tempfile
@@ -175,21 +183,28 @@ def nvidia_smi() -> str:
 
 class Timer:
     """Device time of a callable: CUDA events around each launch, the L2
-    cache flushed (a 256 MB write) before every one, then a spin of ~0.5 ms
-    on the card so that the host has queued all of the callable's kernels
-    before the first starts: the time is the card's, not the host's."""
+    cache flushed before every one, then a spin of ~0.5 ms on the card so
+    that the host has queued all of the callable's kernels before the first
+    starts: the time is the card's, not the host's.  The flush is a 256 MB
+    write (the default: it leaves the L2 full of dirty lines, whose
+    write-back then competes with the callable's reads) or a 256 MB read
+    (clean lines, as the weight reads of a decode step leave them)."""
 
     def __init__(self):
         self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
                                  device=DEVICE)
 
-    def times(self, fn, iters: int = 20) -> list:
-        """ms of each of ``iters`` launches after one warm-up launch."""
+    def times(self, fn, iters: int = 20, flush: str = "write") -> list:
+        """ms of each of ``iters`` launches after one warm-up launch, each
+        after a ``flush`` ("write" or "read") of the L2."""
         fn()
         torch.cuda.synchronize()
         out = []
         for _ in range(iters):
-            self.flush.zero_()
+            if flush == "write":
+                self.flush.zero_()
+            else:
+                self.flush.view(torch.int64).sum()
             torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -367,20 +382,21 @@ def flash_phase(ops, timer):
                  ms, plain_ms, *bd, lib_ms)
 
 
-def edge_lens(seed: int, b: int, mp: int) -> np.ndarray:
-    """Random kv_len in [1, mp * PAGE_SIZE], slot 0 empty."""
-    lens = np.random.default_rng(seed).integers(1, mp * PAGE_SIZE + 1, size=b)
+def edge_lens(seed: int, b: int, mp: int, ps: int = PAGE_SIZE) -> np.ndarray:
+    """Random kv_len in [1, mp * ps], slot 0 empty."""
+    lens = np.random.default_rng(seed).integers(1, mp * ps + 1, size=b)
     lens[0] = 0
     return lens
 
 
 def paged_inputs(gen, lens, *, h, kvh, dh, mp, dtype, quant,
-                 trash_slot=None):
-    """A page pool with disjoint, shuffled block tables for ``len(lens)``
-    slots; ``trash_slot``'s whole table points at the trash page 0."""
+                 trash_slot=None, ps=PAGE_SIZE):
+    """A page pool of ``ps``-token pages with disjoint, shuffled block
+    tables for ``len(lens)`` slots; ``trash_slot``'s whole table points at
+    the trash page 0."""
     b = len(lens)
     n_pages = 1 + b * mp
-    shape = (n_pages, PAGE_SIZE, kvh, dh)
+    shape = (n_pages, ps, kvh, dh)
     q = torch.randn(b, h, dh, generator=gen, device=DEVICE).to(dtype)
     if quant:
         kp = torch.randint(-127, 128, shape, generator=gen, device=DEVICE,
@@ -404,25 +420,63 @@ def paged_inputs(gen, lens, *, h, kvh, dh, mp, dtype, quant,
 
 
 def paged_check(ops, name, args, sc, dtype, softcap=0.0) -> float:
+    """Hold one kernel call against the plain version on its inputs
+    (elementwise and relative L2: ``check_grad``) and empty slots to
+    zeros; returns the max abs error."""
     got = ops.paged_decode_attention(*args, softcap=softcap, **sc)
     want = ops.paged_decode_attention(*args, softcap=softcap, impl="torch",
                                       **sc)
     torch.cuda.synchronize()
-    err = check_close(name, got, want, dtype)
+    err = check_grad(name, got, want, dtype)[0]
     empty = args[4] == 0
     if not bool((got[empty] == 0).all()):
         raise AssertionError(f"{name}: an empty slot must give zeros")
     return err
 
 
+def paged_bytes(lens, kp, q, quant) -> int:
+    """Bytes the paged decode of ``lens`` needs: each live K/V row once
+    (the tables are disjoint), the live pages' scales and table entries,
+    q, out and kv_len."""
+    live_tok = int(lens.sum())
+    live_pages = int((-(-lens // PAGE_SIZE)).sum())
+    kvh, dh = kp.shape[2], kp.shape[3]
+    return (2 * live_tok * kvh * dh * kp.element_size()
+            + (2 * live_pages * kvh * 4 if quant else 0)
+            + live_pages * 4 + 2 * q.numel() * q.element_size()
+            + len(lens) * 4)
+
+
+def ptxas_registers(build, source: str, kernel: str) -> dict:
+    """{mangled name: (registers, spill store bytes)} of ``kernel``'s
+    instantiations in the ptxas report of ``source``'s last build."""
+    path = build.BUILD_DIR / f"{source}.log"
+    out, name, spill = {}, None, 0
+    for line in path.read_text().splitlines() if path.exists() else ():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            out[name], name = (int(m.group(1)), spill), None
+    return out
+
+
 def paged_phase(ops, timer):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     mp = -(-MAX_LEN // PAGE_SIZE)
-    # small cases: GQA groups, f32 and bf16, float and int8 pages
+    # small cases: GQA groups (H/KV 2, 4, 8 and 1), f32 and bf16, float and
+    # int8 pages
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
-            for (h, kvh, dh) in ((8, 4, 64), (8, 2, 128), (16, 2, 64)):
+            for (h, kvh, dh) in ((8, 4, 64), (8, 2, 128), (16, 2, 64),
+                                 (4, 4, 128), (4, 4, 64)):
                 for softcap in (0.0, 30.0):
                     q, kp, vp, bt, kvl, sc = paged_inputs(
                         gen, edge_lens(cases, 5, 6), h=h, kvh=kvh, dh=dh,
@@ -431,12 +485,97 @@ def paged_phase(ops, timer):
                                 f"{(h, kvh, dh)} softcap={softcap}",
                                 (q, kp, vp, bt, kvl), sc, dtype, softcap)
                     cases += 1
-    log(f"paged small cases: {cases} agree with the plain version")
+    # page sizes: 8 and 32 take the split kernel, 4 and 24 the walk kernel
+    for ps in (8, 32, 4, 24):
+        route = "split" if ps in pa.SPLIT_PAGES else "walk"
+        for quant in (False, True):
+            for (h, kvh, dh) in ((8, 2, 128), (8, 4, 64)):
+                for softcap in (0.0, 30.0):
+                    q, kp, vp, bt, kvl, sc = paged_inputs(
+                        gen, edge_lens(cases, 5, 6, ps), h=h, kvh=kvh, dh=dh,
+                        mp=6, dtype=torch.bfloat16, quant=quant,
+                        trash_slot=1, ps=ps)
+                    tag = (f"paged bf16 page {ps} quant={quant} "
+                           f"{(h, kvh, dh)} softcap={softcap}")
+                    ops.reset_launch_counts()
+                    paged_check(ops, tag, (q, kp, vp, bt, kvl), sc,
+                                torch.bfloat16, softcap)
+                    if ops.launch_counts().get(f"paged_decode_{route}") != 1:
+                        raise AssertionError(f"{tag}: not on the {route} "
+                                             "kernel")
+                    cases += 1
+    log(f"paged small cases: {cases} agree with the plain version (pages "
+        f"of 16, and of 8 and 32 on the split kernel, 4 and 24 on the walk "
+        f"kernel)")
+    regs = ptxas_registers(build, "paged_decode", "paged_decode_split_kernel")
+    path_regs = {}
+    for name, r in regs.items():
+        m = re.search(r"paged_decode_split_kernelI(\w*?)Li1ELi128ELi16E", name)
+        if m:
+            kinds = m.group(1)
+            path_regs[("bf16" if "bfloat16" in kinds else "f32") + " q, " + (
+                "int8" if kinds.endswith("a") else "bf16") + " pages"] = r
+    most = max((r for r, _ in regs.values()), default=0)
+    log(f"paged_decode_split_kernel ptxas (registers, spill store bytes) at "
+        f"G 1, Dh 128, page 16: {path_regs}; over all {len(regs)} "
+        f"instantiations at most {most} registers, "
+        f"{sum(s for _, s in regs.values())} spill store bytes")
 
     entries = []
     dtype = torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"paged split plan, (n_split, pages a split), at B={BATCH} x 32 KV "
+        f"heads, {mp}-page tables, {n_sm} SMs: "
+        f"{pa.split_plan(mp, BATCH * 32, n_sm)}")
+
+    def held(tag, lens, table, quant, same_bits=True, yardstick=False):
+        """Inputs for ``lens`` over ``table``-page tables, held against the
+        plain version, launched twice for the same bits, then timed; with
+        ``yardstick``, also after a read flush, each flush beside one
+        ``torch.sum`` over as many contiguous bytes and an empty kernel."""
+        q, kp, vp, bt, kvl, sc = paged_inputs(
+            gen, lens, h=32, kvh=32, dh=128, mp=table, dtype=dtype,
+            quant=quant)
+        args = (q, kp, vp, bt, kvl)
+        err = paged_check(ops, tag, args, sc, dtype)
+        if same_bits:
+            first = ops.paged_decode_attention(*args, **sc)
+            second = ops.paged_decode_attention(*args, **sc)
+            torch.cuda.synchronize()
+            check_same_bits(tag, (first,), (second,))
+        times = timer.times(lambda: ops.paged_decode_attention(*args, **sc))
+        bd = bound(paged_bytes(lens, kp, q, quant),
+                   4 * int(lens.sum()) * q.shape[1] * 128, dtype)
+        log(f"{tag} (32 heads x 128, kv_len {lens.tolist()}): max err "
+            f"{err:.3e}{', the same bits on relaunch' if same_bits else ''}"
+            f", kernel {float(np.mean(times)):.4f} ms, bound {bd[0]:.4f} ms;"
+            f" kernel {spread(times)}")
+        if yardstick:
+            same = torch.ones(paged_bytes(lens, kp, q, quant) // 4,
+                              device=DEVICE)
+            tiny = torch.zeros(1, device=DEVICE)
+            for flush in ("write", "read"):
+                k = times if flush == "write" else timer.times(
+                    lambda: ops.paged_decode_attention(*args, **sc),
+                    flush=flush)
+                y = timer.times(lambda: same.sum(), flush=flush)
+                e = timer.times(lambda: tiny.add_(1), flush=flush)
+                log(f"{tag}, {flush} flush: kernel median "
+                    f"{float(np.median(k)):.4f} ms, torch.sum of the same "
+                    f"bytes {float(np.median(y)):.4f}, empty kernel "
+                    f"{float(np.median(e)):.4f}; kernel {spread(k)}")
+        return err, times, bd, args, sc
+
     for quant in (False, True):
         name = "paged_decode_int8" if quant else "paged_decode"
+        # tables the plan splits: one slot's 32 heads (SMs left idle) and
+        # 2 slots of 2000-4800 tokens in 300-page tables (past one block's
+        # pages)
+        for b, table, lo in ((1, mp, 600), (2, 300, 2000)):
+            lens = np.random.default_rng(400 + quant + b).integers(
+                lo, min(table * PAGE_SIZE, 4800) + 1, size=b)
+            held(f"{name} B={b} split {pa.split_plan(table, b * 32, n_sm)}",
+                 lens, table, quant)
         # the path's head geometry at B = 8 with an empty slot and a slot
         # on the trash page: correctness only
         q, kp, vp, bt, kvl, sc = paged_inputs(
@@ -444,36 +583,23 @@ def paged_phase(ops, timer):
             dtype=dtype, quant=quant, trash_slot=1)
         err = paged_check(ops, f"{name} B=8 edge slots", (q, kp, vp, bt, kvl),
                           sc, dtype)
-        # the serve phase's geometry, timed: B = 4 live slots of 600-1040
-        # tokens with disjoint tables
+        # short contexts: 16-64 tokens a slot in the serve tables
+        lens = np.random.default_rng(300 + quant).integers(16, 65, size=BATCH)
+        err = max(err, held(f"{name} B={BATCH} short contexts", lens, mp,
+                            quant, same_bits=False, yardstick=True)[0])
+        # the serve phase's geometry: B = 4 live slots of 600-1040 tokens
+        # with disjoint tables
         lens = np.random.default_rng(200 + quant).integers(
             600, MAX_LEN + 1, size=BATCH)
-        q, kp, vp, bt, kvl, sc = paged_inputs(
-            gen, lens, h=32, kvh=32, dh=128, mp=mp, dtype=dtype, quant=quant)
-        args = (q, kp, vp, bt, kvl)
-        err = max(err, paged_check(ops, f"{name} B={BATCH} serve geometry",
-                                   args, sc, dtype))
-        times = timer.times(lambda: ops.paged_decode_attention(*args, **sc))
+        e, times, bd, args, sc = held(f"{name} B={BATCH} serve geometry",
+                                      lens, mp, quant, yardstick=True)
         ms = float(np.mean(times))
         plain_ms = timer.ms(lambda: ops.paged_decode_attention(
             *args, impl="torch", **sc))
-        # bytes this run's data needs: each live K/V row once (the tables
-        # are disjoint), the live pages' scales and table entries, q, out
-        # and kv_len
-        live_tok = int(lens.sum())
-        live_pages = int((-(-lens // PAGE_SIZE)).sum())
-        kvh, dh = kp.shape[2], kp.shape[3]
-        nbytes = (2 * live_tok * kvh * dh * kp.element_size()
-                  + (2 * live_pages * kvh * 4 if quant else 0)
-                  + live_pages * 4 + 2 * q.numel() * q.element_size()
-                  + kvl.numel() * 4)
-        bd = bound(nbytes, 4 * live_tok * q.shape[1] * dh, dtype)
-        log(f"{name} B={BATCH} (32 heads x 128, kv_len {lens.tolist()}): "
-            f"max err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" bound {bd[0]:.4f} ms; kernel {spread(times)}")
+        log(f"{name} serve geometry: plain {plain_ms:.4f} ms")
         entries.append(entry(name, "paged_decode.cu",
-                             "paged_attention.py:160", err, ms, plain_ms,
-                             *bd, None))
+                             "paged_attention.py:160", max(err, e), ms,
+                             plain_ms, *bd, None))
     return entries
 
 
@@ -616,6 +742,8 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode):
     for k in SERVE_KERNELS:
         if counts[k] <= 0:
             raise AssertionError(f"{mode}: kernel {k} never launched")
+    if counts.get("paged_decode_split", 0) != counts["paged_decode"]:
+        raise AssertionError(f"{mode}: paged decode off the split kernel")
     step_ms = 1e3 * st.decode_s / max(st.decode_steps - 1, 1)
     log(f"serve {mode}: {len(done)} requests, {st.prefills} prefills, "
         f"{st.decode_steps} decode steps, {st.useful_tokens} tokens in "
@@ -733,7 +861,8 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
         f"each kernel call vs plain on its inputs (tol "
         f"{TOL[pol.compute_dtype]}): " + ", ".join(
             f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
-            f"err {res['call_max_err'][k]:.3e}" for k in record))
+            f"err {res['call_max_err'][k]:.3e}, max rel L2 "
+            f"{res['call_max_rel'][k]:.3e}" for k in record))
     return res
 
 
@@ -750,6 +879,12 @@ def check_parity(res: dict) -> None:
     if not res["rel_l2"] <= LOGIT_REL_L2_BOUND[res["dtype"]]:
         raise AssertionError(f"{mode}: kernel path departs from the plain "
                              f"path (rel L2 {res['rel_l2']:.3e})")
+    # the paged calls also as a whole: elementwise, TOL is about half a
+    # typical output value (~0.06 at the serve geometry)
+    rel = res["call_max_rel"].get("paged_decode_attention")
+    if rel is not None and not rel <= CALL_REL_L2_BOUND[res["dtype"]]:
+        raise AssertionError(f"{mode}: a paged decode call departs from "
+                             f"the plain version (rel L2 {rel:.3e})")
 
 # ---------------------------------------------------------------------------
 # rwkv serve phases
@@ -1182,6 +1317,28 @@ def layernorm_phase(ops, timer):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm "
         f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); kernel "
         f"{spread(times)}")
+    # the other forward shapes of the main paths, held and timed for the
+    # ranking by launches per shape: phase 2 and the rwkv raw prefill
+    for rows, d in ((2 * TRAIN_ROWS, D_MODEL), (4096, 2048)):
+        xs = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+        ss = (1 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
+        bs = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
+        got = ops.layernorm_fwd(xs, ss, bs, eps=1e-5)
+        want = ops.layernorm_fwd(xs, ss, bs, eps=1e-5, impl="torch")
+        torch.cuda.synchronize()
+        e = max(check_close(f"layernorm ({rows}, {d}) {n}", g, w, dtype)
+                for g, w, n in zip(got, want, ("y", "mean", "rstd")))
+        t = timer.times(lambda: ops.layernorm_fwd(xs, ss, bs, eps=1e-5))
+        p_ms = timer.ms(lambda: ops.layernorm_fwd(xs, ss, bs, eps=1e-5,
+                                                  impl="torch"))
+        l_ms = timer.ms(lambda: torch.nn.functional.layer_norm(
+            xs, (d,), ss, bs, 1e-5))
+        bb = bound(2 * xs.numel() * 2 + 2 * d * 2 + 2 * rows * 4,
+                   8 * xs.numel())
+        log(f"layernorm ({rows}, {d}) bf16: max err {e:.3e}, kernel "
+            f"{float(np.mean(t)):.4f} ms, plain {p_ms:.4f} ms, F.layer_norm "
+            f"{l_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}); kernel "
+            f"{spread(t)}")
     return entry("layernorm", "layernorm.cu", "layernorm.py:40", err, ms,
                  plain_ms, *b, lib_ms)
 

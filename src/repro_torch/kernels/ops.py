@@ -280,7 +280,11 @@ def launch_counts() -> Dict[str, int]:
             **{f"flash_fwd_s{s}": n
                for s, n in sorted(_fa.launches_by_seq.items())},
             **{f"flash_bwd_s{s}": n
-               for s, n in sorted(_fa.launches_bwd_by_seq.items())}}
+               for s, n in sorted(_fa.launches_bwd_by_seq.items())},
+            # the paged decode's launches by route, as "paged_decode_split"
+            # and "paged_decode_walk", for the routes launched so far
+            **{f"paged_decode_{r}": n
+               for r, n in sorted(_pa.launches_by_route.items())}}
 
 
 def reset_launch_counts() -> None:
@@ -288,5 +292,6 @@ def reset_launch_counts() -> None:
     _fa.launches_bwd_post = 0
     _fa.launches_by_seq.clear()
     _fa.launches_bwd_by_seq.clear()
+    _pa.launches_by_route.clear()
     _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0
     _ln.launches_bwd = _bg.launches_bwd = _wkv.launches = 0

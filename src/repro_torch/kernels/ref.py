@@ -89,6 +89,63 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_table, kv_len, *,
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def paged_decode_partials_ref(q, k_pages, v_pages, block_table, kv_len, *,
+                              n_split: int, pages_per_split: int,
+                              k_scale=None, v_scale=None,
+                              softcap: float = 0.0):
+    """The split form of ``paged_decode_attention_ref``, as the card's kernel
+    computes it: split s of a slot covers pages [s * pages_per_split,
+    (s + 1) * pages_per_split) of its table.  Returns fp32 (m, l, acc) per
+    split over its live tokens: m (B, H, n_split) the largest logit (-inf
+    where the split holds none), l = sum exp(logit - m) (0 there) and
+    acc (B, H, n_split, Dh) = sum exp(logit - m) v."""
+    b, h, dh = q.shape
+    n_pages, ps, kvh, _ = k_pages.shape
+    mp = block_table.shape[1]
+    width = n_split * pages_per_split
+    assert width >= mp, "the splits must cover the table"
+    bt = block_table.long().clamp(0, n_pages - 1)
+    bt = torch.cat([bt, bt.new_zeros((b, width - mp))], dim=1)
+    k = k_pages[bt].float()                          # (B, W, ps, KV, Dh)
+    v = v_pages[bt].float()
+    if k_scale is not None:
+        k = k * k_scale.float()[bt][:, :, None, :, None]
+        v = v * v_scale.float()[bt][:, :, None, :, None]
+    n_tok = pages_per_split * ps
+    k = k.reshape(b, n_split, n_tok, kvh, dh)
+    v = v.reshape(b, n_split, n_tok, kvh, dh)
+    qg = q.float().reshape(b, kvh, h // kvh, dh)
+    logits = torch.einsum("bvgd,bskvd->bvgsk", qg, k) / math.sqrt(dh)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    length = kv_len.to(q.device).long().clamp(0, mp * ps)
+    idx = torch.arange(width * ps, device=q.device).reshape(n_split, n_tok)
+    mask = idx[None] < length[:, None, None]              # (B, S, n_tok)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    m = logits.amax(dim=-1)                               # (B, KV, G, S)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    acc = torch.einsum("bvgsk,bskvd->bvgsd", p, v)
+    return (m.reshape(b, h, n_split), p.sum(-1).reshape(b, h, n_split),
+            acc.reshape(b, h, n_split, dh))
+
+
+def paged_combine_ref(m, l, acc, dtype=torch.float32) -> torch.Tensor:
+    """(B, H, Dh) from per-split partials (``paged_decode_partials_ref``),
+    added in split order; a split with no live token (l == 0) is left out
+    and a slot with none gives zeros."""
+    live = l > 0
+    top = torch.where(live, m, float("-inf")).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - torch.where(live, top, 0.0)), 0.0)
+    lsum = torch.zeros_like(l[..., 0])
+    osum = torch.zeros_like(acc[..., 0, :])
+    for s in range(m.shape[-1]):
+        lsum = lsum + l[..., s] * w[..., s]
+        osum = osum + acc[..., s, :] * w[..., s, None]
+    out = torch.where(lsum[..., None] > 0,
+                      osum / lsum.clamp(min=1e-30)[..., None], 0.0)
+    return out.to(dtype)
+
+
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                             window: int = 0, softcap: float = 0.0):
     """FlashAttention-2 backward written out over the whole score matrix

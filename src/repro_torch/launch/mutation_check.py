@@ -11,6 +11,15 @@ inside the code of one source that the main paths run:
   Each copy runs ``chip_smoke.path_parity`` on full-width deepseek-7b in
   bf16 with a paged cache: one request's prefill and 4 decode steps
   through the kernels and through the plain versions.
+* ``PAGED_MUTATIONS`` edit ``csrc/paged_decode.cu``
+  (``paged_decode_split_kernel``, the 16-bit and int8 paged decode that
+  serving runs).  Each copy runs ``chip_smoke.path_parity`` as the
+  forward's do, in the ``paged`` and the ``paged_int8`` cache modes, judged
+  by ``chip_smoke.check_parity`` (every paged call within TOL of its
+  inputs' plain version, and the logits bound); a copy is caught if either
+  mode fails.  One slot's 32 heads leave SMs idle, so the split plan cuts
+  its 65-page table in four and the request's 777-789 tokens fill three
+  splits: the combine adds partials on every paged call there.
 * ``BWD_MUTATIONS`` edit the 16-bit route of ``csrc/flash_bwd.cu`` (the
   fused main pass and the post-pass that adds its dQ partials in a fixed
   order), ``LN_BWD_MUTATIONS`` the LayerNorm backward of
@@ -41,7 +50,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[3]
 
-# name -> (text in the tensor-core body, its replacement)
+# name -> (text in the kernel body, its replacement)
 MUTATIONS = {
     # one accumulator element of the second row rescaled by the first
     # row's correction factor: a fragment-layout slip
@@ -51,6 +60,16 @@ MUTATIONS = {
     # the softmax scale 2 % too large
     "scale_2pct": ("const float sl2 = scale * kLog2e;",
                    "const float sl2 = scale * 1.02f * kLog2e;"),
+}
+PAGED_MUTATIONS = {
+    # the first split's partial left out of the combine
+    "split_partial_dropped": (
+        "for (int s = 0; s < n_live; ++s) {  // in split order",
+        "for (int s = 1; s < n_live; ++s) {  // in split order"),
+    # the tail page's mask one token short: the newest token left out
+    "tail_mask_off_by_one": ("s = tok < live ?", "s = tok < live - 1 ?"),
+    # int8 pages' v_scale dropped from the page's probabilities
+    "v_scale_dropped": ("p[g] *= vsc;", "p[g] *= 1.f;"),
 }
 BWD_MUTATIONS = {
     # dQ's softmax scale dropped in the post-pass
@@ -75,6 +94,7 @@ GELU_BWD_MUTATIONS = {
 # source -> (the text that opens the code the mutations edit, the mutations)
 SOURCES = {
     "flash_fwd": ("flash_fwd_hopper_kernel(const", MUTATIONS),
+    "paged_decode": ("paged_decode_split_kernel(Args", PAGED_MUTATIONS),
     "flash_bwd": ("// 16-bit main pass at Dh 64: warpgroup", BWD_MUTATIONS),
     "layernorm": ("layernorm_bwd_kernel(const", LN_BWD_MUTATIONS),
     "bias_gelu": ("bias_gelu_bwd_kernel(const", GELU_BWD_MUTATIONS),
@@ -85,7 +105,7 @@ BWD_SOURCES = ("flash_bwd", "layernorm", "bias_gelu")
 
 def mutate(source: str, edit, body: str) -> str:
     """``source`` with ``edit`` = (old, new) applied once after ``body``
-    (the start of the tensor-core code); raises if ``old`` is not found
+    (the start of the kernel code); raises if ``old`` is not found
     there."""
     if edit is None:
         return source
@@ -107,6 +127,22 @@ def forward_check(smoke, T, serve_step, ops, cfg, params, pol) -> dict:
             "fails_per_call_check": res["calls_outside"][k] > 0,
             "fails_model_bound": res["rel_l2"] > smoke.LOGIT_REL_L2_BOUND[
                 pol.compute_dtype]}
+
+
+def paged_check(smoke, T, serve_step, ops, cfg, params, pol) -> dict:
+    k, out, fails = "paged_decode_attention", {}, False
+    for mode in ("paged", "paged_int8"):
+        res = smoke.path_parity(T, serve_step, ops, cfg, params, pol, mode)
+        try:
+            smoke.check_parity(res)
+        except AssertionError:
+            fails = True
+        out.update({f"{mode}_calls": res["calls"][k],
+                    f"{mode}_calls_outside": res["calls_outside"][k],
+                    f"{mode}_call_max_err": res["call_max_err"][k],
+                    f"{mode}_call_max_rel_l2": res["call_max_rel"][k],
+                    f"{mode}_rel_l2": res["rel_l2"]})
+    return {**out, "fails_parity_check": fails}
 
 
 def backward_check(smoke, ops, ts, cfg, state, batch, tcfg, pol) -> dict:
@@ -174,6 +210,8 @@ def main() -> int:
     params = T.init_model(cfg, seed=smoke.SEED, dtype=pol.param_dtype,
                           device="cuda")
     bad = run_family(build, "flash_fwd", lambda: forward_check(
+        smoke, T, serve_step, ops, cfg, params, pol))
+    bad += run_family(build, "paged_decode", lambda: paged_check(
         smoke, T, serve_step, ops, cfg, params, pol))
     del params
     torch.cuda.empty_cache()

@@ -3,15 +3,15 @@ one prefill and of steady-state decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--arch deepseek-7b|rwkv6-1.6b] [--cache-mode paged|paged_int8] \
-      [--steps 8] [--full-width]
+      [--steps 8] [--batch 4] [--full-width]
 
 Builds the model (full width and depth with ``--full-width``, else the
 smoke variant) in bf16 with seeded random weights and runs the geometry of
-``chip_smoke.py``'s serve phases.  deepseek-7b: fills 4 slots with
-1024-token prompts through ``prefill_into_slot``, in ``--cache-mode``.
-rwkv6-1.6b: the raw mode's unmasked prefill of 4 x 1024 tokens (24
-``wkv6`` launches), all on one state.  Then ``--steps``
-decode steps of the 4 slots.  For each phase it prints one JSON line: wall
+``chip_smoke.py``'s serve phases at ``--batch`` slots (default 4).
+deepseek-7b: fills the slots with 1024-token prompts through
+``prefill_into_slot``, in ``--cache-mode``.  rwkv6-1.6b: the raw mode's
+unmasked prefill of batch x 1024 tokens (24 ``wkv6`` launches), all on one
+state.  Then ``--steps`` decode steps of the slots.  For each phase it prints one JSON line: wall
 time (host clock around an unprofiled loop that ends in a synchronize),
 device busy time (sum of the CUDA kernels' durations in the trace of a
 second, profiled loop), the idle share (1 - busy / wall), the device time
@@ -117,18 +117,19 @@ def _serve_deepseek(cfg, pol, params, args):
     max_len = PROMPT_LEN + 2 * args.steps + 16  # timed + profiled steps
     mp = -(-max_len // PAGE_SIZE)
     paged = T.PagedCacheConfig(page_size=PAGE_SIZE,
-                               num_pages=1 + BATCH * mp,
+                               num_pages=1 + args.batch * mp,
                                quantized=args.cache_mode == "paged_int8")
-    state = T.init_decode_state(cfg, BATCH, max_len, pol.compute_dtype,
+    state = T.init_decode_state(cfg, args.batch, max_len, pol.compute_dtype,
                                 paged=paged, device="cuda")
-    T.set_block_tables(state, 1 + np.arange(BATCH * mp, dtype=np.int32)
-                       .reshape(BATCH, mp))
-    toks = _prompts(cfg)
-    for slot in range(1, BATCH):
+    T.set_block_tables(state, 1 + np.arange(args.batch * mp, dtype=np.int32)
+                       .reshape(args.batch, mp))
+    toks = _prompts(cfg, args.batch)
+    for slot in range(1, args.batch) if args.batch > 1 else (0,):
         prefill_into_slot(params, toks[slot:slot + 1], PROMPT_LEN,
                           state, slot, cfg, pol)
-    # slot 0's prefill is the measured one (the others warmed up the path);
-    # prefilling it again rewrites the same pages
+    # slot 0's prefill is the measured one (the others, or at batch 1 a
+    # first prefill of slot 0, warmed up the path); prefilling it again
+    # rewrites the same pages
     _phase("prefill", lambda: prefill_into_slot(
         params, toks[:1], PROMPT_LEN, state, 0, cfg, pol), 3)
     state["pos"].fill_(PROMPT_LEN)
@@ -136,8 +137,8 @@ def _serve_deepseek(cfg, pol, params, args):
 
 
 def _serve_rwkv(cfg, pol, params, args):
-    state = T.init_decode_state(cfg, BATCH, PROMPT_LEN, device="cuda")
-    toks = _prompts(cfg)
+    state = T.init_decode_state(cfg, args.batch, PROMPT_LEN, device="cuda")
+    toks = _prompts(cfg, args.batch)
 
     # one state threads through every prefill: their cost does not depend
     # on its values, and prefill sets pos to the prompt length each time
@@ -147,10 +148,10 @@ def _serve_rwkv(cfg, pol, params, args):
     return state
 
 
-def _prompts(cfg):
+def _prompts(cfg, batch):
     rng = np.random.default_rng(SEED)
     return torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(BATCH, PROMPT_LEN), dtype=np.int32)).cuda()
+        0, cfg.vocab_size, size=(batch, PROMPT_LEN), dtype=np.int32)).cuda()
 
 
 def main(argv=None):
@@ -162,6 +163,7 @@ def main(argv=None):
                     choices=["paged", "paged_int8"],
                     help="deepseek-7b's KV layout (rwkv6-1.6b has no KV)")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=BATCH)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card: no CUDA device")
@@ -175,11 +177,11 @@ def main(argv=None):
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": cfg.arch_id, "full_width": args.full_width,
                       "cache_mode": None if rwkv else args.cache_mode,
-                      "batch": BATCH, "prompt_len": PROMPT_LEN}),
+                      "batch": args.batch, "prompt_len": PROMPT_LEN}),
           flush=True)
     state = (_serve_rwkv if rwkv else _serve_deepseek)(cfg, pol, params,
                                                         args)
-    cur = torch.zeros((BATCH, 1), dtype=torch.int64, device="cuda")
+    cur = torch.zeros((args.batch, 1), dtype=torch.int64, device="cuda")
 
     def step():
         logits, _ = T.decode_step(params, cur, state, cfg, pol)
