@@ -57,18 +57,24 @@
    of each kernel; at phase 1, where the main pass writes dq itself, the
    partials route is also held and timed on the same inputs; SDPA's
    forward and backward timed beside them) and in f16 (held and timed
-   beside SDPA in f16), LayerNorm 8192 x 1024 (and, logged only, 16384 x
-   1024 and the rwkv prefill's 4096 x 2048), its backward at 8192 and
-   16384 x 1024, bias-GELU 8192 x 4096, its backward at 8192 and 16384 x
-   4096 (and the MLM head's 1280 and 2560 x 1024, held only), in bf16 and
-   f16, LAMB over the largest leaf group; timed as above beside the plain
-   version, the bound and, where one PyTorch call computes the same
-   function, that call (flash backward: the backward of
-   ``scaled_dot_product_attention``; LayerNorm: ``F.layer_norm``; its
-   backward: ``native_layer_norm_backward`` on the same saved statistics).
-   Determinism, bit for bit: the flash backward at both training shapes
-   (bf16 and f16) and each row backward at its path shapes launched twice
-   on the same inputs give the same bits.
+   beside SDPA in f16), LayerNorm at every path shape (``LN_FWD_PATH``:
+   phase 1 and 2, the MLM head, the rwkv raw prefill and rwkv's calls of 4
+   and 256 rows) and its backward at the training ones, each held in f32,
+   bf16 and f16 (TOL and the per-call rel L2 bound) and timed in bf16 and
+   f16, bias-GELU 8192 x 4096, its backward at 8192 and 16384 x 4096 (and
+   the MLM head's 1280 and 2560 x 1024, held only), in bf16 and f16, LAMB
+   over the largest leaf group; timed as above beside the plain version,
+   the bound and, where one PyTorch call computes the same function, that
+   call (flash backward: the backward of ``scaled_dot_product_attention``;
+   LayerNorm: ``F.layer_norm``; its backward: ``native_layer_norm_backward``
+   on the same saved statistics).  The LayerNorm kernels are also timed
+   under both flushes beside an empty kernel and one PyTorch op that moves
+   exactly their bytes (``copy_`` of x; ``torch.add(x, dy, out=)``), the
+   backward's two launches apart from a profiler trace, and their ptxas
+   registers are logged.  Determinism, bit for bit: the flash backward at
+   both training shapes (bf16 and f16), each row backward and the
+   LayerNorm forward at their path shapes launched twice on the same
+   inputs give the same bits.
 6. wkv6 kernel phase: the RWKV-6 recurrence against its plain version at
    the CPU tests' cases (s, chunk) in {(128, 32), (256, 64), (64, 64),
    (32, 64)} plus chunks of 6 and 60 rows, f32 and bf16 inputs, inputs
@@ -113,7 +119,8 @@
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
-kernel); without arguments everything runs.
+kernel), ``--only layernorm`` after the build and the two LayerNorm phases
+(exit 2, no result line either way); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -222,6 +229,66 @@ class Timer:
 def spread(times: list) -> str:
     return (f"min {min(times):.4f} / median {float(np.median(times)):.4f} / "
             f"max {max(times):.4f} over {len(times)}")
+
+
+def median(times: list) -> float:
+    return float(np.median(times))
+
+
+def yardstick_times(timer, fn, same, lib=None) -> dict:
+    """Medians (ms) of ``fn``, of ``same`` (one PyTorch op that moves
+    exactly ``fn``'s bytes), of ``lib`` (one PyTorch call computing the
+    same function, where there is one) and of an empty kernel, under the
+    write and under the read flush; ``"times"`` holds ``fn``'s write-flush
+    times."""
+    tiny = torch.zeros(1, device=DEVICE)
+    out = {}
+    for flush in ("write", "read"):
+        k = timer.times(fn, flush=flush)
+        out[flush] = {"kernel": median(k),
+                      "same bytes": median(timer.times(same, flush=flush)),
+                      "empty": median(timer.times(lambda: tiny.add_(1),
+                                                  flush=flush))}
+        if lib is not None:
+            out[flush]["library"] = median(timer.times(lib, flush=flush))
+        if flush == "write":
+            out["times"] = k
+    return out
+
+
+def yardstick_log(res: dict, same: str, lib: str = "") -> str:
+    return "; ".join(
+        f"{flush} flush median: kernel {r['kernel']:.4f}, {same} "
+        f"{r['same bytes']:.4f}, " + (f"{lib} {r['library']:.4f}, " if lib
+                                      else "") +
+        f"empty kernel {r['empty']:.4f}"
+        for flush, r in res.items() if flush != "times")
+
+
+def device_split(timer, fn, names, iters: int = 10) -> dict:
+    """A call's launches apart, from a torch.profiler trace of ``fn``
+    timed under the write flush: for each kernel whose name holds one of
+    ``names``, its mean device ms a launch, and with two names, how long
+    after the first kernel's end the second ends ("<b> past <a>": a
+    dependent launch may start early and wait, so its own span overlaps
+    the first's)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timer.times(fn, iters)
+    spans = {n: [] for n in names}
+    for e in prof.events():
+        label = next((n for n in names if n in e.name), None)
+        if e.device_type == torch.autograd.DeviceType.CUDA and label:
+            spans[label].append((e.time_range.start, e.time_range.end))
+    out = {n: float(np.mean([b - a for a, b in v])) / 1e3
+           for n, v in spans.items() if v}
+    if len(names) == 2 and len(set(map(len, spans.values()))) == 1 and \
+            spans[names[0]]:
+        first, second = (sorted(spans[n]) for n in names)
+        out[f"{names[1]} past {names[0]}"] = float(np.mean(
+            [b[1] - a[1] for a, b in zip(first, second)])) / 1e3
+    return out
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -553,17 +620,9 @@ def paged_phase(ops, timer):
         if yardstick:
             same = torch.ones(paged_bytes(lens, kp, q, quant) // 4,
                               device=DEVICE)
-            tiny = torch.zeros(1, device=DEVICE)
-            for flush in ("write", "read"):
-                k = times if flush == "write" else timer.times(
-                    lambda: ops.paged_decode_attention(*args, **sc),
-                    flush=flush)
-                y = timer.times(lambda: same.sum(), flush=flush)
-                e = timer.times(lambda: tiny.add_(1), flush=flush)
-                log(f"{tag}, {flush} flush: kernel median "
-                    f"{float(np.median(k)):.4f} ms, torch.sum of the same "
-                    f"bytes {float(np.median(y)):.4f}, empty kernel "
-                    f"{float(np.median(e)):.4f}; kernel {spread(k)}")
+            log(f"{tag}: " + yardstick_log(yardstick_times(
+                timer, lambda: ops.paged_decode_attention(*args, **sc),
+                lambda: same.sum()), "torch.sum of the same bytes"))
         return err, times, bd, args, sc
 
     for quant in (False, True):
@@ -1275,11 +1334,52 @@ def flash_f16_path(ops, fa, timer, shape, rand):
         f"{spread(bwd_t)}")
 
 
+# LayerNorm's path shapes (rows, d): BERT-large's rows at phase 1 (64 x 128
+# tokens a micro-batch) and phase 2 (32 x 512), the MLM head's rows at its
+# predicted positions (64 x 20 and 32 x 80), the rwkv raw prefill (4 x 1024
+# tokens of 2048) and rwkv's small calls (4 rows: a raw decode step; 256: a
+# continuous slot prefill).  The backward runs the first four (training).
+LN_FWD_PATH = ((8192, 1024), (16384, 1024), (1280, 1024), (2560, 1024),
+               (4096, 2048), (4, 2048), (256, 2048))
+LN_BWD_SHAPES = LN_FWD_PATH[:4]
+
+
+def layernorm_registers(build) -> str:
+    """Registers and spill store bytes of every LayerNorm kernel
+    instantiation (element type, parameter type, vectors a lane) in
+    ptxas's report of the last build."""
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    out = []
+    for name, (regs, spill) in sorted(ptxas_registers(
+            build, "layernorm", "_kernel").items()):
+        m = re.search(r"(layernorm_kernel|layernorm_bwd_kernel|colsum_kernel)"
+                      r"I(\w*?)EEv", name)
+        if not m:
+            continue
+        args = []
+        for t in re.findall(r"13__nv_bfloat16|6__half|S\d*_|Li\d+|f",
+                            m.group(2)):
+            args.append(t[2:] if t.startswith("Li") else
+                        args[0] if t.startswith("S") else names[t])
+        out.append(f"{m.group(1)}<{', '.join(args)}> {regs} ({spill} B "
+                   "spilled)")
+    return "; ".join(out)
+
+
 def layernorm_phase(ops, timer):
+    """``layernorm`` against its plain version: small cases in f32, bf16
+    and f16 (scale and bias in x's dtype or f32, two eps), then every path
+    shape in the three dtypes, each held (TOL and the per-call rel L2
+    bound), launched twice for the same bits and, in bf16 and f16, timed
+    beside the plain version, ``F.layer_norm`` and ``copy_`` of x (one read
+    and one write of x's bytes) under both flushes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import layernorm as ln
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     cases = 0
     for dtype in DTYPES:
-        for shape in ((64, 128), (33, 256), (256, 1024), (2, 17, 256)):
+        for shape in ((64, 128), (33, 256), (256, 1024), (2, 17, 256),
+                      (7, 512), (1, 8192 if dtype != torch.float32 else 4096)):
             for pdtype in {torch.float32, dtype}:
                 d = shape[-1]
                 x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
@@ -1296,51 +1396,47 @@ def layernorm_phase(ops, timer):
                                     f"{pdtype} eps={eps} {n}", g, w, dtype)
                     cases += 1
     log(f"layernorm small cases: {cases} agree with the plain version")
-    dtype = torch.bfloat16
-    x = torch.randn(TRAIN_ROWS, D_MODEL, generator=gen, device=DEVICE).to(dtype)
-    sc = (1 + 0.1 * torch.randn(D_MODEL, generator=gen, device=DEVICE)).to(dtype)
-    bi = (0.1 * torch.randn(D_MODEL, generator=gen, device=DEVICE)).to(dtype)
-    got = ops.layernorm_fwd(x, sc, bi, eps=1e-12)
-    want = ops.layernorm_fwd(x, sc, bi, eps=1e-12, impl="torch")
-    torch.cuda.synchronize()
-    err = max(check_close(f"layernorm path shape {n}", g, w, dtype)
-              for g, w, n in zip(got, want, ("y", "mean", "rstd")))
-    times = timer.times(lambda: ops.layernorm_fwd(x, sc, bi, eps=1e-12))
-    plain_ms = timer.ms(lambda: ops.layernorm_fwd(x, sc, bi, eps=1e-12,
-                                                  impl="torch"))
-    lib_ms = timer.ms(lambda: torch.nn.functional.layer_norm(
-        x, (D_MODEL,), sc, bi, 1e-12))
-    nbytes = 2 * x.numel() * 2 + 2 * D_MODEL * 2 + 2 * TRAIN_ROWS * 4
-    b = bound(nbytes, 8 * x.numel())
-    ms = float(np.mean(times))
-    log(f"layernorm ({TRAIN_ROWS}, {D_MODEL}) bf16: max err {err:.3e}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm "
-        f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); kernel "
-        f"{spread(times)}")
-    # the other forward shapes of the main paths, held and timed for the
-    # ranking by launches per shape: phase 2 and the rwkv raw prefill
-    for rows, d in ((2 * TRAIN_ROWS, D_MODEL), (4096, 2048)):
-        xs = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
-        ss = (1 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
-        bs = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
-        got = ops.layernorm_fwd(xs, ss, bs, eps=1e-5)
-        want = ops.layernorm_fwd(xs, ss, bs, eps=1e-5, impl="torch")
-        torch.cuda.synchronize()
-        e = max(check_close(f"layernorm ({rows}, {d}) {n}", g, w, dtype)
-                for g, w, n in zip(got, want, ("y", "mean", "rstd")))
-        t = timer.times(lambda: ops.layernorm_fwd(xs, ss, bs, eps=1e-5))
-        p_ms = timer.ms(lambda: ops.layernorm_fwd(xs, ss, bs, eps=1e-5,
-                                                  impl="torch"))
-        l_ms = timer.ms(lambda: torch.nn.functional.layer_norm(
-            xs, (d,), ss, bs, 1e-5))
-        bb = bound(2 * xs.numel() * 2 + 2 * d * 2 + 2 * rows * 4,
-                   8 * xs.numel())
-        log(f"layernorm ({rows}, {d}) bf16: max err {e:.3e}, kernel "
-            f"{float(np.mean(t)):.4f} ms, plain {p_ms:.4f} ms, F.layer_norm "
-            f"{l_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}); kernel "
-            f"{spread(t)}")
-    return entry("layernorm", "layernorm.cu", "layernorm.py:40", err, ms,
-                 plain_ms, *b, lib_ms)
+    log(f"layernorm ptxas: {layernorm_registers(build)}")
+    out = None
+    for dtype in DTYPES:
+        for rows, d in LN_FWD_PATH:
+            x = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+            sc = (1 + 0.1 * torch.randn(d, generator=gen,
+                                        device=DEVICE)).to(dtype)
+            bi = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
+            eps = 1e-12 if d == D_MODEL else 1e-5
+            run = lambda: ops.layernorm_fwd(x, sc, bi, eps=eps)
+            plain = lambda: ops.layernorm_fwd(x, sc, bi, eps=eps,
+                                              impl="torch")
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            tag = f"layernorm ({rows}, {d}) {dtype}"
+            err = max(check_grad(f"{tag} {n}", g, w, dtype)[0]
+                      for g, w, n in zip(got, want, ("y", "mean", "rstd")))
+            check_same_bits(tag, got, run())
+            if dtype == torch.float32:
+                continue
+            buf = torch.empty_like(x)
+            res = yardstick_times(
+                timer, run, lambda: buf.copy_(x),
+                lambda: torch.nn.functional.layer_norm(x, (d,), sc, bi, eps))
+            plain_ms = timer.ms(plain)
+            item = x.element_size()
+            b = bound(2 * x.numel() * item + 2 * d * item + 2 * rows * 4,
+                      8 * x.numel())
+            ms = float(np.mean(res["times"]))
+            plan = (f", rows a warp {ln.fwd_plan(rows)[1]} in "
+                    f"{ln.fwd_plan(rows)[0]} blocks"
+                    if hasattr(ln, "fwd_plan") else "")
+            log(f"{tag}: max err {err:.3e}, two launches the same bits, "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm "
+                f"{res['write']['library']:.4f} ms, bound {b[0]:.4f} ms "
+                f"({b[1]}){plan}; kernel {spread(res['times'])}; "
+                + yardstick_log(res, "copy_", "F.layer_norm"))
+            if (rows, d, dtype) == (TRAIN_ROWS, D_MODEL, torch.bfloat16):
+                out = entry("layernorm", "layernorm.cu", "layernorm.py:40",
+                            err, ms, plain_ms, *b, res["write"]["library"])
+    return out
 
 
 def bias_gelu_phase(ops, timer):
@@ -1373,11 +1469,10 @@ def bias_gelu_phase(ops, timer):
                  plain_ms, *bd, None)
 
 
-# the row backwards' path shapes: BERT-large's LayerNorm rows (d_model) and
-# MLP rows (d_ff) at phase 1 (64 x 128 tokens a micro-batch) and phase 2
-# (32 x 512), and the MLM head's rows (d_model) at its predicted positions
-# (64 x 20 and 32 x 80); the JSON line takes phase 2's
-LN_BWD_PATH = ((8192, 1024), (16384, 1024))
+# the bias-GELU backward's path shapes: BERT-large's MLP rows (d_ff) at
+# phase 1 (64 x 128 tokens a micro-batch) and phase 2 (32 x 512), and the
+# MLM head's rows (d_model) at its predicted positions (64 x 20 and 32 x
+# 80); the JSON line takes phase 2's
 GELU_BWD_PATH = ((8192, 4096), (16384, 4096))
 MLM_ROWS = (1280, 2560)
 
@@ -1395,9 +1490,13 @@ def held_bwd(tag, got, want, dtype, worst):
 def layernorm_bwd_phase(ops, timer):
     """``layernorm_bwd`` against its plain version: the forward's small
     shapes in f32, bf16 and f16 with scale in x's dtype or f32, then the
-    path shapes, each held, launched twice for the same bits, and timed
-    beside the plain version and ``native_layer_norm_backward`` on the
-    same saved mean and rstd."""
+    path shapes in the three dtypes, each held, launched twice for the same
+    bits and, in bf16 and f16, timed beside the plain version,
+    ``native_layer_norm_backward`` on the same saved mean and rstd and
+    ``torch.add(x, dy, out=)`` (two reads and one write of x's bytes: the
+    kernel's) under both flushes, with its launches timed apart from a
+    profiler trace."""
+    from repro_torch.kernels import layernorm as ln
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
     randn = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE)
 
@@ -1412,7 +1511,7 @@ def layernorm_bwd_phase(ops, timer):
     cases, worst = 0, collections.defaultdict(float)
     for dtype in DTYPES:
         for shape in ((64, 128), (33, 256), (256, 1024), (2, 17, 256),
-                      (7, 512)):
+                      (7, 512), (20, 2048 if dtype != torch.float32 else 1024)):
             for pdtype in {torch.float32, dtype}:
                 dy, x, sc, _, mean, rstd = inputs(shape, dtype, pdtype)
                 got = ops.layernorm_bwd(dy, x, sc, mean, rstd)
@@ -1424,34 +1523,45 @@ def layernorm_bwd_phase(ops, timer):
         "(worst rel L2 of dx, dscale, dbias: " + ", ".join(
             f"{dt} {r:.3e}" for dt, r in worst.items()) + ")")
     out = None
-    for dtype in (torch.float16, torch.bfloat16):
-        for rows, d in LN_BWD_PATH:
+    lib = torch.ops.aten.native_layer_norm_backward
+    for dtype in DTYPES:
+        for rows, d in LN_BWD_SHAPES:
             dy, x, sc, bi, mean, rstd = inputs((rows, d), dtype, dtype)
             args = (dy, x, sc, mean, rstd)
             got = ops.layernorm_bwd(*args)
-            err = held_bwd(f"layernorm_bwd ({rows}, {d}) {dtype}", got,
-                           ops.layernorm_bwd(*args, impl="torch"), dtype,
-                           worst)
-            check_same_bits(f"layernorm_bwd ({rows}, {d}) {dtype}", got,
-                            ops.layernorm_bwd(*args))
-            times = timer.times(lambda: ops.layernorm_bwd(*args))
+            tag = f"layernorm_bwd ({rows}, {d}) {dtype}"
+            err = held_bwd(tag, got, ops.layernorm_bwd(*args, impl="torch"),
+                           dtype, worst)
+            check_same_bits(tag, got, ops.layernorm_bwd(*args))
+            if dtype == torch.float32:
+                continue
+            buf = torch.empty_like(x)
+            run = lambda: ops.layernorm_bwd(*args)
+            res = yardstick_times(
+                timer, run, lambda: torch.add(x, dy, out=buf),
+                lambda: lib(dy, x, [d], mean.view(rows, 1),
+                            rstd.view(rows, 1), sc, bi, [True, True, True]))
+            parts = device_split(timer, run, ("layernorm_bwd", "colsum"))
             plain_ms = timer.ms(lambda: ops.layernorm_bwd(*args,
                                                           impl="torch"))
-            lib = torch.ops.aten.native_layer_norm_backward
-            lib_ms = timer.ms(lambda: lib(dy, x, [d], mean.view(rows, 1),
-                                          rstd.view(rows, 1), sc, bi,
-                                          [True, True, True]))
             # x and dy read, dx written, scale read, mean and rstd read,
             # dscale and dbias written; 13 fp32 operations an element
-            nbytes = 3 * x.numel() * 2 + 3 * d * 2 + 2 * rows * 4
+            item = x.element_size()
+            nbytes = 3 * x.numel() * item + 3 * d * item + 2 * rows * 4
             bd = bound(nbytes, 13 * x.numel(), torch.float32)
-            ms = float(np.mean(times))
-            log(f"layernorm_bwd ({rows}, {d}) {dtype}: max err {err:.3e}, "
-                f"two launches the same bits, kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, native_layer_norm_backward {lib_ms:.4f} "
-                f"ms, bound {bd[0]:.4f} ms ({bd[1]}); kernel {spread(times)}")
-            out = entry("layernorm_bwd", "layernorm.cu", "layernorm.py:40",
-                        err, ms, plain_ms, *bd, lib_ms)
+            ms = float(np.mean(res["times"]))
+            log(f"{tag}: max err {err:.3e}, two launches the same bits, "
+                f"kernel {ms:.4f} ms (launches apart, profiler: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts.items()) +
+                f"), plain {plain_ms:.4f} ms, native_layer_norm_backward "
+                f"{res['write']['library']:.4f} ms, bound {bd[0]:.4f} ms "
+                f"({bd[1]}), tiles {ln.bwd_tiles(rows)}; kernel "
+                f"{spread(res['times'])}; "
+                + yardstick_log(res, "torch.add", "native_layer_norm_bwd"))
+            if (rows, d, dtype) == (2 * TRAIN_ROWS, D_MODEL, torch.bfloat16):
+                out = entry("layernorm_bwd", "layernorm.cu",
+                            "layernorm.py:40", err, ms, plain_ms, *bd,
+                            res["write"]["library"])
     return out
 
 
@@ -1708,21 +1818,22 @@ def bwd_hold_inputs(api, ts, TrainConfig, InputShape, make_policy, cfg):
     return state, batch, tcfg, pol
 
 
-def bwd_hold(ops, ts, cfg, state, batch, tcfg, pol) -> dict:
-    """One gradient step with every call of a backward kernel (BWD_HELD)
-    held against the plain version on that call's inputs (elementwise TOL
-    and relative L2 CALL_REL_L2_BOUND); ``check_calls`` judges the
-    readings."""
-    record = {k: [] for k in BWD_HELD}
+def bwd_hold(ops, ts, cfg, state, batch, tcfg, pol,
+             held=BWD_HELD) -> dict:
+    """One gradient step with every call of a kernel of ``held`` (by
+    default the backward kernels, BWD_HELD) held against the plain version
+    on that call's inputs (elementwise TOL and relative L2
+    CALL_REL_L2_BOUND); ``check_calls`` judges the readings."""
+    record = {k: [] for k in held}
     with held_against_plain(ops, record, {k: (None, False)
-                                          for k in BWD_HELD}):
+                                          for k in held}):
         ts.step_gradients(state, batch, cfg=cfg, tcfg=tcfg, policy=pol)
         torch.cuda.synchronize()
     res = {"dtype": pol.compute_dtype, **call_summary(record)}
     log(f"phase-2 backward hold {pol.compute_dtype}: " + ", ".join(
         f"{k} {res['calls_outside'][k]}/{res['calls'][k]} calls outside, "
         f"max err {res['call_max_err'][k]:.3e}, max rel L2 "
-        f"{res['call_max_rel'][k]:.3e}" for k in BWD_HELD))
+        f"{res['call_max_rel'][k]:.3e}" for k in held))
     return res
 
 
@@ -1789,8 +1900,8 @@ def check_train_parity(res: dict) -> None:
 
 
 def main(argv=None) -> int:
-    only_kernels = (argv if argv is not None else sys.argv[1:]) == [
-        "--only", "kernels"]
+    args = argv if argv is not None else sys.argv[1:]
+    only = args[1] if len(args) == 2 and args[0] == "--only" else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1831,6 +1942,11 @@ def main(argv=None) -> int:
     # the largest LAMB leaf group: blocks.mlp.wi (and .wo), 24 x 1024 x 4096
     largest = bert.n_layers * bert.d_model * bert.d_ff
     timer = Timer()
+    if only == "layernorm":
+        layernorm_phase(ops, timer)
+        layernorm_bwd_phase(ops, timer)
+        log("LayerNorm phases only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -1845,7 +1961,7 @@ def main(argv=None) -> int:
     entries.append(wkv6_phase(ops, timer))
     del timer
     torch.cuda.empty_cache()
-    if only_kernels:
+    if only == "kernels":
         log("kernel phases only: no serve or training phase, no result")
         return 2
 

@@ -20,12 +20,21 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_VECTORS_PER_LANE = 32
-# the backward keeps a row's share in registers: at most 8 vectors a lane
-# (d <= 1024 in f32, 2048 in 16 bits)
+# the backward keeps a lane's dscale and dbias sums in registers: at most 8
+# vectors a lane (d <= 1024 in f32, 2048 in 16 bits)
 _MAX_VECTORS_PER_LANE_BWD = 8
-# the backward's row tiles (one block each, one fp32 partial row each):
-# at most MAX_TILES, of at least WARPS_BWD rows (one a warp)
-MAX_TILES, WARPS_BWD = 256, 8
+# The grids are sized for the 132 SMs of an H100 from the row count alone
+# (no device query: the backward's order of sums, and with it its bits,
+# must not depend on the card).  The forward: blocks of FWD_WARPS warps,
+# about FWD_WARPS_PER_SM warps an SM in one wave.  The backward: blocks of
+# WARPS_BWD warps (one tile of rows each, one fp32 partial row each), about
+# BWD_BLOCKS_PER_SM blocks an SM in one wave.  Both chosen by timing on the
+# card (PERF.md): at the training shapes one backward block an SM with
+# twice the rows a warp beat two blocks, and 8 to 48 forward warps an SM
+# were within a few per cent of each other.
+SMS = 132
+FWD_WARPS, FWD_WARPS_PER_SM = 4, 16
+WARPS_BWD, BWD_BLOCKS_PER_SM = 8, 1
 
 launches = 0       # forward launches in this process (see ops.launch_counts)
 launches_bwd = 0   # backward launches (one a call: both of its kernels)
@@ -36,7 +45,7 @@ def _fn():
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                       ctypes.c_float, ptr]
+                       ctypes.c_float, i32, ptr]
         fn.restype = i32
     return fn
 
@@ -84,11 +93,23 @@ def _check(what, x, params, max_vectors):
     return x.numel() // d, d, nv
 
 
+def fwd_plan(rows: int):
+    """(blocks, rows a warp) of the forward over ``rows`` rows: each warp
+    the same number of consecutive rows, as few as fill about one wave of
+    FWD_WARPS_PER_SM warps on each of SMS SMs (one row a warp below that,
+    so a small call launches only the blocks its rows need)."""
+    rpw = max(1, -(-rows // (SMS * FWD_WARPS_PER_SM)))
+    return -(-rows // (FWD_WARPS * rpw)), rpw
+
+
 def bwd_tiles(rows: int):
-    """(tiles, rows a tile) of the backward over ``rows`` rows: at most
-    MAX_TILES tiles of at least WARPS_BWD rows.  A function of the shape
-    alone, so the order of every sum is too."""
-    tile = max(WARPS_BWD, -(-rows // MAX_TILES))
+    """(tiles, rows a tile) of the backward over ``rows`` rows: tiles of
+    WARPS_BWD warps with the same number of consecutive rows each, as few
+    as fill about one wave of BWD_BLOCKS_PER_SM blocks on each of SMS SMs.
+    A function of the row count alone, so the order of every sum is
+    too."""
+    tile = WARPS_BWD * max(1, -(-rows // (SMS * BWD_BLOCKS_PER_SM
+                                          * WARPS_BWD)))
     return -(-rows // tile), tile
 
 
@@ -106,7 +127,8 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     err = _fn()(_DTYPES[x.dtype], _DTYPES[scale.dtype], nv, x.data_ptr(),
                 scale.contiguous().data_ptr(), bias.contiguous().data_ptr(),
                 y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, d,
-                float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+                float(eps), fwd_plan(rows)[1],
+                torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "layernorm")
     launches += 1
     return y, mean, rstd

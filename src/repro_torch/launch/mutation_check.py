@@ -22,15 +22,18 @@ inside the code of one source that the main paths run:
   splits: the combine adds partials on every paged call there.
 * ``BWD_MUTATIONS`` edit the 16-bit route of ``csrc/flash_bwd.cu`` (the
   fused main pass and the post-pass that adds its dQ partials in a fixed
-  order), ``LN_BWD_MUTATIONS`` the LayerNorm backward of
-  ``csrc/layernorm.cu`` and ``GELU_BWD_MUTATIONS`` the bias-GELU backward
-  of ``csrc/bias_gelu.cu``: the backwards that training runs.  Each copy
-  runs ``chip_smoke.bwd_hold``: one bf16 gradient step of full-width
-  bert-large on a phase-2 batch (8 x 512 tokens: four KV tiles of 128 keys,
-  so the flash backward's dQ partials are added) with every call of each
-  backward kernel held against the plain version on its inputs, judged by
-  ``chip_smoke.check_calls`` as chip_smoke.py judges it: elementwise TOL
-  and relative L2 ``CALL_REL_L2_BOUND``.
+  order), ``LN_MUTATIONS`` the LayerNorm forward and backward of
+  ``csrc/layernorm.cu`` (their rings of rows, the forward's variance, the
+  backward's sums) and ``GELU_BWD_MUTATIONS`` the bias-GELU backward of
+  ``csrc/bias_gelu.cu``: the row kernels and backwards that training runs.
+  Each copy runs ``chip_smoke.bwd_hold``: one bf16 gradient step of
+  full-width bert-large on a phase-2 batch (8 x 512 tokens: four KV tiles
+  of 128 keys, so the flash backward's dQ partials are added; 4096
+  LayerNorm rows, two a warp in the forward) with every call of each
+  backward kernel and of the LayerNorm forward held against the plain
+  version on its inputs, judged by ``chip_smoke.check_calls`` as
+  chip_smoke.py judges it: elementwise TOL and relative L2
+  ``CALL_REL_L2_BOUND``.
 
 For the unchanged sources and for each mutation, this writes the source
 under ``build/mutants/<name>/``, builds it, loads it in place of the real
@@ -83,9 +86,24 @@ BWD_MUTATIONS = {
     "dq_partial_skipped": ("for (int t = lo; t < hi; ++t)",
                            "for (int t = lo + 1; t < hi; ++t)"),
 }
-LN_BWD_MUTATIONS = {
+LN_MUTATIONS = {
+    # the forward reads the ring's next stage, not the row it waited for
+    "fwd_ring_slot_off_by_one": ("ring + (k % stages) * rowb)",
+                                 "ring + ((k + 1) % stages) * rowb)"),
+    # the forward leaves each warp's last row out
+    "fwd_warp_last_row_dropped": ("for (int k = 0; k < n; ++k) {",
+                                  "for (int k = 0; k < n - 1; ++k) {"),
+    # the variance summed from unsquared deviations
+    "variance_unsquared": ("sq += dev * dev;", "sq += dev;"),
     # dscale summed as dy alone (dbias) instead of dy * xhat
     "dscale_as_dbias": ("ds[i][e] += gv[e] * h;", "ds[i][e] += gv[e];"),
+    # the backward reads the ring's next stage, not the row it waited for
+    "bwd_ring_slot_off_by_one": (
+        "const unsigned char* st = ring + (k % stages) * stageb;",
+        "const unsigned char* st = ring + ((k + 1) % stages) * stageb;"),
+    # warp 1's dscale and dbias sums left out of the block's partial row
+    "warp1_sums_dropped": ("for (int w = 1; w < BW; ++w) {",
+                           "for (int w = 2; w < BW; ++w) {"),
 }
 GELU_BWD_MUTATIONS = {
     # the tanh term of GELU's derivative taken with the wrong sign
@@ -96,11 +114,14 @@ SOURCES = {
     "flash_fwd": ("flash_fwd_hopper_kernel(const", MUTATIONS),
     "paged_decode": ("paged_decode_split_kernel(Args", PAGED_MUTATIONS),
     "flash_bwd": ("// 16-bit main pass at Dh 64: warpgroup", BWD_MUTATIONS),
-    "layernorm": ("layernorm_bwd_kernel(const", LN_BWD_MUTATIONS),
+    "layernorm": ("layernorm_kernel(const", LN_MUTATIONS),
     "bias_gelu": ("bias_gelu_bwd_kernel(const", GELU_BWD_MUTATIONS),
 }
-# the sources whose mutants the backward hold judges
+# the sources whose mutants the backward hold judges, and the kernels it
+# holds: the backwards and the LayerNorm forward
 BWD_SOURCES = ("flash_bwd", "layernorm", "bias_gelu")
+BWD_HOLD = ("flash_attention_bwd", "layernorm_fwd", "layernorm_bwd",
+            "bias_gelu_bwd")
 
 
 def mutate(source: str, edit, body: str) -> str:
@@ -146,13 +167,13 @@ def paged_check(smoke, T, serve_step, ops, cfg, params, pol) -> dict:
 
 
 def backward_check(smoke, ops, ts, cfg, state, batch, tcfg, pol) -> dict:
-    res = smoke.bwd_hold(ops, ts, cfg, state, batch, tcfg, pol)
+    res = smoke.bwd_hold(ops, ts, cfg, state, batch, tcfg, pol, BWD_HOLD)
     try:
         smoke.check_calls("phase-2 backward hold", res)
         fails = False
     except AssertionError:
         fails = True
-    return {**{f"{k}_{field}": res[key][k] for k in smoke.BWD_HELD
+    return {**{f"{k}_{field}": res[key][k] for k in BWD_HOLD
                for field, key in (("calls", "calls"),
                                   ("calls_outside", "calls_outside"),
                                   ("call_max_rel_l2", "call_max_rel"))},

@@ -13,8 +13,8 @@ deepseek-7b: fills the slots with 1024-token prompts through
 unmasked prefill of batch x 1024 tokens (24 ``wkv6`` launches), all on one
 state.  Then ``--steps`` decode steps of the slots.  For each phase it prints one JSON line: wall
 time (host clock around an unprofiled loop that ends in a synchronize),
-device busy time (sum of the CUDA kernels' durations in the trace of a
-second, profiled loop), the idle share (1 - busy / wall), the device time
+device busy time (the union of the CUDA kernels' spans in the trace of a
+second, profiled loop; their summed durations beside it), the idle share (1 - busy / wall), the device time
 by kind of kernel (the port's own, GEMMs, elementwise and copies,
 reductions, other), each of the port's kernels' time and share of busy,
 and the kernels that took the most device time.
@@ -38,9 +38,25 @@ from repro_torch.serve.serve_step import prefill_into_slot
 BATCH, PROMPT_LEN, PAGE_SIZE, SEED = 4, 1024, 16, 0
 
 
+def _busy_ms(prof):
+    """Device ms during which at least one CUDA event of the trace ran:
+    the union of their spans, so a kernel that overlaps another (a
+    programmatic dependent launch waits under the kernel it depends on)
+    counts once."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
 def _kernel_times(prof):
     """(total device ms, [(kernel name, ms, count)] by device time) over
-    the CUDA kernel events of a trace."""
+    the CUDA kernel events of a trace; the total sums the events' spans
+    (``_busy_ms`` counts overlapping ones once)."""
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -91,14 +107,15 @@ def _phase(name, fn, iters, extra=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy, rows = _kernel_times(prof)
-    busy /= iters
+    summed, rows = _kernel_times(prof)
+    busy = _busy_ms(prof) / iters
     port = {}
     for kname, ms, _ in rows:
         key = next((k for k in PORT_KERNELS if k in kname), None)
         if key is not None:
             port[key] = port.get(key, 0.0) + ms / iters
     out = {"phase": name, "wall_ms": wall, "device_busy_ms": busy,
+           "kernel_ms_summed": summed / iters,
            "idle_share": 1.0 - busy / wall if wall else None,
            "device_ms_by_kind": _by_kind(rows, iters),
            "port_kernel_ms": port,

@@ -11,8 +11,10 @@ accumulation 2, phase 1 at a global batch of 128 x 128 tokens, phase 2 at
 64 x 512 (synthetic batches from ``api.make_synth_batch``).  For each
 phase it prints one JSON line, as ``profile_serve.py`` does: wall time per
 step (host clock around an unprofiled loop that ends in a synchronize),
-device busy time (the sum of the CUDA kernels' durations in the trace of a
-second, profiled loop), the idle share (1 - busy / wall), the device time
+device busy time (the time during which at least one CUDA kernel of the
+trace of a second, profiled loop ran: the column sum of the LayerNorm
+backward is a programmatic dependent launch whose span overlaps the
+kernel it waits for, so summed durations would count that twice), the idle share (1 - busy / wall), the device time
 by kind of kernel, the kernels that took the most device time, the device
 time of each autograd function's backward, and how the LayerNorm
 backward's time splits: under non-reentrant checkpoint the first

@@ -706,13 +706,14 @@ def test_row_bwd_wrappers_refuse(kernel, case):
 
 
 def test_layernorm_bwd_tiles():
-    """The LayerNorm backward's row tiles: at most 256 (one fp32 partial
-    row each, summed in tile order), of at least 8 rows (one a warp); a
+    """The LayerNorm backward's row tiles: at most 132 (one wave of one
+    block an SM on an H100; one fp32 partial row each, summed in tile
+    order), each 8 warps of the same number of consecutive rows; a
     function of the row count alone, so the order of every sum is too."""
-    assert tln.bwd_tiles(16384) == (256, 64)     # phase 2: 32 x 512
-    assert tln.bwd_tiles(8192) == (256, 32)      # phase 1: 64 x 128
-    assert tln.bwd_tiles(2560) == (256, 10)      # MLM head, phase 2
-    assert tln.bwd_tiles(1280) == (160, 8)       # MLM head, phase 1
+    assert tln.bwd_tiles(16384) == (128, 128)    # phase 2: 32 x 512
+    assert tln.bwd_tiles(8192) == (128, 64)      # phase 1: 64 x 128
+    assert tln.bwd_tiles(2560) == (107, 24)      # MLM head, phase 2
+    assert tln.bwd_tiles(1280) == (80, 16)       # MLM head, phase 1
     assert tln.bwd_tiles(7) == (1, 8)
 
 
