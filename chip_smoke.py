@@ -77,11 +77,17 @@
    inputs give the same bits.
 6. wkv6 kernel phase: the RWKV-6 recurrence against its plain version at
    the CPU tests' cases (s, chunk) in {(128, 32), (256, 64), (64, 64),
-   (32, 64)} plus chunks of 6 and 60 rows, f32 and bf16 inputs, inputs
-   read through strides, and the strong-decay case (logw = -50), within
-   rtol = atol = 1e-4 and relative L2 1e-4; then timed at the raw
-   prefill's shape (4, 1024, 32, 64) bf16 beside the plain version and
-   the bound (no single PyTorch call computes it).
+   (32, 64)} plus chunks of 6 and 60 rows (one chunk) and two chunks of
+   60, f32 and bf16 inputs, inputs read through strides and one element
+   off the 16-byte grid, and strong decay (logw = -50 in chunks of 16 and
+   64, -100 in chunks of 64), each on both grids (1 and 2 blocks a head),
+   within rtol = atol = 1e-4 and relative L2 1e-4; then the raw prefill's
+   shapes (4, 1024, 32, 64) and (1, 1024, 32, 64) bf16, each held the same
+   way and launched twice for the same bits, timed on the plan's grid and
+   on the other (held there too) beside the plain version and the bound
+   (no single PyTorch call computes it; the first port's operation count
+   logged beside the sub-chunk form's), the kernel's ptxas registers
+   logged.
 7. RWKV serve phases, after the deepseek phases have freed their memory:
    full-width, full-depth rwkv6-1.6b in bf16 with seeded random weights.
    The serve CLI's raw mode (batch 4, 1024-token prompts, 16 new tokens):
@@ -119,8 +125,9 @@
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
-kernel), ``--only layernorm`` after the build and the two LayerNorm phases
-(exit 2, no result line either way); without arguments everything runs.
+kernel), ``--only layernorm`` after the build and the two LayerNorm phases,
+``--only wkv6`` after the build and the wkv6 phase (exit 2, no result line
+in each case); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -662,9 +669,10 @@ def paged_phase(ops, timer):
     return entries
 
 
-# the wkv6 path shape: the full-width raw prefill, batch 4 x 1024 tokens,
-# 32 heads of 64, chunks of 64
+# the wkv6 path shapes: the full-width raw prefill, batch 4 (the serve
+# geometry) and batch 1 x 1024 tokens, 32 heads of 64, chunks of 64
 WKV_PATH = (BATCH, PREFILL_LEN, 32, 64)
+WKV_PATH_B1 = (1, PREFILL_LEN, 32, 64)
 WKV_CHUNK = 64
 # kernel vs plain, both fp32 arithmetic on the same inputs: elementwise
 # rtol = atol and relative L2 (the reference test's 1e-4)
@@ -681,9 +689,10 @@ def wkv6_inputs(gen, b, s, h, hs=64, dtype=torch.float32):
     return r, k, v, logw, (0.5 * n(h, hs)).to(dtype), 0.1 * n(b, h, hs, hs)
 
 
-def wkv6_check(ops, tag, args, chunk) -> float:
+def wkv6_check(ops, tag, args, chunk, relaunch=False) -> float:
     """Kernel against plain on ``args`` within WKV_TOL (elementwise and
-    relative L2) for o and s_final; returns the max abs error."""
+    relative L2) for o and s_final, and with ``relaunch`` the same bits from
+    a second launch; returns the max abs error."""
     got = ops.wkv6(*args, chunk=chunk)
     want = ops.wkv6(*args, chunk=chunk, impl="torch")
     torch.cuda.synchronize()
@@ -698,72 +707,193 @@ def wkv6_check(ops, tag, args, chunk) -> float:
                                  f"{WKV_TOL} or rel L2 {rel:.3e} > "
                                  f"{WKV_TOL} (max abs err {err:.3e})")
         errs.append(err)
+    if relaunch:
+        check_same_bits(tag, got, ops.wkv6(*args, chunk=chunk))
     return max(errs)
 
 
 def wkv6_bound(r, u, chunk):
-    """(bound ms, by, operations, exponentials) of one launch on these
-    inputs.  Bytes: r, k, v and u in their dtypes, logw and o in fp32, s0
-    and s_final.  Operations per (b, h, chunk of L): the lower-triangle
-    scores (sub, two multiplies, add per (i, j < i, c)), the bonus, the
-    scores times V over the L (L + 1) / 2 pairs j <= i (the bonus sits on
-    the diagonal), the two L x hs x hs products (r with the carried state,
-    the decayed k with V), the cumsum and the decay folds, the state's
-    decay (one multiply per element; its add is the product's), and one
-    per exponential; at the fp32 peak."""
+    """The sub-chunk form's work in one launch on these inputs: (bound ms,
+    by, {"bytes", "tf32_flops", "fp32_ops", "exps", "old_ops"}).
+
+    Bytes: r, k, v and u in their dtypes, logw and o in fp32, s0 and
+    s_final.  Per (b, h, chunk of L rows) in sub-chunks of 16: the
+    exponentials (one per (i, j < i, c) in the diagonal blocks, one per
+    element of r_I * e^{c_prev_I - c_ref}, of k_J * e^{c_ref - c_J} for each
+    later sub-chunk, of r * e^{c_prev} and k * e^{c_L - c}, and e^{c_L});
+    the products as the kernel runs them in 3xTF32 on tensor cores (three
+    TF32 products each, two where v is bf16 and so exact in TF32): the off-
+    diagonal scores, the scores times V over the blocks on and below the
+    diagonal, (r * e^{c_prev}) S and the state update; the fp32 operations
+    on CUDA cores (four a diagonal (pair, channel): difference, clamp,
+    two multiply-adds; two a bonus channel; two a factor element; the
+    cumulative sum).  Rates: 3.35 TB/s, 495 TFLOP/s TF32 dense, 67 TFLOP/s
+    fp32 with an exponential counted as one operation; the bound is the
+    largest of the three times.  ``old_ops`` is the first port's count
+    (the full lower triangle, one exponential per (i, j < i, c), all at the
+    fp32 peak), kept to compare."""
     b, s, h, hs = r.shape
     el = r.numel()
     nbytes = 3 * el * r.element_size() + 2 * el * 4 \
         + h * hs * u.element_size() + 2 * b * h * hs * hs * 4
-    nl = chunk
-    pairs = nl * (nl - 1) // 2
-    exps = pairs * hs + 2 * nl * hs + hs
-    flops = 4 * pairs * hs + 3 * nl * hs + 2 * (pairs + nl) * hs \
-        + 2 * 2 * nl * hs * hs + 5 * nl * hs + hs * hs
+    nl, sub = chunk, 16
+    rows = [min(sub, nl - lo) for lo in range(0, nl, sub)]
+    diag_pairs = sum(n * (n - 1) // 2 for n in rows)
+    later = nl - rows[0]                       # rows of sub-chunks I >= 1
+    earlier = sum(sub * i * n for i, n in enumerate(rows))  # 16 I x rows
+    factors = later * hs + sum(sub * i for i in range(len(rows))) * hs \
+        + 2 * nl * hs + hs
+    exps = diag_pairs * hs + factors
+    vt = 2 if r.dtype == torch.bfloat16 else 3
+    below = sum(n * (sum(rows[:i]) + n) for i, n in enumerate(rows))
+    tf32 = 2 * (3 * earlier * hs + vt * below * hs + 3 * nl * hs * hs
+                + vt * nl * hs * hs)
+    fp32 = 4 * diag_pairs * hs + 2 * nl * hs + 2 * factors + nl * hs
     n = b * h * (s // nl)
-    ms, by = bound(nbytes, n * (flops + exps), torch.float32)
-    return ms, by, n * (flops + exps), n * exps
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = n * tf32 / 495e12 * 1e3
+    t_ops = n * (fp32 + exps) / PEAK_FLOPS[torch.float32] * 1e3
+    ms = max(t_bytes, t_tc, t_ops)
+    by = "bytes" if ms == t_bytes else "operations"
+    pairs = nl * (nl - 1) // 2
+    old = pairs * hs + 2 * nl * hs + hs + 4 * pairs * hs + 3 * nl * hs \
+        + 2 * (pairs + nl) * hs + 2 * 2 * nl * hs * hs + 5 * nl * hs + hs * hs
+    return ms, by, {"bytes": nbytes, "tf32_flops": n * tf32,
+                    "fp32_ops": n * fp32, "exps": n * exps,
+                    "old_ops": n * old,
+                    "old_ms": max(t_bytes, n * old / PEAK_FLOPS[
+                        torch.float32] * 1e3)}
 
 
-def wkv6_phase(ops, timer):
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+def wkv6_registers(build) -> str:
+    """Registers and spill store bytes of each ``wkv6_kernel``
+    instantiation (element type, value columns a block) in ptxas's report
+    of the last build."""
+    out = []
+    for name, (regs, spill) in sorted(ptxas_registers(
+            build, "wkv6", "wkv6_kernel").items()):
+        nc = re.search(r"Li(\d+)E", name)
+        out.append(f"wkv6_kernel<{'bf16' if 'bfloat16' in name else 'f32'}, "
+                   f"{nc.group(1) if nc else '?'}> {regs} ({spill} B "
+                   "spilled)")
+    return "; ".join(out)
+
+
+@contextlib.contextmanager
+def wkv6_grid(kw, n):
+    """``kernels/wkv6.py`` ``plan`` forced to ``n`` blocks a head while the
+    block runs (``n`` None: the plan left as it is)."""
+    if n is None:
+        yield
+        return
+    plan, kw.plan = kw.plan, (lambda b, h: n)
+    try:
+        yield
+    finally:
+        kw.plan = plan
+
+
+def wkv6_small_cases(ops, gen, tag) -> int:
+    """The small wkv6 cases held against the plain version (raises on the
+    first outside WKV_TOL); returns their count."""
     cases = 0
-    # the CPU tests' cases, a chunk of L % 4 != 0 rows, bf16 inputs, and
-    # inputs read through strides (views of a wider activation)
     for s, chunk in ((128, 32), (256, 64), (64, 64), (32, 64), (6, 64),
-                     (60, 64)):
+                     (60, 64), (120, 60)):
         for dtype in (torch.float32, torch.bfloat16):
             args = wkv6_inputs(gen, 2, s, 2, dtype=dtype)
-            wkv6_check(ops, f"wkv6 {dtype} s={s} chunk={chunk}", args, chunk)
+            wkv6_check(ops, f"wkv6 {tag} {dtype} s={s} chunk={chunk}", args,
+                       chunk)
             cases += 1
     wide = torch.randn(2, 128, 3, 2, 64, generator=gen, device=DEVICE)
     args = wkv6_inputs(gen, 2, 128, 2)
     args = (wide[:, :, 0], wide[:, :, 1], wide[:, :, 2]) + args[3:]
-    wkv6_check(ops, "wkv6 strided r, k, v", args, 64)
-    # strong decay (tests/test_kernels.py:166): logw = -50 everywhere
-    b, s, h, hs = 1, 64, 1, 64
-    one = torch.ones(b, s, h, hs, device=DEVICE)
-    wkv6_check(ops, "wkv6 strong decay", (
-        one, one, one, torch.full_like(one, -50.0),
-        torch.zeros(h, hs, device=DEVICE),
-        torch.zeros(b, h, hs, hs, device=DEVICE)), 16)
-    cases += 2
-    log(f"wkv6 small cases: {cases} agree with the plain version "
-        f"(rtol = atol = rel L2 = {WKV_TOL})")
+    wkv6_check(ops, f"wkv6 {tag} strided r, k, v", args, 64)
+    # rows one element off the 16-byte grid: the kernel's plain loads
+    for dtype in (torch.float32, torch.bfloat16):
+        args = wkv6_inputs(gen, 2, 128, 2, dtype=dtype)
+        odd = tuple(torch.randn(2, 128, 2, 65, generator=gen, device=DEVICE)
+                    .to(dtype)[..., 1:] for _ in range(3))
+        wkv6_check(ops, f"wkv6 {tag} {dtype} r, k, v one element off 16 "
+                   "bytes", odd + args[3:], 64)
+    # strong decay (tests/test_kernels.py:166): logw = -50 everywhere, and
+    # -100, where a factor e^{+100} would overflow fp32
+    for s, chunk, w in ((64, 16, -50.0), (256, 64, -50.0), (256, 64, -100.0)):
+        one = torch.ones(1, s, 1, 64, device=DEVICE)
+        wkv6_check(ops, f"wkv6 {tag} strong decay {w} chunk {chunk}", (
+            one, one, one, torch.full_like(one, w),
+            torch.zeros(1, 64, device=DEVICE),
+            torch.zeros(1, 1, 64, 64, device=DEVICE)), chunk)
+    return cases + 6
 
-    args = wkv6_inputs(gen, *WKV_PATH, dtype=torch.bfloat16)
-    err = wkv6_check(ops, f"wkv6 path shape {WKV_PATH}", args, WKV_CHUNK)
-    times = timer.times(lambda: ops.wkv6(*args, chunk=WKV_CHUNK))
-    ms = float(np.mean(times))
-    plain_ms = timer.ms(lambda: ops.wkv6(*args, chunk=WKV_CHUNK,
-                                         impl="torch"), iters=5)
-    bd_ms, by, n_ops, n_exp = wkv6_bound(args[0], args[4], WKV_CHUNK)
-    log(f"wkv6 {WKV_PATH} bf16 r/k/v, chunk {WKV_CHUNK}: max err {err:.3e}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd_ms:.4f} ms "
-        f"({by}: {n_ops / 1e9:.3f} G operations, of which {n_exp / 1e9:.3f} "
-        f"G exponentials), no single PyTorch call; kernel {spread(times)}")
-    return entry("wkv6", "wkv6.cu", "wkv6.py:98", err, ms, plain_ms, bd_ms,
-                 by, None)
+
+def wkv6_holds(ops) -> dict:
+    """Every wkv6 case held against the plain version (raises on the first
+    outside WKV_TOL): on each grid of ``kernels/wkv6.py`` ``plan`` (1 and 2
+    blocks a head, forced), the CPU tests' (s, chunk) cases plus chunks of
+    6 and 60 rows (a short last sub-chunk), in f32 and bf16; r, k, v read
+    through strides, and one element off the 16-byte grid in f32 and bf16;
+    strong decay (logw = -50 everywhere) in chunks of 16 and 64, and -100
+    in chunks of 64 (e^{+100} would overflow fp32: a factor with a positive
+    exponent shows); then the two path shapes in bf16 on the plan's grid,
+    each launched twice for the same bits.  Returns {"cases", "path":
+    {shape: (args, max err)}}."""
+    from repro_torch.kernels import wkv6 as kw
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    grids = (1, 2) if hasattr(kw, "plan") else (None,)
+    cases = 0
+    for n in grids:
+        with wkv6_grid(kw, n):
+            cases += wkv6_small_cases(ops, gen, f"grid {n}")
+    log(f"wkv6 small cases: {cases} agree with the plain version on grids "
+        f"{list(grids)} (rtol = atol = rel L2 = {WKV_TOL})")
+    path = {}
+    for shape in (WKV_PATH, WKV_PATH_B1):
+        args = wkv6_inputs(gen, *shape, dtype=torch.bfloat16)
+        path[shape] = (args, wkv6_check(ops, f"wkv6 path shape {shape}",
+                                        args, WKV_CHUNK, relaunch=True))
+    log(f"wkv6 path shapes {list(path)} bf16: within {WKV_TOL} of the plain "
+        "version, the same bits on relaunch")
+    return {"cases": cases, "path": path}
+
+
+def wkv6_phase(ops, timer):
+    """``wkv6_holds``, then each path shape timed as the path calls it
+    (``ops.wkv6``: the grid of ``kernels/wkv6.py`` ``plan``) and, held
+    first, on the other grid (1 or 2 blocks a head, the plan forced;
+    skipped in a tree without the plan), beside the plain version and the
+    bound (no single PyTorch call computes it); the kernel's ptxas
+    registers logged."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import wkv6 as kw
+    holds = wkv6_holds(ops)
+    log(f"wkv6 ptxas: {wkv6_registers(build)}")
+    for shape, (args, err) in holds["path"].items():
+        times = timer.times(lambda: ops.wkv6(*args, chunk=WKV_CHUNK))
+        ms = float(np.mean(times))
+        other = ""
+        if hasattr(kw, "plan"):
+            n = 3 - kw.plan(shape[0], shape[2])
+            with wkv6_grid(kw, n):
+                e = wkv6_check(ops, f"wkv6 path shape {shape} grid {n}",
+                               args, WKV_CHUNK)
+                t = timer.times(lambda: ops.wkv6(*args, chunk=WKV_CHUNK))
+            other = (f"; plan {3 - n} blocks a head, {n}: "
+                     f"{float(np.mean(t)):.4f} ms (max err {e:.3e})")
+        bd_ms, by, work = wkv6_bound(args[0], args[4], WKV_CHUNK)
+        plain_ms = timer.ms(lambda: ops.wkv6(*args, chunk=WKV_CHUNK,
+                                             impl="torch"), iters=5)
+        log(f"wkv6 {shape} bf16 r/k/v, chunk {WKV_CHUNK}: kernel {ms:.4f} "
+            f"ms ({spread(times)}){other}; plain {plain_ms:.4f} ms; max err "
+            f"{err:.3e}; bound {bd_ms:.4f} ms ({by}: "
+            f"{work['bytes'] / 1e6:.1f} MB, {work['tf32_flops'] / 1e9:.3f} G "
+            f"TF32 flops, {work['fp32_ops'] / 1e9:.3f} G fp32 operations and "
+            f"{work['exps'] / 1e6:.1f} M exponentials; the first port's "
+            f"count {work['old_ops'] / 1e9:.3f} G operations, "
+            f"{work['old_ms']:.4f} ms)")
+        if shape == WKV_PATH:
+            res = entry("wkv6", "wkv6.cu", "wkv6.py:98", err, ms, plain_ms,
+                        bd_ms, by, None)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1946,6 +2076,10 @@ def main(argv=None) -> int:
         layernorm_phase(ops, timer)
         layernorm_bwd_phase(ops, timer)
         log("LayerNorm phases only: no other phase, no result")
+        return 2
+    if only == "wkv6":
+        wkv6_phase(ops, timer)
+        log("wkv6 phase only: no other phase, no result")
         return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)

@@ -322,3 +322,97 @@ def wkv6_ref(r, k, v, logw, u, s0, *, chunk: int = 64):
         outs.append(o)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, hs)
     return o, state
+
+
+WKV_SUB = 16   # rows of a sub-chunk in the card kernel's factorisation
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) cut to TF32 (sign, exponent and the top 10 mantissa
+    bits): what a tensor core reads of a float32 operand of a TF32 product,
+    and the big part of the card kernel's split."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, mode):
+    """a @ b in float32 with the operands as the card's tensor-core
+    products read them: ``None`` exact, ``"1x"`` each operand cut to TF32
+    once, ``"3x"`` the kernel's split a_small b_big + a_big b_small + a_big
+    b_big, where x_big = tf32(x) and x_small = tf32(x - x_big)."""
+    if mode is None:
+        return a @ b
+    ab, bb = tf32(a), tf32(b)
+    if mode == "1x":
+        return ab @ bb
+    if mode != "3x":
+        raise ValueError(f"tf32 must be None, '1x' or '3x', got {mode!r}")
+    return tf32(a - ab) @ bb + ab @ tf32(b - bb) + ab @ bb
+
+
+def wkv6_subchunk_ref(r, k, v, logw, u, s0, *, chunk: int = 64,
+                      sub: int = WKV_SUB, rounding=None):
+    """``wkv6_ref`` in the sub-chunk form of the card's kernel
+    (``csrc/wkv6.cu``): used only by the tests, to hold the kernel's
+    factorisation and its rounding against the reference on the CPU.
+
+    Each chunk of L rows is cut into sub-chunks of ``sub`` rows (the last
+    one shorter when L % sub != 0); c is the inclusive cumulative sum of
+    logw over the chunk and c_prev_i = c_{i-1} (0 for the first row).  For
+    i in sub-chunk I and j in an earlier sub-chunk, with c_ref the c of the
+    last row of sub-chunk I - 1,
+
+        e^{c_prev_i - c_j} = e^{c_prev_i - c_ref} e^{c_ref - c_j},
+
+    both exponents <= 0 (c falls along the chunk), so the off-diagonal
+    scores are one product (r_I * e^{c_prev_I - c_ref}) (k_J * e^{c_ref -
+    c_J})^T.  The diagonal blocks keep one exponential per (i, j < i, c)
+    and the bonus r_i . (u * k_i) on the diagonal.  The products (off-
+    diagonal scores, scores x V, (r * e^{c_prev}) S and the state update)
+    are rounded as ``rounding`` says (see ``_mm_tf32``).  Returns float32
+    (o, s_final) as ``wkv6_ref``."""
+    b, s, h, hs = r.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"wkv6: sequence length {s} is not a multiple of "
+                         f"the chunk {chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+
+    def chunks(t):  # (B, S, H, hs) -> (nc, B, H, L, hs)
+        return t.to(f32).reshape(b, nc, chunk, h, hs).permute(1, 0, 3, 2, 4)
+
+    mm = lambda x, y: _mm_tf32(x, y, rounding)
+    rc, kc, vc, wc = (chunks(t) for t in (r, k, v, logw))
+    uf = u.to(f32)[None, :, None, :]
+    state = s0.to(f32)
+    outs = []
+    for ri, ki, vi, wi in zip(rc, kc, vc, wc):    # (B, H, L, hs) each
+        c = torch.cumsum(wi, dim=2)
+        cp = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], dim=2)
+        scores = torch.zeros(b, h, chunk, chunk, dtype=f32, device=r.device)
+        for lo in range(0, chunk, sub):
+            hi = min(lo + sub, chunk)
+            n = hi - lo
+            diff = cp[:, :, lo:hi, None, :] - c[:, :, None, lo:hi, :]
+            lower = torch.ones(n, n, dtype=torch.bool,
+                               device=r.device).tril(-1)[:, :, None]
+            e = torch.where(lower, torch.exp(torch.minimum(
+                diff, torch.zeros((), device=r.device))),
+                torch.zeros((), device=r.device))
+            blk = (ri[:, :, lo:hi, None, :] * e
+                   * ki[:, :, None, lo:hi, :]).sum(-1)
+            bonus = (ri[:, :, lo:hi] * uf * ki[:, :, lo:hi]).sum(-1)
+            scores[:, :, lo:hi, lo:hi] = blk + torch.diag_embed(bonus)
+            if lo:
+                cref = c[:, :, lo - 1:lo]
+                rt = ri[:, :, lo:hi] * torch.exp(cp[:, :, lo:hi] - cref)
+                kt = ki[:, :, :lo] * torch.exp(cref - c[:, :, :lo])
+                scores[:, :, lo:hi, :lo] = mm(rt, kt.transpose(-1, -2))
+        c_last = c[:, :, -1:]
+        o = mm(scores, vi) + mm(ri * torch.exp(cp), state)
+        k_eff = ki * torch.exp(c_last - c)
+        state = torch.exp(c_last[:, :, 0, :, None]) * state + \
+            mm(k_eff.transpose(-1, -2), vi)
+        outs.append(o)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, hs)
+    return o, state

@@ -5,9 +5,10 @@ Replaces ``repro/kernels/wkv6.py:98`` ``wkv6`` (Pallas kernel
 source.  The wrapper checks what the kernel takes, allocates the outputs,
 launches on PyTorch's current stream and counts the launch.  It passes the
 (B, S, H) strides of r, k, v and logw, so the kernel reads them in place
-(the reference wrapper transposes each to (B*H, S, hs) first).  The plain
-version is ``kernels.ref.wkv6_ref``; ``kernels.ops.wkv6`` picks between
-them by device.
+(the reference wrapper transposes each to (B*H, S, hs) first), and sizes
+the grid from the shapes alone (``plan``).  The plain version is
+``kernels.ref.wkv6_ref``; ``kernels.ops.wkv6`` picks between them by
+device.
 """
 from __future__ import annotations
 
@@ -21,7 +22,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 64
 MAX_CHUNK = 64
 
+# the plan is sized for an H100's 132 SMs, one block an SM
+N_SM = 132
+
 launches = 0   # launches of the kernel in this process (see ops.launch_counts)
+
+
+def plan(b: int, h: int) -> int:
+    """Blocks a (b, h) for B x H heads, from the shapes alone (no device
+    query): 2 -- each block owning 32 of the state's 64 value columns and
+    recomputing the chunk's scores -- where 2 B H blocks still fit one
+    block an SM, else 1 (one block walks a head's chunks).  Two serve
+    rwkv6-1.6b's raw prefill at batch 1 or 2 (32 heads); one its batch 4."""
+    return 2 if 2 * b * h <= N_SM else 1
 
 
 def _fn():
@@ -30,7 +43,7 @@ def _fn():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                        ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32,
-                       ptr]
+                       i32, i32, ptr]
         fn.restype = i32
     return fn
 
@@ -52,8 +65,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"wkv6: {name} is float16; the kernel takes "
                             "float32 or bfloat16 (no serving path is f16: "
                             "only BERT training runs the f16 policy)")
-        if not t.is_cuda:
-            raise ValueError(f"wkv6: {name} is not a CUDA tensor")
+    build.check_cuda("wkv6", **dict(named))
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, u)):
         raise TypeError("wkv6: r, k, v and u must share one dtype, float32 "
                         "or bfloat16")
@@ -87,10 +99,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ins = (r, k, v, logw)
     strides = (ctypes.c_int64 * 12)(*[t.stride(ax) for ax in (0, 1, 2)
                                       for t in ins])
+    aligned = all(t.data_ptr() % 16 == 0 and all(
+        t.stride(ax) * t.element_size() % 16 == 0 for ax in (0, 1, 2))
+        for t in ins)
     err = _fn()(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
                 logw.data_ptr(), u.data_ptr(), s0.data_ptr(), o.data_ptr(),
-                s_final.data_ptr(), strides, b, h, s, chunk,
-                torch.cuda.current_stream(r.device).cuda_stream)
+                s_final.data_ptr(), strides, b, h, s, chunk, plan(b, h),
+                int(aligned), torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "wkv6")
     launches += 1
     return o, s_final

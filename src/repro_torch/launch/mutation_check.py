@@ -34,6 +34,12 @@ inside the code of one source that the main paths run:
   version on its inputs, judged by ``chip_smoke.check_calls`` as
   chip_smoke.py judges it: elementwise TOL and relative L2
   ``CALL_REL_L2_BOUND``.
+* ``WKV6_MUTATIONS`` edit ``csrc/wkv6.cu`` (``wkv6_kernel``, the RWKV-6
+  recurrence of the rwkv raw prefill).  Each copy runs
+  ``chip_smoke.wkv6_holds``: the small, strided, unaligned and
+  strong-decay cases (logw -50 and -100) on both grids, and both path
+  shapes (16 chunks each, launched twice for the same bits), each within
+  ``WKV_TOL`` of the plain version.
 
 For the unchanged sources and for each mutation, this writes the source
 under ``build/mutants/<name>/``, builds it, loads it in place of the real
@@ -105,6 +111,28 @@ LN_MUTATIONS = {
     "warp1_sums_dropped": ("for (int w = 1; w < BW; ++w) {",
                            "for (int w = 2; w < BW; ++w) {"),
 }
+WKV6_MUTATIONS = {
+    # the sub-chunk reference point at the start of sub-chunk I, not the
+    # end of I - 1: a factor e^{-logw} > 1 that overflows at logw = -100
+    "cref_at_start": ("const float* cref = st.c + (SUB * I - 1) * CST;",
+                      "const float* cref = st.c + (SUB * I) * CST;"),
+    # the 3xTF32 small terms dropped: plain TF32 products
+    "tf32_small_terms_dropped": (
+        "  mma(ds, as, bb);   // the small terms\n"
+        "  if (!b_exact) mma(ds, ab, bs);\n",
+        "  // the small terms dropped\n"),
+    # the diagonal block's last pair (15, 14) dropped
+    "diag_last_pair_dropped": ("  d[ri1 * ds + cj1] = a11;",
+                               "  d[ri1 * ds + cj1] = lane == 31 ? 0.f : a11;"),
+    # the state's decay e^{c_L} skipped
+    "state_decay_skipped": ("const float e0 = ex2(cl0), e1 = ex2(cl1);",
+                            "const float e0 = 1.f, e1 = 1.f;"),
+    # the chunk read from the stage the prefetch is filling, before its
+    # cp.async wait
+    "prefetched_stage_read": (
+        "const Stage st = stage_at<T>(smem + (n & 1) * L_::STAGE);",
+        "const Stage st = stage_at<T>(smem + ((n + 1) & 1) * L_::STAGE);"),
+}
 GELU_BWD_MUTATIONS = {
     # the tanh term of GELU's derivative taken with the wrong sign
     "tanh_sign": ("0.5f * (1.f + t)", "0.5f * (1.f - t)"),
@@ -116,6 +144,7 @@ SOURCES = {
     "flash_bwd": ("// 16-bit main pass at Dh 64: warpgroup", BWD_MUTATIONS),
     "layernorm": ("layernorm_kernel(const", LN_MUTATIONS),
     "bias_gelu": ("bias_gelu_bwd_kernel(const", GELU_BWD_MUTATIONS),
+    "wkv6": ("__device__ __forceinline__ void mma3x(", WKV6_MUTATIONS),
 }
 # the sources whose mutants the backward hold judges, and the kernels it
 # holds: the backwards and the LayerNorm forward
@@ -180,6 +209,16 @@ def backward_check(smoke, ops, ts, cfg, state, batch, tcfg, pol) -> dict:
             "fails_per_call_check": fails}
 
 
+def wkv6_check(smoke, ops) -> dict:
+    try:
+        res = smoke.wkv6_holds(ops)
+        return {"cases": res["cases"],
+                "path_max_err": max(e for _, e in res["path"].values()),
+                "fails_holds": False}
+    except AssertionError as e:
+        return {"error": str(e)[:300], "fails_holds": True}
+
+
 def run_family(build, name, check) -> list:
     """Each source of ``SOURCES[name]`` in turn; returns the names whose
     verdict is unexpected."""
@@ -226,11 +265,12 @@ def main() -> int:
     for name in build.sources():
         build.load(name)
     pol = make_policy("bf16")
+    bad = run_family(build, "wkv6", lambda: wkv6_check(smoke, ops))
 
     cfg = get_config("deepseek-7b")
     params = T.init_model(cfg, seed=smoke.SEED, dtype=pol.param_dtype,
                           device="cuda")
-    bad = run_family(build, "flash_fwd", lambda: forward_check(
+    bad += run_family(build, "flash_fwd", lambda: forward_check(
         smoke, T, serve_step, ops, cfg, params, pol))
     bad += run_family(build, "paged_decode", lambda: paged_check(
         smoke, T, serve_step, ops, cfg, params, pol))

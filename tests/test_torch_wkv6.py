@@ -125,3 +125,78 @@ def test_wkv6_dispatch_and_wrapper_checks():
     half = [a.to(torch.float16) for a in args[:3]] + args[3:]
     with pytest.raises(TypeError, match="float16"):
         twkv.wkv6(*half)
+
+
+# (s, chunk): the cases above, plus chunks of 6 and 60 rows (the card
+# kernel's last sub-chunk of 16 rows is short) over one and two chunks
+SUBCHUNK_CASES = [(128, 32), (256, 64), (64, 64), (32, 64), (6, 64),
+                  (60, 64), (120, 60)]
+
+
+@pytest.mark.parametrize("s,chunk", SUBCHUNK_CASES)
+def test_wkv6_subchunk_form_matches_pallas_kernel_and_sequential(s, chunk):
+    """The card kernel's sub-chunk factorisation, mirrored in plain
+    PyTorch (``ref.wkv6_subchunk_ref``), exact and with its products
+    rounded as the kernel's 3xTF32 split rounds them, against the Pallas
+    kernel (interpret mode) and the reference's sequential recurrence."""
+    args = _inputs(s)
+    o_pal, sf_pal = jwkv6(*_j(args), chunk=chunk, interpret=True)
+    o_seq, sf_seq = JRW.wkv6_sequential(*_j(args))
+    for rounding in (None, "3x"):
+        o, sf = ref.wkv6_subchunk_ref(*_t(args), chunk=chunk,
+                                      rounding=rounding)
+        assert o.shape == (2, s, 2, 64) and sf.shape == (2, 2, 64, 64)
+        for want_o, want_sf in ((o_pal, sf_pal), (o_seq, sf_seq)):
+            np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+            np.testing.assert_allclose(sf.numpy(), np.asarray(want_sf),
+                                       **TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_wkv6_subchunk_form_strong_decay_stays_finite(chunk):
+    """logw = -50 everywhere (tests/test_kernels.py:166) in chunks of 16
+    and 64: every factor of the sub-chunk form has an exponent <= 0, so the
+    off-diagonal factors underflow to 0 and nothing overflows; equal to the
+    Pallas kernel."""
+    b, s, h, hs = 1, 128, 1, 64
+    one = np.ones((b, s, h, hs), np.float32)
+    args = (one, one, one, np.full((b, s, h, hs), -50.0, np.float32),
+            np.zeros((h, hs), np.float32), np.zeros((b, h, hs, hs),
+                                                    np.float32))
+    want_o, want_sf = jwkv6(*_j(args), chunk=chunk, interpret=True)
+    for rounding in (None, "3x"):
+        o, sf = ref.wkv6_subchunk_ref(*_t(args), chunk=chunk,
+                                      rounding=rounding)
+        assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+        np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+        np.testing.assert_allclose(sf.numpy(), np.asarray(want_sf), **TOL)
+
+
+def test_wkv6_tolerance_needs_the_3xtf32_split():
+    """Why the card kernel splits each tensor-core operand in two: with its
+    products' operands cut to TF32 once, the sub-chunk form misses the
+    reference tolerance (rtol = atol = 1e-4, and 1e-4 relative L2); with
+    the 3xTF32 split it holds it."""
+    args = _t(_inputs(256))
+    o, sf = ref.wkv6_ref(*args, chunk=64)
+    o3, sf3 = ref.wkv6_subchunk_ref(*args, chunk=64, rounding="3x")
+    np.testing.assert_allclose(o3.numpy(), o.numpy(), **TOL)
+    np.testing.assert_allclose(sf3.numpy(), sf.numpy(), **TOL)
+    assert float((o3 - o).norm() / o.norm()) < 1e-5
+    o1, sf1 = ref.wkv6_subchunk_ref(*args, chunk=64, rounding="1x")
+    assert not np.allclose(o1.numpy(), o.numpy(), **TOL)
+    assert float((o1 - o).norm() / o.norm()) > 1e-4
+
+
+def test_tf32_cut_and_split():
+    """``ref.tf32`` keeps the sign, exponent and top 10 mantissa bits;
+    big + small recovers x to 2**-21 of |x| once small is cut too."""
+    x = torch.tensor([1.0 + 2.0 ** -10 + 2.0 ** -11, -3.0 - 2.0 ** -12,
+                      1e-30, 0.0])
+    assert ref.tf32(x).tolist() == [1.0 + 2.0 ** -10, -3.0, float(
+        ref.tf32(torch.tensor([1e-30]))), 0.0]
+    y = torch.randn(4096)
+    big = ref.tf32(y)
+    small = ref.tf32(y - big)
+    assert ((y - big).abs() <= 2.0 ** -10 * y.abs()).all()
+    assert ((y - big - small).abs() <= 2.0 ** -20 * y.abs()).all()
