@@ -121,13 +121,29 @@
    and two more from the same state, whose gradients are compared bit for
    bit and logged with the ops PyTorch names non-deterministic in the step
    (a reading; the kernels' own bit-for-bit holds are those of step 5).
-9. Prints one JSON line of kernel results, then, as the last line,
+   Each training run writes the final checkpoint of each phase (4.03 GB
+   at full width), which is checked for and removed.
+9. Resume phase: the fault-tolerant runtime through the real CLI, three
+   processes of ``python -m repro_torch.launch.pretrain_bert --full-width
+   --batch 128 --accum 2 --steps 13`` in bf16 (12 phase-1 steps with
+   checkpoints at 10 and 12, 1 phase-2 step, every loss logged): an
+   uninterrupted run; a run with ``REPRO_FAULTS=crash_at=11``, which must
+   exit 43 with phase 1's newest valid checkpoint at step 10; and a
+   ``--resume`` run in its workdir, which must restore step 10, replay 11
+   and 12 and run phase 2.  Every loss of the crashed and resumed runs
+   must have the uninterrupted run's float32 bits (``float.hex``), and
+   every training kernel must have launched in the runs that ended.  The
+   checkpoint bytes, each save's and restore's seconds and the runs'
+   seconds are logged with the card's name and power limit; each run's
+   workdir is removed once checked.
+10. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
 kernel), ``--only layernorm`` after the build and the two LayerNorm phases,
-``--only wkv6`` after the build and the wkv6 phase (exit 2, no result line
-in each case); without arguments everything runs.
+``--only wkv6`` after the build and the wkv6 phase, ``--only resume`` after
+the build and the resume phase (exit 2, no result line in each case);
+without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -138,7 +154,9 @@ import collections
 import contextlib
 import json
 import logging
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1850,7 +1868,7 @@ def train_run(ops, pretrain_bert, workdir, precision):
             f"{r['loss']:.4f} (mlm {r['mlm_loss']:.4f}, nsp "
             f"{r['nsp_loss']:.4f}), grad norm {r['grad_norm']:.4f}, lr "
             f"{r['lr']:.3g}, loss scale {r['loss_scale']:g}, skipped "
-            f"{r['skipped']}, {r['ms']:.1f} ms")
+            f"{bool(r['skipped'])}, {r['ms']:.1f} ms")
     if [r["phase"] for r in history] != ["phase1"] * 4 + ["phase2"]:
         raise AssertionError("train: expected 4 phase-1 steps and 1 phase-2 "
                              "step")
@@ -1874,6 +1892,14 @@ def train_run(ops, pretrain_bert, workdir, precision):
     log(f"train bert-large full width {precision}: {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, launches {counts}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ckpts = sorted((workdir / "ckpt").glob("*/ckpt_*.npz"))
+    if [p.parent.name for p in ckpts] != ["phase1", "phase2"]:
+        raise AssertionError(f"train {precision}: expected the final "
+                             f"checkpoint of each phase, found {ckpts}")
+    log(f"train {precision}: checkpoints "
+        + ", ".join(f"{p.parent.name}/{p.name} {p.stat().st_size} bytes"
+                    for p in ckpts) + " (removed)")
+    shutil.rmtree(workdir / "ckpt")
     return counts
 
 
@@ -2029,6 +2055,148 @@ def check_train_parity(res: dict) -> None:
                                  f"({res[key]:.3e} > {bd[name]})")
 
 
+# ---------------------------------------------------------------------------
+# resume phase
+# ---------------------------------------------------------------------------
+
+# 12 phase-1 steps (checkpoints at 10 and, the phase's last, 12) and 1
+# phase-2 step, every step's loss logged.  The crash after step 11 leaves
+# phase 1's checkpoint 10; the resume replays 11 and 12, then runs phase 2.
+# crash_at counts the steps of each train_loop call (a phase), and phase 2
+# has one step, so it fires in phase 1 only.
+RESUME_STEPS, RESUME_CRASH, RESUME_FROM = 13, 11, 10
+RESUME_ARGS = ["--full-width", "--batch", "128", "--accum", "2", "--seed",
+               str(SEED), "--steps", str(RESUME_STEPS)]
+CKPT_LINE = re.compile(r"checkpoint step (\d+) (saved in|restored from) "
+                       r"(\S+): (\d+) bytes in ([\d.]+) s")
+
+
+def pretrain_cli(workdir: Path, loss_log: Path, faults: str = "",
+                 resume: bool = False) -> dict:
+    """One process of ``python -m repro_torch.launch.pretrain_bert``
+    (bf16 on the card) with RESUME_ARGS.  Returns its exit code, output,
+    seconds, checkpoint saves and restores (step, "saved in" or "restored
+    from", directory, bytes, seconds) and, when it ran to its end, its
+    kernel launches."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    env.pop("REPRO_FAULTS", None)
+    if faults:
+        env["REPRO_FAULTS"] = faults
+    cmd = [sys.executable, "-m", "repro_torch.launch.pretrain_bert",
+           *RESUME_ARGS, "--workdir", str(workdir), "--loss-log",
+           str(loss_log)] + (["--resume"] if resume else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    out = proc.stdout + proc.stderr
+    launches = re.search(r"kernel launches (\{.*\})", out)
+    return {"rc": proc.returncode, "out": out,
+            "s": time.perf_counter() - t0,
+            "ckpt": [(int(m[0]), m[1], Path(m[2]).name, int(m[3]),
+                      float(m[4])) for m in CKPT_LINE.findall(out)],
+            "launches": json.loads(launches[1]) if launches else None}
+
+
+def expect_run(tag: str, run: dict, rc: int) -> None:
+    """The exit code ``rc``, and every training kernel launched in a run
+    that ended."""
+    if run["rc"] != rc:
+        raise AssertionError(f"resume: the {tag} run exited {run['rc']}, "
+                             f"not {rc}:\n{run['out'][-4000:]}")
+    if rc == 0:
+        missed = [k for k in TRAIN_KERNELS
+                  if not (run["launches"] or {}).get(k, 0) > 0]
+        if missed:
+            raise AssertionError(f"resume: the {tag} run never launched "
+                                 f"{missed}")
+    log(f"resume: {tag} run exit {run['rc']} in {run['s']:.1f} s; "
+        "checkpoints " + "; ".join(
+            f"{d} step {st} {what.split()[0]} {b} bytes in {sec:.3f} s"
+            for st, what, d, b, sec in run["ckpt"]))
+
+
+def read_losses(path: Path) -> list:
+    """((phase, step), loss) for each line of a ``--loss-log`` file."""
+    return [((r["phase"], r["step"]), r["loss"]) for r in
+            map(json.loads, path.read_text().splitlines())]
+
+
+def resume_phase(latest_step) -> dict:
+    """Crash -> resume of the real CLI at full-width bert-large in bf16,
+    three processes: an uninterrupted run; a run with
+    ``REPRO_FAULTS=crash_at=RESUME_CRASH``, which must exit 43 with phase
+    1's newest valid checkpoint at RESUME_FROM; and a ``--resume`` run in
+    the crashed run's workdir.  Every loss of both faulted runs must have
+    the uninterrupted run's float32 bits.  Each workdir is removed once
+    checked, so one run's checkpoints are on disk at a time."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        tmp = Path(tmp)
+        whole = pretrain_cli(tmp / "whole", tmp / "whole.jsonl")
+        expect_run("uninterrupted", whole, 0)
+        ref = dict(read_losses(tmp / "whole.jsonl"))
+        want = [("phase1", i) for i in range(1, RESUME_STEPS)] + [
+            ("phase2", 1)]
+        if sorted(ref) != want:
+            raise AssertionError(f"resume: uninterrupted steps {sorted(ref)}")
+        shutil.rmtree(tmp / "whole")
+
+        crash = pretrain_cli(tmp / "run", tmp / "run.jsonl",
+                             faults=f"crash_at={RESUME_CRASH}")
+        expect_run("crash", crash, 43)
+        crashed = read_losses(tmp / "run.jsonl")
+        if [k for k, _ in crashed] != want[:RESUME_CRASH]:
+            raise AssertionError(f"resume: the crashed run logged {crashed}")
+        t0 = time.perf_counter()
+        last = latest_step(str(tmp / "run" / "ckpt" / "phase1"))
+        t_latest = time.perf_counter() - t0
+        if last != RESUME_FROM:
+            raise AssertionError(f"resume: newest valid checkpoint {last}, "
+                                 f"expected {RESUME_FROM}")
+
+        resumed = pretrain_cli(tmp / "run", tmp / "run.jsonl", resume=True)
+        expect_run("resumed", resumed, 0)
+        if f"resumed from checkpoint step {RESUME_FROM} in" not in \
+                resumed["out"]:
+            raise AssertionError("resume: the resumed run did not start "
+                                 f"from step {RESUME_FROM}")
+        replayed = read_losses(tmp / "run.jsonl")[len(crashed):]
+        if [k for k, _ in replayed] != want[RESUME_FROM:]:
+            raise AssertionError(f"resume: the resumed run logged {replayed}")
+        differ = [(k, loss.hex(), ref[k].hex())
+                  for k, loss in crashed + replayed
+                  if loss.hex() != ref[k].hex()]
+        shutil.rmtree(tmp / "run")
+    for k, loss in crashed + replayed:
+        log(f"resume: {k[0]} step {k[1]} loss {loss.hex()} ({loss:.6f}), "
+            f"uninterrupted {ref[k].hex()}")
+    saves = [c for r in (whole, crash, resumed) for c in r["ckpt"]
+             if c[1] == "saved in"]
+    restores = [c for c in resumed["ckpt"] if c[1] == "restored from"]
+    res = {"steps_compared": len(crashed) + len(replayed),
+           "replayed": [k for k, _ in replayed], "differ": differ,
+           "bytes": saves[0][3], "save_s": [c[4] for c in saves],
+           "restore_s": [c[4] for c in restores], "latest_step_s": t_latest,
+           "run_s": [whole["s"], crash["s"], resumed["s"]],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"resume on {nvidia_smi()}: checkpoint {res['bytes']} bytes "
+        f"({res['bytes'] / 1e9:.3f} GB); {len(saves)} saves, "
+        + ", ".join(f"{x:.3f}" for x in res["save_s"]) + " s; restore "
+        + ", ".join(f"{x:.3f}" for x in res["restore_s"])
+        + f" s (validation included); latest_step {t_latest:.3f} s; runs "
+        + ", ".join(f"{x:.1f}" for x in res["run_s"])
+        + f" s; phase {res['phase_s']:.1f} s; {res['steps_compared']} "
+        f"losses compared bit for bit (replayed {res['replayed']}), "
+        f"{len(differ)} differ")
+    if differ:
+        raise AssertionError(f"resume: losses differ from the uninterrupted "
+                             f"run's bits: {differ}")
+    return res
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -2049,6 +2217,7 @@ def main(argv=None) -> int:
     from repro_torch.serve import scheduler as sched_mod
     from repro_torch.serve import serve_step
     from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import latest_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2080,6 +2249,10 @@ def main(argv=None) -> int:
     if only == "wkv6":
         wkv6_phase(ops, timer)
         log("wkv6 phase only: no other phase, no result")
+        return 2
+    if only == "resume":
+        resume_phase(latest_step)
+        log("resume phase only: no other phase, no result")
         return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
@@ -2155,6 +2328,7 @@ def main(argv=None) -> int:
     step_determinism(ts, bert, *hold_inputs)
     del hold_inputs
     torch.cuda.empty_cache()
+    resume_phase(latest_step)
 
     by_name = {
         "flash_fwd": launches["paged"]["flash_fwd"]

@@ -119,3 +119,17 @@ def make_loss_scale(policy: Policy, **kw):
     if policy.needs_loss_scaling:
         return DynamicLossScale(**kw)
     return NoOpLossScale()
+
+
+def loss_scale_summary(state: LossScaleState) -> dict:
+    """JSON-serializable snapshot of the dynamic loss-scale state (copy of
+    ``repro/core/amp.py`` ``loss_scale_summary``).
+
+    Recorded in the checkpoint manifest (``train/checkpoint.py``) so a
+    resumed run's AMP trajectory is auditable without loading the npz; the
+    state itself is saved with the ``TrainState`` and restores exactly.
+    The port's state is host numbers, so nothing is read from the card.
+    """
+    return {"scale": float(np.float32(state.scale)),
+            "good_steps": int(state.good_steps),
+            "total_skipped": int(state.total_skipped)}

@@ -4,7 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.pretrain_bert \
       [--steps 120] [--d-model 128] [--full-depth] [--full-width] \
       [--batch 16] [--accum 4] [--precision bf16|f32|f16] \
-      [--device cuda|cpu] [--workdir DIR] [--seed 0]
+      [--device cuda|cpu] [--workdir DIR] [--seed 0] [--resume] \
+      [--loss-log FILE]
 
 Phase 1 (seq 128, 20 predictions, 90 % of the steps), then phase 2 (seq
 512, 80 predictions), on one device: per phase the synthetic corpus is
@@ -17,17 +18,32 @@ learning-rate schedule too).  The ``TrainConfig`` of each phase is built as
 the example builds it: LAMB at 20x the phase's learning rate, warmup
 max(2, steps // 10).
 
+Each phase runs under the supervised loop (``train/trainer.py``
+``train_loop``), as the example runs it: checkpoints in
+``<workdir>/ckpt/<phase>`` every max(10, steps // 2) steps and at the end
+of the phase (the newest 3 kept), a log line every max(1, steps // 10)
+steps, the non-finite budget, the watchdog and bounded retry.
+``--resume`` restores each phase's newest valid checkpoint with the data
+cursor, so a crashed run (``REPRO_FAULTS=crash_at=N``, exit 43) continues
+to the losses of an uninterrupted one, bit for bit; a phase already
+complete restores its last checkpoint and runs no step.  Give the
+resumed run the same ``--steps`` and ``--workdir`` (the step count sets
+the phases and their schedules).  ``--loss-log`` appends one JSON line
+``{"phase", "step", "loss"}`` a logged step, so a resumed run extends the
+crashed run's file.
+
 The model is ``smoke_variant(bert-large, d_model=--d-model)`` with 2
 layers, or 24 with ``--full-depth``; ``--full-width`` takes bert-large as
 published (24 layers, d_model 1024, 16 heads x 64, d_ff 4096, vocab
 30522).  Weights are random, drawn from ``--seed``, as are the corpus and
-the loader's shuffles.  The reference example's data-parallel, collective
-and resume flags come with later slices.
+the loader's shuffles.  The reference example's data-parallel and
+collective flags come with a later slice.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import tempfile
 import time
@@ -39,9 +55,11 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.amp import make_policy
 from repro_torch.data.pipeline import ShardedLoader, prepare_bert_data
+from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.train.phases import bert_phases
 from repro_torch.train.train_step import init_train_state, train_step_fn
+from repro_torch.train.trainer import train_loop
 from repro_torch.utils import tree_count
 
 logger = logging.getLogger("repro_torch.pretrain_bert")
@@ -61,6 +79,11 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume each phase from its newest valid "
+                         "checkpoint (needs a stable --workdir)")
+    ap.add_argument("--loss-log", default=None,
+                    help="append {'phase','step','loss'} JSON lines here")
     return ap.parse_args(argv)
 
 
@@ -75,9 +98,12 @@ def model_config(args):
 
 def run(argv=None):
     """Train; returns (cfg, final TrainState, history), one history record
-    per step: phase, step, loss, mlm_loss, nsp_loss, mlm_acc, grad_norm,
-    lr, skipped and the step's wall time in ms (host clock, ending when the
-    loss is read back)."""
+    per logged step (every step while a phase has at most 19): phase, step
+    (1-based within the phase), loss, mlm_loss, nsp_loss, mlm_acc,
+    grad_norm, lr, loss_scale, skipped (0 or 1), the step's wall time in
+    ms (host clock, ending when the loss is read back) and the loop's
+    counters (steps_per_s, tokens_per_s, consecutive_skips, total_skips,
+    slow_steps, retries)."""
     args = parse_args(argv)
     cfg = model_config(args)
     policy = make_policy(args.precision)
@@ -109,24 +135,43 @@ def run(argv=None):
         if state is None:
             state = init_train_state(params, policy, tcfg)
             del params
-        for i in range(phase.steps):
-            batch = api.to_device(next(loader), args.device)
+
+        def step_fn(state, batch, tcfg=tcfg):
+            batch = api.to_device(batch, args.device)
             t0 = time.perf_counter()
             state, m = train_step_fn(state, batch, cfg=cfg, tcfg=tcfg,
                                      policy=policy)
-            rec = {"phase": phase.name, "step": i,
-                   "loss": float(m["loss"])}
-            rec["ms"] = (time.perf_counter() - t0) * 1e3
-            rec.update({k: float(m[k]) for k in ("mlm_loss", "nsp_loss",
-                                                 "mlm_acc", "grad_norm",
-                                                 "lr", "loss_scale")})
-            rec["skipped"] = bool(m["skipped"])
-            history.append(rec)
+            m["loss"] = float(m["loss"])
+            m["ms"] = (time.perf_counter() - t0) * 1e3
+            return state, m
+
+        def metrics_hook(m, phase=phase):
+            history.append({"phase": phase.name, **m})
+            nan = float("nan")   # a forged non-finite step has no metrics
             logger.info("%s step %d: loss %.4f (mlm %.4f, nsp %.4f), grad "
-                        "norm %.3f, lr %.3g, %.1f ms", phase.name, i,
-                        rec["loss"], rec["mlm_loss"], rec["nsp_loss"],
-                        rec["grad_norm"], rec["lr"], rec["ms"])
-    logger.info("two-phase pretraining complete (data in %s)", workdir)
+                        "norm %.3f, lr %.3g, %.1f ms", phase.name, m["step"],
+                        m["loss"], m.get("mlm_loss", nan),
+                        m.get("nsp_loss", nan), m.get("grad_norm", nan),
+                        m.get("lr", nan), m.get("ms", nan))
+            if args.loss_log:
+                with open(args.loss_log, "a") as f:
+                    f.write(json.dumps({"phase": phase.name,
+                                        "step": m["step"],
+                                        "loss": m["loss"]}) + "\n")
+
+        # one checkpoint directory a phase: step numbering restarts in each
+        state, _ = train_loop(
+            step_fn, state, iter(loader), total_steps=phase.steps,
+            log_every=max(1, phase.steps // 10),
+            ckpt_dir=str(workdir / "ckpt" / phase.name),
+            ckpt_every=max(10, phase.steps // 2), resume=args.resume,
+            metrics_hook=metrics_hook,
+            config_fingerprint=f"bert:{phase.name}:{args.precision}",
+            seed=args.seed,
+            tokens_per_step=phase.global_batch * phase.seq_len)
+    logger.info("two-phase pretraining complete (data and checkpoints in "
+                "%s); kernel launches %s", workdir,
+                json.dumps(ops.launch_counts()))
     return cfg, state, history
 
 

@@ -79,7 +79,14 @@ def apply_bert(params, tokens, type_ids, cfg: ModelConfig, policy: Policy,
     pooled (B, d))."""
     cd = policy.compute_dtype
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-    x = x + F.embedding(type_ids.long(), params["embed"]["type"]).to(x.dtype)
+    # the segment embedding as a select of its two rows, whose backward is
+    # two sums over the positions in a fixed order: F.embedding's CUDA
+    # backward gives other bits from call to call for this table (49 of 50
+    # calls at phase 1's micro-batch; 0 of 50 for the token table), which
+    # made two runs' losses part from the third step
+    # (launch/determinism_check.py --probe-embedding)
+    seg = params["embed"]["type"]
+    x = x + torch.where(type_ids[..., None] == 1, seg[1], seg[0]).to(x.dtype)
     x = L.apply_norm(params["embed_norm"], x, cfg, policy, impl=impl)
     for p in params["blocks"]:
         if remat:

@@ -51,16 +51,20 @@ def lamb_update(grads: Dict[Path, torch.Tensor], state: LambState, *,
     """One LAMB step over every group.  ``grads``: flat fp32 buffers by
     group path.  ``skip_update`` (a non-finite gradient under dynamic loss
     scaling) returns the state as it is: master, moments and step are
-    untouched, bit for bit.  Otherwise the state is updated in place (new
-    master and moment tensors per group) and returned."""
+    untouched, bit for bit.  Otherwise every group's new master and moment
+    tensors are made first, and then swapped into the state together with
+    the step, so an update that raises part-way leaves the state as it
+    was (the supervised loop's retry and emergency checkpoint rely on
+    that).  Returns the state."""
     if skip_update:
         return state
     step = state.step + 1
-    for path in state.groups.paths:
-        state.master[path], state.m[path], state.v[path] = \
-            kops.lamb_leaf_update(state.master[path], grads[path],
-                                  state.m[path], state.v[path], lr=lr,
-                                  step=step, b1=b1, b2=b2, eps=eps, wd=wd,
-                                  impl=impl)
-    state.step = step
+    new = {path: kops.lamb_leaf_update(
+        state.master[path], grads[path], state.m[path], state.v[path],
+        lr=lr, step=step, b1=b1, b2=b2, eps=eps, wd=wd, impl=impl)
+        for path in state.groups.paths}
+    state.master, state.m, state.v, state.step = (
+        {p: w for p, (w, _, _) in new.items()},
+        {p: m for p, (_, m, _) in new.items()},
+        {p: v for p, (_, _, v) in new.items()}, step)
     return state

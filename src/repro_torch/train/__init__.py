@@ -1,3 +1,4 @@
-"""Training (port of ``repro/train``): the step and the two-phase BERT
-schedule.  The fault-tolerant runtime (checkpoints, the supervised loop,
-fault injection) ports with a later slice."""
+"""Training (port of ``repro/train``): the step, the two-phase BERT
+schedule and the fault-tolerant runtime -- atomic checkpoints
+(``checkpoint``), fault injection (``faults``) and the supervised loop
+(``trainer``)."""
