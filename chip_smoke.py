@@ -136,14 +136,32 @@
    checkpoint bytes, each save's and restore's seconds and the runs'
    seconds are logged with the card's name and power limit; each run's
    workdir is removed once checked.
-10. Prints one JSON line of kernel results, then, as the last line,
+10. Data-parallel phase, two parts.  (a) NCCL at world 1 through the real
+   CLI: ``python -m torch.distributed.run --standalone --nproc-per-node 1
+   -m repro_torch.launch.pretrain_bert --dp --strategy psum`` with step
+   8's arguments in bf16; every logged loss must have the float32 bits of
+   step 8's bf16 run (at world 1 the all-reduce copies and the division by
+   1 is exact) and every training kernel must have launched.  (b) Four
+   gloo ranks sharing the card: ``python -m repro_torch.launch.dp_check
+   --full-width --world 4 --pods 2 --backend gloo --share-device``
+   (bert-large at full width and depth, bf16, one phase-1 global batch of
+   128 x 128 tokens with accumulation 2, one step under each of psum,
+   ring, hierarchical and bucketed): every rank's state the same bits
+   under each strategy, each strategy's masters within rtol 1e-5, atol
+   1e-6 of psum's and its loss within rtol 1e-5, every kernel of a
+   phase-1 step launched on every rank.  Each strategy's exchange seconds
+   on each rank (staged through host memory, a reading of that path and
+   not of NCCL), ``exchange_bytes_per_step``, the step's seconds, each
+   rank's peak device memory and the phase's seconds are logged.
+11. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
 kernel), ``--only layernorm`` after the build and the two LayerNorm phases,
 ``--only wkv6`` after the build and the wkv6 phase, ``--only resume`` after
-the build and the resume phase (exit 2, no result line in each case);
-without arguments everything runs.
+the build and the resume phase, ``--only dp`` after the build, step 8's
+bf16 run (the losses (a) is held to) and the data-parallel phase (exit 2,
+no result line in each case); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -1854,9 +1872,9 @@ def train_run(ops, pretrain_bert, workdir, precision):
     launch counts, among them the forward's and the backward main pass's
     launches by sequence length (``flash_fwd_s128``, ``flash_fwd_s512``,
     ``flash_bwd_s128``, ``flash_bwd_s512``), which must add up to each
-    one's count.  Every loss must be finite; in f16 a step may be skipped
-    (an overflow under the loss scale, which then backs off), in bf16
-    none."""
+    one's count, and ((phase, step), loss) of every step.  Every loss must
+    be finite; in f16 a step may be skipped (an overflow under the loss
+    scale, which then backs off), in bf16 none."""
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     cfg, state, history = pretrain_bert.run(
@@ -1900,7 +1918,7 @@ def train_run(ops, pretrain_bert, workdir, precision):
         + ", ".join(f"{p.parent.name}/{p.name} {p.stat().st_size} bytes"
                     for p in ckpts) + " (removed)")
     shutil.rmtree(workdir / "ckpt")
-    return counts
+    return counts, [((r["phase"], r["step"]), r["loss"]) for r in history]
 
 
 def train_parity(ops, api, ts, TrainConfig, ShardedLoader, make_policy,
@@ -2071,6 +2089,16 @@ CKPT_LINE = re.compile(r"checkpoint step (\d+) (saved in|restored from) "
                        r"(\S+): (\d+) bytes in ([\d.]+) s")
 
 
+def _port_env() -> dict:
+    """The environment of a port process started from here."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    env.pop("REPRO_FAULTS", None)
+    return env
+
+
 def pretrain_cli(workdir: Path, loss_log: Path, faults: str = "",
                  resume: bool = False) -> dict:
     """One process of ``python -m repro_torch.launch.pretrain_bert``
@@ -2078,11 +2106,7 @@ def pretrain_cli(workdir: Path, loss_log: Path, faults: str = "",
     seconds, checkpoint saves and restores (step, "saved in" or "restored
     from", directory, bytes, seconds) and, when it ran to its end, its
     kernel launches."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(REPO / "src")] + ([env["PYTHONPATH"]]
-                               if env.get("PYTHONPATH") else []))
-    env.pop("REPRO_FAULTS", None)
+    env = _port_env()
     if faults:
         env["REPRO_FAULTS"] = faults
     cmd = [sys.executable, "-m", "repro_torch.launch.pretrain_bert",
@@ -2197,6 +2221,93 @@ def resume_phase(latest_step) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# data-parallel phase
+# ---------------------------------------------------------------------------
+
+DP_CHECK_ARGS = ["--full-width", "--world", "4", "--pods", "2", "--backend",
+                 "gloo", "--share-device"]
+# a phase-1 step (one 128-key tile) launches no flash backward post-pass
+DP_KERNELS = tuple(k for k in TRAIN_KERNELS if k != "flash_bwd_post")
+
+
+def dp_phase(ref_losses: list) -> dict:
+    """(a) ``--dp`` at world 1 on NCCL through torchrun and the CLI, held
+    to ``ref_losses`` (step 8's in-process bf16 run) bit for bit; (b)
+    ``dp_check.py`` with four gloo ranks sharing the card."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        tmp = Path(tmp)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m",
+               "repro_torch.launch.pretrain_bert", "--dp", "--strategy",
+               "psum", *TRAIN_ARGS, "--precision", "bf16", "--workdir",
+               str(tmp / "w"), "--loss-log", str(tmp / "loss.jsonl")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=_port_env(), capture_output=True,
+                              text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        out = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise AssertionError(f"dp: the torchrun --dp run exited "
+                                 f"{proc.returncode}:\n{out[-4000:]}")
+        if "rank 0 of 1 (pod 0 of 1), nccl on cuda:0" not in out:
+            raise AssertionError("dp: the --dp run did not run on NCCL on "
+                                 f"cuda:0:\n{out[-4000:]}")
+        launches = json.loads(re.search(r"kernel launches (\{.*\})",
+                                        out)[1])
+        missed = [k for k in TRAIN_KERNELS if not launches.get(k, 0) > 0]
+        got = read_losses(tmp / "loss.jsonl")
+    for (key, loss), (want_key, want) in zip(got, ref_losses):
+        log(f"dp: NCCL world 1 {key[0]} step {key[1]} loss {loss.hex()}, "
+            f"in-process {want.hex()} ({want_key[0]} step {want_key[1]})")
+    if [k for k, _ in got] != [k for k, _ in ref_losses] or any(
+            a.hex() != b.hex() for (_, a), (_, b) in zip(got, ref_losses)):
+        raise AssertionError(f"dp: the NCCL world-1 losses {got} are not "
+                             f"the in-process run's {ref_losses}")
+    if missed:
+        raise AssertionError(f"dp: the --dp run never launched {missed}")
+    log(f"dp: NCCL world 1 through torchrun: {len(got)} losses equal in "
+        f"bits, launches {launches}, {cli_s:.1f} s")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dp_check",
+                           *DP_CHECK_ARGS], env=_port_env(),
+                          capture_output=True, text=True, timeout=900)
+    check_s = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"dp: dp_check exited {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    for line in out.splitlines():
+        if "repro_torch.dp_check" in line or "repro_torch.mesh" in line:
+            log(f"dp: {line}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (res["world"] == 4 and res["pods"] == 2 and res["staged"]
+            and res["layers"] == 24 and res["d_model"] == 1024):
+        raise AssertionError(f"dp: dp_check ran {res}")
+    for strategy, rec in res["strategies"].items():
+        missed = [(r, k) for r, rank in enumerate(rec["ranks"])
+                  for k in DP_KERNELS if not rank["launches"][k] > 0]
+        if not rec["digests_equal"] or missed:
+            raise AssertionError(f"dp: {strategy}: {rec}")
+        log(f"dp: {strategy} world 4 (2 pods), gloo staged: loss "
+            f"{rec['loss']!r} (vs psum {rec['loss_vs_psum']:.3g}), digests "
+            f"equal, exchange_bytes_per_step {rec['exchange_bytes']:.0f} B a "
+            "rank; exchange s a rank " + ", ".join(
+                f"{r['exchange_s']:.4f}" for r in rec["ranks"])
+            + "; step s " + ", ".join(f"{r['step_s']:.3f}"
+                                      for r in rec["ranks"])
+            + "; peak GiB " + ", ".join(f"{r['peak_gib']:.2f}"
+                                        for r in rec["ranks"])
+            + f"; masters vs psum {rec['ranks'][0]['vs_psum']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"dp on {nvidia_smi()}: torchrun world 1 {cli_s:.1f} s, dp_check "
+        f"{check_s:.1f} s ({res['seconds']:.1f} s in its ranks), phase "
+        f"{phase_s:.1f} s")
+    return {"cli_s": cli_s, "check_s": check_s, "phase_s": phase_s}
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -2254,6 +2365,14 @@ def main(argv=None) -> int:
         resume_phase(latest_step)
         log("resume phase only: no other phase, no result")
         return 2
+    if only == "dp":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
+            _, losses = train_run(ops, pretrain_bert, Path(tmp) / "bf16",
+                                  "bf16")
+        torch.cuda.empty_cache()
+        dp_phase(losses)
+        log("data-parallel phase only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -2310,11 +2429,11 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
         workdir = Path(tmp)
-        launches["train"] = train_run(ops, pretrain_bert, workdir / "bf16",
-                                      "bf16")
+        launches["train"], bf16_losses = train_run(
+            ops, pretrain_bert, workdir / "bf16", "bf16")
         torch.cuda.empty_cache()
-        launches["train_f16"] = train_run(ops, pretrain_bert,
-                                          workdir / "f16", "f16")
+        launches["train_f16"], _ = train_run(ops, pretrain_bert,
+                                             workdir / "f16", "f16")
         torch.cuda.empty_cache()
         for precision in ("f32", "bf16", "f16"):
             check_train_parity(train_parity(
@@ -2329,6 +2448,7 @@ def main(argv=None) -> int:
     del hold_inputs
     torch.cuda.empty_cache()
     resume_phase(latest_step)
+    dp_phase(bf16_losses)
 
     by_name = {
         "flash_fwd": launches["paged"]["flash_fwd"]

@@ -183,13 +183,16 @@ class TrainConfig:
     """Training knobs (copy of the reference's ``TrainConfig``, same field
     names and defaults).
 
-    The port trains on one card with the serial accumulation schedule.
-    The fields of the data-parallel exchange, gradient compression and the
-    overlapped drain exist so that a reference config reads the same here,
-    but ``check_supported`` raises when one of them is set to anything but
-    its default, and for ``optimizer="adamw"``.  The sharding fields
-    (``fsdp``, ``shard_grads``, ``pure_dp``) change nothing on one device,
-    as in the reference on a one-device mesh.
+    The port trains on one card, or data-parallel over ranks of
+    ``torch.distributed`` (``train/train_step.py`` ``make_train_step_dp``)
+    with any of the four uncompressed strategies and ``bucket_bytes``, in
+    the serial accumulation schedule.  The fields of gradient compression
+    and the overlapped drain exist so that a reference config reads the
+    same here, but ``check_supported`` raises when one of them is set to
+    anything but its default, for the calibration-only strategy
+    ``"local"`` and for ``optimizer="adamw"``.  The sharding fields
+    (``fsdp``, ``shard_grads``, ``pure_dp``) change nothing in pure data
+    parallelism, as in the reference on a one-device mesh.
     """
     precision: str = "bf16"            # f32 | bf16 | f16
     accum_steps: int = 4
@@ -211,13 +214,26 @@ class TrainConfig:
     seed: int = 0
 
     def check_supported(self) -> None:
-        """Raise for the knobs that belong to later slices."""
-        later = {"collective_strategy": "psum", "grad_compression": "none",
-                 "overlap_exchange": False, "optimizer": "lamb"}
-        for name, default in later.items():
+        """Raise for the knobs that belong to later slices (naming the
+        slice) and for an unknown strategy."""
+        later = (
+            ("grad_compression", "none", "the fp16/int8 compressed exchange "
+             "with its error-feedback residual"),
+            ("overlap_exchange", False, "the overlapped drain"),
+            ("optimizer", "lamb", "AdamW"))
+        for name, default, slice_ in later:
             if getattr(self, name) != default:
                 raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r}: the port "
-                    "trains on one card with LAMB (the data-parallel "
-                    "exchange, compression, overlap and AdamW come with "
-                    "later slices)")
+                    f"TrainConfig.{name}={getattr(self, name)!r}: "
+                    f"{slice_} comes with a later slice of the port")
+        if self.collective_strategy == "local":
+            raise NotImplementedError(
+                "TrainConfig.collective_strategy='local': the no-exchange "
+                "calibration twin comes with the overlapped drain's slice")
+        if self.collective_strategy not in (
+                "psum", "ring", "hierarchical", "bucketed"):
+            raise ValueError(f"unknown collective strategy "
+                             f"{self.collective_strategy!r}")
+        if self.bucket_bytes <= 0:
+            raise ValueError(f"bucket_bytes {self.bucket_bytes} must be "
+                             "positive")

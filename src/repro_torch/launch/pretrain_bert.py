@@ -5,7 +5,10 @@
       [--steps 120] [--d-model 128] [--full-depth] [--full-width] \
       [--batch 16] [--accum 4] [--precision bf16|f32|f16] \
       [--device cuda|cpu] [--workdir DIR] [--seed 0] [--resume] \
-      [--loss-log FILE]
+      [--loss-log FILE] [--dp] [--strategy psum|ring|hierarchical|bucketed]
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node N \
+      -m repro_torch.launch.pretrain_bert --dp [--strategy ring] ...
 
 Phase 1 (seq 128, 20 predictions, 90 % of the steps), then phase 2 (seq
 512, 80 predictions), on one device: per phase the synthetic corpus is
@@ -36,8 +39,25 @@ The model is ``smoke_variant(bert-large, d_model=--d-model)`` with 2
 layers, or 24 with ``--full-depth``; ``--full-width`` takes bert-large as
 published (24 layers, d_model 1024, 16 heads x 64, d_ff 4096, vocab
 30522).  Weights are random, drawn from ``--seed``, as are the corpus and
-the loader's shuffles.  The reference example's data-parallel and
-collective flags come with a later slice.
+the loader's shuffles.
+
+``--dp`` is the reference example's pure data parallelism
+(``train_step.make_train_step_dp``) with the gradient exchange
+``--strategy``.  Under torchrun each process is a rank (``launch/mesh.py``:
+NCCL and the card of its ``LOCAL_RANK`` for ``--device cuda``, gloo for
+``--device cpu``); without torchrun it runs at world 1 with no process
+group and no pod axis, so ``hierarchical`` is psum, as in the example.
+Every rank builds the same weights from the seed and reads the same
+global batches (``ShardedLoader(worker=0, n_workers=1)``, as the example)
+and takes its rows of each; rank 0 prepares the data and writes the
+checkpoints, ``--loss-log`` and the per-step log lines, and every rank
+logs its final state digest and loss bits last.  The ranks share one
+filesystem: every rank reads the data and, on ``--resume``, the
+checkpoints that rank 0 wrote under the ``--workdir`` it broadcasts
+(``train/trainer.py`` raises when the ranks resume from different
+checkpoints).  Without ``--dp``
+``--strategy`` is recorded in the ``TrainConfig`` and exchanges nothing,
+as in the example.
 """
 from __future__ import annotations
 
@@ -45,6 +65,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import tempfile
 import time
 from pathlib import Path
@@ -53,12 +74,15 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import collectives as C
 from repro_torch.core.amp import make_policy
 from repro_torch.data.pipeline import ShardedLoader, prepare_bert_data
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import api
 from repro_torch.train.phases import bert_phases
-from repro_torch.train.train_step import init_train_state, train_step_fn
+from repro_torch.train.train_step import (init_train_state,
+                                          make_train_step_dp, train_step_fn)
 from repro_torch.train.trainer import train_loop
 from repro_torch.utils import tree_count
 
@@ -84,7 +108,17 @@ def parse_args(argv=None):
                          "checkpoint (needs a stable --workdir)")
     ap.add_argument("--loss-log", default=None,
                     help="append {'phase','step','loss'} JSON lines here")
+    ap.add_argument("--strategy", default="psum", choices=C.STRATEGIES)
+    ap.add_argument("--dp", action="store_true",
+                    help="pure data parallelism over torchrun's ranks")
     return ap.parse_args(argv)
+
+
+def dp_mesh(args):
+    """The ranks of a ``--dp`` run: torchrun's, or world 1 alone."""
+    if "WORLD_SIZE" in os.environ:
+        return M.init_mesh(args.device)
+    return M.single_mesh(args.device)
 
 
 def model_config(args):
@@ -103,16 +137,32 @@ def run(argv=None):
     grad_norm, lr, loss_scale, skipped (0 or 1), the step's wall time in
     ms (host clock, ending when the loss is read back) and the loop's
     counters (steps_per_s, tokens_per_s, consecutive_skips, total_skips,
-    slow_steps, retries)."""
+    slow_steps, retries).  With ``--dp`` every rank returns its own (the
+    same numbers)."""
     args = parse_args(argv)
+    mesh = dp_mesh(args) if args.dp else None
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, mesh):
     cfg = model_config(args)
     policy = make_policy(args.precision)
-    workdir = Path(args.workdir or tempfile.mkdtemp(prefix="repro_bert_"))
+    device = args.device if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    workdir = args.workdir or (tempfile.mkdtemp(prefix="repro_bert_")
+                               if lead else None)
+    workdir = Path(workdir if mesh is None else mesh.broadcast_object(workdir))
     params = api.init_params(cfg, seed=args.seed, dtype=torch.float32,
-                             device=args.device)
-    logger.info("BERT variant: %d layers, d_model %d, %.1fM params, %s on %s",
+                             device=device)
+    logger.info("BERT variant: %d layers, d_model %d, %.1fM params, %s on %s%s",
                 cfg.n_layers, cfg.d_model, tree_count(params) / 1e6,
-                args.precision, args.device)
+                args.precision, device,
+                f"; data parallel, {args.strategy}, {mesh.describe()}"
+                if mesh else "")
     state, history = None, []
     for phase in bert_phases(args.steps, scale_batch=args.batch / 4096):
         logger.info("=== %s: seq %d, %d preds, batch %d, %d steps ===",
@@ -121,13 +171,17 @@ def run(argv=None):
         if phase.steps <= 0:
             continue
         shard_dir = workdir / phase.name
-        prepare_bert_data(str(shard_dir), seq_len=phase.seq_len,
-                          n_predictions=phase.n_predictions, n_docs=120,
-                          vocab_size=cfg.vocab_size, n_shards=4,
-                          seed=args.seed)
+        if lead:
+            prepare_bert_data(str(shard_dir), seq_len=phase.seq_len,
+                              n_predictions=phase.n_predictions, n_docs=120,
+                              vocab_size=cfg.vocab_size, n_shards=4,
+                              seed=args.seed)
+        if mesh is not None:
+            mesh.barrier()
         loader = ShardedLoader(str(shard_dir), worker=0, n_workers=1,
                                batch=phase.global_batch, seed=args.seed)
         tcfg = TrainConfig(precision=args.precision, accum_steps=args.accum,
+                           collective_strategy=args.strategy,
                            optimizer="lamb",
                            learning_rate=phase.learning_rate * 20,
                            total_steps=phase.steps,
@@ -135,18 +189,25 @@ def run(argv=None):
         if state is None:
             state = init_train_state(params, policy, tcfg)
             del params
-
-        def step_fn(state, batch, tcfg=tcfg):
-            batch = api.to_device(batch, args.device)
-            t0 = time.perf_counter()
-            state, m = train_step_fn(state, batch, cfg=cfg, tcfg=tcfg,
+        if mesh is not None:
+            train_step = make_train_step_dp(cfg, tcfg, mesh)
+        else:
+            def train_step(state, batch, tcfg=tcfg):
+                return train_step_fn(state, batch, cfg=cfg, tcfg=tcfg,
                                      policy=policy)
+
+        def step_fn(state, batch, train_step=train_step):
+            batch = api.to_device(batch, device)
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch)
             m["loss"] = float(m["loss"])
             m["ms"] = (time.perf_counter() - t0) * 1e3
             return state, m
 
         def metrics_hook(m, phase=phase):
             history.append({"phase": phase.name, **m})
+            if not lead:
+                return
             nan = float("nan")   # a forged non-finite step has no metrics
             logger.info("%s step %d: loss %.4f (mlm %.4f, nsp %.4f), grad "
                         "norm %.3f, lr %.3g, %.1f ms", phase.name, m["step"],
@@ -168,16 +229,21 @@ def run(argv=None):
             metrics_hook=metrics_hook,
             config_fingerprint=f"bert:{phase.name}:{args.precision}",
             seed=args.seed,
-            tokens_per_step=phase.global_batch * phase.seq_len)
+            tokens_per_step=phase.global_batch * phase.seq_len, mesh=mesh)
     logger.info("two-phase pretraining complete (data and checkpoints in "
                 "%s); kernel launches %s", workdir,
                 json.dumps(ops.launch_counts()))
+    if mesh is not None:
+        logger.info("dp rank %d of %d: state digest %s, losses %s",
+                    mesh.rank, mesh.world, state.digest(),
+                    json.dumps([r["loss"].hex() for r in history]))
     return cfg, state, history
 
 
 def main(argv=None):
+    rank = f" rank {os.environ['RANK']}" if "RANK" in os.environ else ""
     logging.basicConfig(level=logging.INFO,
-                        format="[%(levelname)s %(name)s] %(message)s")
+                        format=f"[%(levelname)s %(name)s{rank}] %(message)s")
     run(argv)
 
 

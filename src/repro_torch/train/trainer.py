@@ -24,7 +24,8 @@ injects against):
   steps slower than ``watchdog_factor`` x the EMA log a warning and count
   into the ``slow_steps`` metric.
 * **Bounded retry.**  Transient step failures (``TransientStepError``,
-  ``RuntimeError``) are retried up to ``max_retries`` times with linear
+  ``RuntimeError``; under data parallelism ``TransientStepError`` alone,
+  see below) are retried up to ``max_retries`` times with linear
   backoff before giving up.  A retry re-runs the same step function (the
   same kernels); nothing switches to the plain versions.  The port's step
   updates its state in place, all at once after its last operation that
@@ -37,6 +38,38 @@ injects against):
 
 Metrics may be tensors (on any device), bools or floats: the loop reads
 them with ``float``.
+
+Data parallelism (``mesh``, a ``launch.mesh.DPMesh`` of world > 1; the
+reference's loop is one process, so it has no such argument).  Every rank
+runs this loop on the same global batches and the step exchanges the
+gradients (``train/train_step.py`` ``make_train_step_dp``).  The ranks
+share one filesystem: ``ckpt_dir`` names the same directory on every
+rank.
+
+* rank 0 alone writes checkpoints, the emergency checkpoint too, and every
+  rank waits at a barrier after each regular save, so no rank runs ahead
+  of a checkpoint that may not exist yet.  On ``resume`` every rank
+  restores the newest checkpoint it finds, then the ranks compare the step
+  and the manifest's checksums they restored and raise unless all agree
+  (ranks that do not share the directory would otherwise start from
+  different states and exchange gradients of different steps).  The
+  loader cursor is then the same on every rank, since every rank reads the
+  same global loader;
+* the supervision reads only reduced values (the loss, the skip flag of
+  the reduced gradients), so every rank counts the same skips and aborts
+  at the same step, and ``REPRO_FAULTS`` fires on every rank at the same
+  step (each rank reads the same environment);
+* only ``TransientStepError`` is retried, which ``REPRO_FAULTS`` raises
+  on every rank at the same step, before the step's collectives.  Any
+  other error (a ``RuntimeError`` of one rank, a failed collective) ends
+  the run with the emergency checkpoint: a retry on one rank alone would
+  pair its collectives with its peers' next step, whose all-reduces have
+  the same shapes and order, and the ranks would go on from states one
+  step apart with nothing to show it.  The peers of a rank that ended
+  fail in their next collective (at once when its process is gone, at
+  the process group's timeout otherwise).  Not covered, so: a transient
+  error of one rank alone is not retried; the run ends, and ``resume``
+  takes it up from its last checkpoint.
 """
 from __future__ import annotations
 
@@ -101,6 +134,19 @@ def _resume(state, batches, ckpt_dir: str, fingerprint: Optional[str]):
     return state, start
 
 
+def _check_same_resume(mesh, ckpt_dir: str, start: int) -> None:
+    """Raise unless every rank restored the same checkpoint: the same step
+    and the same per-leaf checksums (none for a fresh start)."""
+    manifest = load_manifest(ckpt_dir, start) if start else None
+    mine = (start, (manifest or {}).get("checksums"))
+    ranks = mesh.gather_objects(mine)
+    if any(r != ranks[0] for r in ranks):
+        raise RuntimeError(
+            "data-parallel ranks resumed from different checkpoints (steps "
+            f"{[r[0] for r in ranks]} in {ckpt_dir!r}): every rank must "
+            "read rank 0's checkpoint directory on one shared filesystem")
+
+
 def train_loop(step_fn: Callable, state, batches: Iterator, *,
                total_steps: int, log_every: int = 10,
                ckpt_dir: Optional[str] = None, ckpt_every: int = 500,
@@ -113,7 +159,8 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
                faults: Optional[FaultInjector] = None,
                config_fingerprint: Optional[str] = None,
                seed: Optional[int] = None,
-               timing_calib: Optional[dict] = None):
+               timing_calib: Optional[dict] = None,
+               mesh=None):
     """Returns (final_state, history list of metric dicts).
 
     ``batches`` may be a plain iterator; if it also implements
@@ -130,11 +177,27 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
     split against the compute twin) and ``overlap_frac`` (the fraction of
     the serial schedule's exchange time this run hides), so overlap wins
     are observable per-run, not inferred from benchmarks.
+
+    ``mesh``: the data-parallel ranks (see the module docstring), or None
+    for one process.
     """
     faults = faults if faults is not None else FaultInjector()
+    writer = mesh is None or mesh.rank == 0
+
+    def _save(step_no, **extra):
+        path = None
+        if writer:
+            path = save_checkpoint(ckpt_dir, step_no, state, keep=keep,
+                                   extra=dict(_extra(), **extra))
+        return path
     start = 0
     if resume and ckpt_dir:
         state, start = _resume(state, batches, ckpt_dir, config_fingerprint)
+        if mesh is not None and mesh.world > 1:
+            _check_same_resume(mesh, ckpt_dir, start)
+    # one rank's retry would put its collectives out of step with its peers'
+    retryable = (TransientStepError,) if mesh is not None and \
+        mesh.world > 1 else (TransientStepError, RuntimeError)
 
     def _extra():
         return _checkpoint_extra(batches, state,
@@ -162,7 +225,7 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
                         faults.maybe_fail(step + 1)
                         state, metrics = step_fn(state, batch)
                         break
-                    except (TransientStepError, RuntimeError) as e:
+                    except retryable as e:
                         if attempt >= max_retries:
                             raise
                         retries_used += 1
@@ -251,21 +314,23 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
                 window_step_s, window_timed = 0.0, 0
             faults.maybe_crash(step + 1)
             if ckpt_dir and (step + 1) % ckpt_every == 0:
-                path = save_checkpoint(ckpt_dir, step + 1, state, keep=keep,
-                                       extra=_extra())
-                faults.maybe_torn_write(step + 1, path)
+                path = _save(step + 1)
+                if path is not None:
+                    faults.maybe_torn_write(step + 1, path)
+                if mesh is not None:
+                    mesh.barrier()
     except Exception:
-        if ckpt_dir:
+        if ckpt_dir and writer:
             done = step if step < total_steps else total_steps
             try:
-                save_checkpoint(ckpt_dir, done, state, keep=keep,
-                                extra=dict(_extra(), emergency=True))
+                _save(done, emergency=True)
                 logger.warning("emergency checkpoint saved at step %d in %s",
                                done, ckpt_dir)
             except Exception as ce:  # noqa: BLE001 -- best effort only
                 logger.warning("emergency checkpoint failed: %s", ce)
         raise
     if ckpt_dir and start < total_steps:
-        save_checkpoint(ckpt_dir, total_steps, state, keep=keep,
-                        extra=_extra())
+        _save(total_steps)
+        if mesh is not None:
+            mesh.barrier()
     return state, history

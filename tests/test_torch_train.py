@@ -253,11 +253,25 @@ def test_bert_phases_match_the_reference():
 
 
 def test_train_config_refuses_the_later_slices_knobs():
+    """The four uncompressed strategies and ``bucket_bytes`` are supported
+    (the data-parallel slice); compression, the overlapped drain, its
+    calibration-only ``"local"`` strategy and AdamW are refused, each
+    naming what it waits for."""
     TrainConfig().check_supported()
     TrainConfig(fsdp=False, pure_dp=True).check_supported()
-    for kw in (dict(collective_strategy="ring"), dict(grad_compression="int8"),
-               dict(overlap_exchange=True), dict(optimizer="adamw")):
-        with pytest.raises(NotImplementedError):
+    for strategy in ("psum", "ring", "hierarchical", "bucketed"):
+        TrainConfig(collective_strategy=strategy,
+                    bucket_bytes=64).check_supported()
+    for kw, names in (
+            (dict(grad_compression="int8"), "compressed exchange"),
+            (dict(grad_compression="fp16"), "compressed exchange"),
+            (dict(overlap_exchange=True), "overlapped drain"),
+            (dict(collective_strategy="local"), "overlapped drain"),
+            (dict(optimizer="adamw"), "AdamW")):
+        with pytest.raises(NotImplementedError, match=names):
+            TrainConfig(**kw).check_supported()
+    for kw in (dict(collective_strategy="allgather"), dict(bucket_bytes=0)):
+        with pytest.raises(ValueError):
             TrainConfig(**kw).check_supported()
     assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(
         JTrainConfig())
