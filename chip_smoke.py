@@ -136,23 +136,40 @@
    checkpoint bytes, each save's and restore's seconds and the runs'
    seconds are logged with the card's name and power limit; each run's
    workdir is removed once checked.
-10. Data-parallel phase, two parts.  (a) NCCL at world 1 through the real
+10. Data-parallel phase, four parts.  (a) NCCL at world 1 through the real
    CLI: ``python -m torch.distributed.run --standalone --nproc-per-node 1
    -m repro_torch.launch.pretrain_bert --dp --strategy psum`` with step
    8's arguments in bf16; every logged loss must have the float32 bits of
    step 8's bf16 run (at world 1 the all-reduce copies and the division by
-   1 is exact) and every training kernel must have launched.  (b) Four
-   gloo ranks sharing the card: ``python -m repro_torch.launch.dp_check
-   --full-width --world 4 --pods 2 --backend gloo --share-device``
-   (bert-large at full width and depth, bf16, one phase-1 global batch of
-   128 x 128 tokens with accumulation 2, one step under each of psum,
-   ring, hierarchical and bucketed): every rank's state the same bits
-   under each strategy, each strategy's masters within rtol 1e-5, atol
-   1e-6 of psum's and its loss within rtol 1e-5, every kernel of a
-   phase-1 step launched on every rank.  Each strategy's exchange seconds
-   on each rank (staged through host memory, a reading of that path and
-   not of NCCL), ``exchange_bytes_per_step``, the step's seconds, each
-   rank's peak device memory and the phase's seconds are logged.
+   1 is exact) and every training kernel must have launched.  (c) The
+   same CLI with ``--grad-compression int8 --overlap --timing-breakdown
+   --ckpt-every 3``, three processes: uninterrupted; crashed by
+   ``REPRO_FAULTS=crash_at=4`` (after phase 1's checkpoint 3, whose
+   residual group -- 26 leaves of (1, ...) -- must be nonzero); and
+   resumed from step 3.  Every loss of the faulted runs must have the
+   uninterrupted run's float32 bits, every training kernel must launch in
+   the runs that end, and the runs log the compute twin's and serial
+   twin's step (each phase) and ``compute_s``, ``exchange_s`` and
+   ``overlap_frac`` (each logged step); the checkpoint's bytes and the
+   residual's are logged.  (b) and (d) Four gloo ranks sharing the card:
+   ``python -m repro_torch.launch.dp_check --full-width --world 4 --pods 2
+   --backend gloo --share-device --cases ...`` (bert-large at full width
+   and depth, bf16, one phase-1 global batch of 128 x 128 tokens with
+   accumulation 2, one step under each case: psum, ring, hierarchical,
+   bucketed, then fp16 over hierarchical, int8 over psum, bucketed with
+   the overlapped drain and int8 over psum with it): every rank's
+   replicated state the same bits under each case; each uncompressed
+   case's masters within rtol 1e-5, atol 1e-6 of psum's; every loss
+   within rtol 1e-5 of psum's; each compressed case's mean gradients
+   within the reference test's tolerance of psum's (fp16 1e-3, int8
+   5e-2, relative and of each bucket's largest), each rank's residual
+   nonzero and its own; each overlapped case the bits of its serial case;
+   every kernel of a phase-1 step launched on every rank.  Each case's
+   exchange seconds on each rank (staged through host memory, a reading
+   of that path and not of NCCL), ``exchange_bytes_per_step`` for its
+   compression, the quantise and dequantise seconds within it, the
+   step's seconds, each rank's peak device memory and each part's
+   seconds are logged.
 11. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -2225,50 +2242,227 @@ def resume_phase(latest_step) -> dict:
 # data-parallel phase
 # ---------------------------------------------------------------------------
 
+# (b) the four strategies and (d) the compressed and overlapped cases, in
+# one dp_check run (each serial case before its overlapped twin)
+DP_CASES = ("psum", "ring", "hierarchical", "bucketed", "hierarchical+fp16",
+            "psum+int8", "bucketed+overlap", "psum+int8+overlap")
 DP_CHECK_ARGS = ["--full-width", "--world", "4", "--pods", "2", "--backend",
-                 "gloo", "--share-device"]
+                 "gloo", "--share-device", "--cases", *DP_CASES]
 # a phase-1 step (one 128-key tile) launches no flash backward post-pass
 DP_KERNELS = tuple(k for k in TRAIN_KERNELS if k != "flash_bwd_post")
+# (c): int8 + overlap + the timing breakdown at world 1 on NCCL, step 8's
+# arguments; a checkpoint at phase-1 step 3 (holding 3 steps' residual)
+# and the phase's end, 4; the crash after step 4 leaves step 3's
+DP_COMP_FLAGS = ["--dp", "--strategy", "psum", "--grad-compression", "int8",
+                 "--overlap", "--timing-breakdown", "--ckpt-every", "3",
+                 "--precision", "bf16"]
+DP_CRASH, DP_FROM = 4, 3
+# (a) the serial exchange and (a') the uncompressed overlapped drain at
+# world 1 on NCCL, each held to the in-process run's bits
+DP_WORLD1 = (("(a)", ["--dp", "--strategy", "psum", "--precision", "bf16"]),
+             ("(a')", ["--dp", "--strategy", "bucketed", "--overlap",
+                       "--precision", "bf16"]))
+TIMING_LINE = re.compile(r"(phase\d) step (\d+): .*; compute_s ([\d.]+), "
+                         r"exchange_s ([\d.]+), overlap_frac ([\w.]+)")
+QUANT_LINE = re.compile(r"(phase\d) step (\d+): .*; quantise_s ([\d.]+), "
+                        r"dequantise_s ([\d.]+)")
+
+
+def dp_torchrun(workdir: Path, loss_log: Path, extra, faults: str = "",
+                timeout: int = 600) -> dict:
+    """One torchrun world-1 process of ``pretrain_bert`` with TRAIN_ARGS
+    and ``extra``: its exit code, output, seconds and its training loops'
+    kernel launches (the timing calibration's twins left out)."""
+    env = _port_env()
+    if faults:
+        env["REPRO_FAULTS"] = faults
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.pretrain_bert",
+           *TRAIN_ARGS, *extra, "--workdir", str(workdir), "--loss-log",
+           str(loss_log)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    out = proc.stdout + proc.stderr
+    launches = re.search(r"kernel launches (\{.*\})", out)
+    return {"rc": proc.returncode, "out": out,
+            "s": time.perf_counter() - t0,
+            "ckpt": [(int(m[0]), m[1], Path(m[2]).name, int(m[3]),
+                      float(m[4])) for m in CKPT_LINE.findall(out)],
+            "launches": json.loads(launches[1]) if launches else None}
+
+
+def dp_compressed_cli(tmp: Path) -> dict:
+    """(c): ``--dp --grad-compression int8 --overlap --timing-breakdown``
+    at world 1 on NCCL through torchrun, full width in bf16: an
+    uninterrupted run, one crashed after phase-1 step DP_CRASH, and the
+    crashed one resumed from step DP_FROM.  Every loss of the faulted runs
+    must have the uninterrupted run's bits, every training kernel must
+    launch in the runs that ended, the checkpoint must hold the residual
+    group, and the runs must log compute_s, exchange_s and overlap_frac."""
+    t_part = time.perf_counter()
+
+    def ran(tag, rc, run):
+        """The run's exit (torchrun exits 1 when its rank fails, and names
+        the rank's code), NCCL on the card, and every training kernel
+        launched in a run that ended."""
+        if (run["rc"] == 0) != (rc == 0) or (rc and not re.search(
+                rf"exitcode\s*:\s*{rc}", run["out"])):
+            raise AssertionError(f"dp (c): the {tag} run exited "
+                                 f"{run['rc']}, its rank not {rc}:\n"
+                                 f"{run['out'][-4000:]}")
+        if "rank 0 of 1 (pod 0 of 1), nccl on cuda:0" not in run["out"]:
+            raise AssertionError(f"dp (c): the {tag} run did not run on "
+                                 "NCCL on cuda:0")
+        missed = [k for k in TRAIN_KERNELS
+                  if rc == 0 and not (run["launches"] or {}).get(k, 0) > 0]
+        if missed:
+            raise AssertionError(f"dp (c): the {tag} run never launched "
+                                 f"{missed}")
+        return run
+
+    runs = {}
+    runs["whole"] = ran("whole", 0, dp_torchrun(
+        tmp / "whole", tmp / "whole.jsonl", DP_COMP_FLAGS))
+    shutil.rmtree(tmp / "whole" / "ckpt", ignore_errors=True)
+    runs["crash"] = ran("crash", 43, dp_torchrun(
+        tmp / "run", tmp / "run.jsonl", DP_COMP_FLAGS,
+        faults=f"crash_at={DP_CRASH}"))
+    man = json.loads((tmp / "run" / "ckpt" / "phase1" /
+                      f"ckpt_{DP_FROM:08d}.json").read_text())
+    npz = tmp / "run" / "ckpt" / "phase1" / f"ckpt_{DP_FROM:08d}.npz"
+    err = [(n, sh) for n, sh in zip(man["names"], man["shapes"])
+           if n.startswith("err/")]
+    with np.load(npz) as z:
+        err_max = max(float(np.abs(z[f"a{man['names'].index(n):06d}"]).max())
+                      for n, _ in err)
+    ckpt = {"bytes": npz.stat().st_size, "leaves": len(man["names"]),
+            "residual_leaves": len(err),
+            "residual_bytes": 4 * sum(int(np.prod(sh)) for _, sh in err),
+            "residual_max": err_max}
+    runs["resumed"] = ran("resumed", 0, dp_torchrun(
+        tmp / "run", tmp / "run.jsonl", DP_COMP_FLAGS + ["--resume"]))
+    if f"resumed from checkpoint step {DP_FROM} in" not in \
+            runs["resumed"]["out"]:
+        raise AssertionError(f"dp (c): the resumed run did not start from "
+                             f"step {DP_FROM}")
+    if len(err) != 26 or any(sh[0] != 1 for _, sh in err) or \
+            not err_max > 0:
+        raise AssertionError(f"dp (c): checkpoint {DP_FROM} holds residual "
+                             f"leaves {err[:3]}... ({len(err)}), max "
+                             f"{err_max}")
+    ref = dict(read_losses(tmp / "whole.jsonl"))
+    got = read_losses(tmp / "run.jsonl")
+    want_keys = [("phase1", i) for i in range(1, DP_CRASH + 1)] + \
+        [("phase1", i) for i in range(DP_FROM + 1, 5)] + [("phase2", 1)]
+    if sorted(ref) != [("phase1", i) for i in range(1, 5)] + [
+            ("phase2", 1)] or [k for k, _ in got] != want_keys:
+        raise AssertionError(f"dp (c): logged {sorted(ref)} and {got}")
+    differ = [(k, v.hex(), ref[k].hex()) for k, v in got
+              if v.hex() != ref[k].hex()]
+    for k, v in got:
+        log(f"dp (c): {k[0]} step {k[1]} loss {v.hex()}, uninterrupted "
+            f"{ref[k].hex()}")
+    if differ:
+        raise AssertionError(f"dp (c): losses differ from the "
+                             f"uninterrupted run's bits: {differ}")
+    timing = {tag: TIMING_LINE.findall(runs[tag]["out"])
+              for tag in ("whole", "resumed")}
+    calib = re.findall(r"(phase\d) timing calibration: compute ([\d.]+) ms "
+                       r"\| serial step ([\d.]+) ms", runs["whole"]["out"])
+    if not timing["whole"] or len(calib) != 2:
+        raise AssertionError("dp (c): no compute_s / exchange_s / "
+                             "overlap_frac in the log")
+    for phase, compute_ms, serial_ms in calib:
+        log(f"dp (c): {phase} timing calibration: compute twin "
+            f"{compute_ms} ms, serial twin {serial_ms} ms (median of 3)")
+    for tag, rows in timing.items():
+        for phase, step, c, x, o in rows:
+            log(f"dp (c): {tag} {phase} step {step}: compute_s {c}, "
+                f"exchange_s {x}, overlap_frac {o}")
+    quant = QUANT_LINE.findall(runs["whole"]["out"])
+    if not quant:
+        raise AssertionError("dp (c): no quantise_s / dequantise_s in the "
+                             "log")
+    for phase, step, qs, ds in quant:
+        log(f"dp (c): whole {phase} step {step}: int8 quantise {qs} s, "
+            f"dequantise {ds} s on the card (world 1: nothing to exchange)")
+    for tag, run in runs.items():
+        log(f"dp (c): {tag} run exit {run['rc']} in {run['s']:.1f} s; "
+            "checkpoints " + "; ".join(
+                f"{d} step {st} {what.split()[0]} {b} bytes in {sec:.3f} s"
+                for st, what, d, b, sec in run["ckpt"])
+            + ("" if run["launches"] is None else
+               f"; training-loop launches {run['launches']}"))
+    log(f"dp (c): checkpoint {DP_FROM}: {ckpt['bytes']} bytes, "
+        f"{ckpt['leaves']} leaves, of them the residual group "
+        f"{ckpt['residual_leaves']} leaves, {ckpt['residual_bytes']} "
+        f"bytes, max |residual| {ckpt['residual_max']:.3g}; "
+        f"{len(got)} losses equal in bits")
+    return {"runs_s": {k: r["s"] for k, r in runs.items()}, "ckpt": ckpt,
+            "timing": timing, "calib": calib, "quant": quant,
+            "part_s": time.perf_counter() - t_part}
 
 
 def dp_phase(ref_losses: list) -> dict:
-    """(a) ``--dp`` at world 1 on NCCL through torchrun and the CLI, held
-    to ``ref_losses`` (step 8's in-process bf16 run) bit for bit; (b)
-    ``dp_check.py`` with four gloo ranks sharing the card."""
+    """(a) ``--dp`` at world 1 on NCCL through torchrun and the CLI, and
+    (a') the same with ``--strategy bucketed --overlap`` (the uncompressed
+    drain's asynchronous NCCL all-reduces started from the backward's leaf
+    hooks), each held to ``ref_losses`` (step 8's in-process bf16 run) bit
+    for bit; (c) the
+    compressed exchange, the overlapped drain and the timing breakdown
+    through the CLI, crash and resume included; (b) and (d) ``dp_check.py``
+    with four gloo ranks sharing the card, the four strategies and then
+    the compressed and overlapped cases."""
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
-        tmp = Path(tmp)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", "1", "-m",
-               "repro_torch.launch.pretrain_bert", "--dp", "--strategy",
-               "psum", *TRAIN_ARGS, "--precision", "bf16", "--workdir",
-               str(tmp / "w"), "--loss-log", str(tmp / "loss.jsonl")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, env=_port_env(), capture_output=True,
-                              text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        out = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise AssertionError(f"dp: the torchrun --dp run exited "
-                                 f"{proc.returncode}:\n{out[-4000:]}")
+    cli_s = {}
+    for tag, extra in DP_WORLD1:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+            tmp = Path(tmp)
+            run = dp_torchrun(tmp / "w", tmp / "loss.jsonl", extra)
+            got = read_losses(tmp / "loss.jsonl") if run["rc"] == 0 else []
+        cli_s[tag] = run["s"]
+        out = run["out"]
+        if run["rc"] != 0:
+            raise AssertionError(f"dp {tag}: the torchrun --dp run exited "
+                                 f"{run['rc']}:\n{out[-4000:]}")
         if "rank 0 of 1 (pod 0 of 1), nccl on cuda:0" not in out:
-            raise AssertionError("dp: the --dp run did not run on NCCL on "
-                                 f"cuda:0:\n{out[-4000:]}")
-        launches = json.loads(re.search(r"kernel launches (\{.*\})",
-                                        out)[1])
-        missed = [k for k in TRAIN_KERNELS if not launches.get(k, 0) > 0]
-        got = read_losses(tmp / "loss.jsonl")
-    for (key, loss), (want_key, want) in zip(got, ref_losses):
-        log(f"dp: NCCL world 1 {key[0]} step {key[1]} loss {loss.hex()}, "
-            f"in-process {want.hex()} ({want_key[0]} step {want_key[1]})")
-    if [k for k, _ in got] != [k for k, _ in ref_losses] or any(
-            a.hex() != b.hex() for (_, a), (_, b) in zip(got, ref_losses)):
-        raise AssertionError(f"dp: the NCCL world-1 losses {got} are not "
-                             f"the in-process run's {ref_losses}")
-    if missed:
-        raise AssertionError(f"dp: the --dp run never launched {missed}")
-    log(f"dp: NCCL world 1 through torchrun: {len(got)} losses equal in "
-        f"bits, launches {launches}, {cli_s:.1f} s")
+            raise AssertionError(f"dp {tag}: the --dp run did not run on "
+                                 f"NCCL on cuda:0:\n{out[-4000:]}")
+        for (key, loss), (want_key, want) in zip(got, ref_losses):
+            log(f"dp {tag}: NCCL world 1 {key[0]} step {key[1]} loss "
+                f"{loss.hex()}, in-process {want.hex()} ({want_key[0]} step "
+                f"{want_key[1]})")
+        if [k for k, _ in got] != [k for k, _ in ref_losses] or any(
+                a.hex() != b.hex() for (_, a), (_, b) in zip(got, ref_losses)):
+            raise AssertionError(f"dp {tag}: the NCCL world-1 losses {got} "
+                                 f"are not the in-process run's {ref_losses}")
+        missed = [k for k in TRAIN_KERNELS
+                  if not (run["launches"] or {}).get(k, 0) > 0]
+        if missed:
+            raise AssertionError(f"dp {tag}: the --dp run never launched "
+                                 f"{missed}")
+        drained = ""
+        if "--overlap" in extra:
+            # every bucket of the last step started from a leaf hook, an
+            # asynchronous NCCL all-reduce during the backward
+            order = re.search(r"started buckets (\[[\d, ]*\]) of (\d+) "
+                              r"during the backward", out)
+            if not order or not json.loads(order[1]) or sorted(
+                    json.loads(order[1])) != list(range(int(order[2]))):
+                raise AssertionError(f"dp {tag}: the drain started no "
+                                     f"bucket during the backward:\n"
+                                     f"{out[-4000:]}")
+            drained = (f", the last step's buckets started during the "
+                       f"backward in order {order[1]} of {order[2]}")
+        log(f"dp {tag}: NCCL world 1 through torchrun ({' '.join(extra)}): "
+            f"{len(got)} losses equal in bits, training-loop launches "
+            f"{run['launches']}{drained}, {run['s']:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dpc_") as tmp:
+        part_c = dp_compressed_cli(Path(tmp))
+    log(f"dp (c) on {nvidia_smi()}: {part_c['part_s']:.1f} s (runs "
+        + ", ".join(f"{k} {v:.1f}" for k, v in part_c["runs_s"].items())
+        + " s)")
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dp_check",
@@ -2286,26 +2480,53 @@ def dp_phase(ref_losses: list) -> dict:
     if not (res["world"] == 4 and res["pods"] == 2 and res["staged"]
             and res["layers"] == 24 and res["d_model"] == 1024):
         raise AssertionError(f"dp: dp_check ran {res}")
-    for strategy, rec in res["strategies"].items():
-        missed = [(r, k) for r, rank in enumerate(rec["ranks"])
+    if list(res["strategies"]) != list(DP_CASES):
+        raise AssertionError(f"dp: dp_check ran {list(res['strategies'])}")
+    for case, rec in res["strategies"].items():
+        ranks = rec["ranks"]
+        missed = [(r, k) for r, rank in enumerate(ranks)
                   for k in DP_KERNELS if not rank["launches"][k] > 0]
-        if not rec["digests_equal"] or missed:
-            raise AssertionError(f"dp: {strategy}: {rec}")
-        log(f"dp: {strategy} world 4 (2 pods), gloo staged: loss "
+        comp = rec["compression"] != "none"
+        bad = (not rec["digests_equal"] or missed
+               or rec["loss_vs_psum"] > 1e-5
+               or (rec["overlap"] and rec.get("serial_bits") is not True)
+               or (comp and (
+                   len({r["residual_digest"] for r in ranks}) != len(ranks)
+                   or any(r["grads_vs_psum"]["outside_tol"]
+                          or not r["residual_max"] > 0 for r in ranks)))
+               or (not comp and any(r["vs_psum"]["outside_tol"]
+                                    for r in ranks)))
+        if bad:
+            raise AssertionError(f"dp: {case}: {rec}")
+        log(f"dp: {case} world 4 (2 pods), gloo staged: loss "
             f"{rec['loss']!r} (vs psum {rec['loss_vs_psum']:.3g}), digests "
             f"equal, exchange_bytes_per_step {rec['exchange_bytes']:.0f} B a "
-            "rank; exchange s a rank " + ", ".join(
-                f"{r['exchange_s']:.4f}" for r in rec["ranks"])
-            + "; step s " + ", ".join(f"{r['step_s']:.3f}"
-                                      for r in rec["ranks"])
+            f"rank ({rec['compression']}); exchange s a rank " + ", ".join(
+                f"{r['exchange_s']:.4f}" for r in ranks)
+            + "; step s " + ", ".join(f"{r['step_s']:.3f}" for r in ranks)
             + "; peak GiB " + ", ".join(f"{r['peak_gib']:.2f}"
-                                        for r in rec["ranks"])
-            + f"; masters vs psum {rec['ranks'][0]['vs_psum']}")
+                                        for r in ranks)
+            + f"; masters vs psum {ranks[0]['vs_psum']}"
+            + ("" if "serial_bits" not in rec else
+               f"; the serial case's bits {rec['serial_bits']}"))
+        if comp:
+            log(f"dp: {case}: quantise s a rank " + ", ".join(
+                f"{r['compress_s'].get('quantise', 0.0):.4f}" for r in ranks)
+                + "; dequantise s a rank " + ", ".join(
+                f"{r['compress_s'].get('dequantise', 0.0):.4f}"
+                for r in ranks)
+                + f" (within the exchange); gradients vs psum's "
+                f"{ranks[0]['grads_vs_psum']}; residual max "
+                + ", ".join(f"{r['residual_max']:.3g}" for r in ranks)
+                + "; residuals differ by rank")
     phase_s = time.perf_counter() - t_phase
-    log(f"dp on {nvidia_smi()}: torchrun world 1 {cli_s:.1f} s, dp_check "
-        f"{check_s:.1f} s ({res['seconds']:.1f} s in its ranks), phase "
-        f"{phase_s:.1f} s")
-    return {"cli_s": cli_s, "check_s": check_s, "phase_s": phase_s}
+    log(f"dp on {nvidia_smi()}: torchrun world 1 " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in cli_s.items()) + ", (c) "
+        f"{part_c['part_s']:.1f} s, (b) + "
+        f"(d) dp_check {check_s:.1f} s ({res['seconds']:.1f} s in its "
+        f"ranks), phase {phase_s:.1f} s")
+    return {"cli_s": cli_s, "c_s": part_c["part_s"], "check_s": check_s,
+            "phase_s": phase_s}
 
 
 def main(argv=None) -> int:

@@ -185,14 +185,14 @@ class TrainConfig:
 
     The port trains on one card, or data-parallel over ranks of
     ``torch.distributed`` (``train/train_step.py`` ``make_train_step_dp``)
-    with any of the four uncompressed strategies and ``bucket_bytes``, in
-    the serial accumulation schedule.  The fields of gradient compression
-    and the overlapped drain exist so that a reference config reads the
-    same here, but ``check_supported`` raises when one of them is set to
-    anything but its default, for the calibration-only strategy
-    ``"local"`` and for ``optimizer="adamw"``.  The sharding fields
-    (``fsdp``, ``shard_grads``, ``pure_dp``) change nothing in pure data
-    parallelism, as in the reference on a one-device mesh.
+    with any of the four strategies and ``bucket_bytes``, the fp16/int8
+    compressed exchange (``grad_compression``), the overlapped drain
+    (``overlap_exchange``) and the calibration-only strategy ``"local"``
+    (no exchange at all; it takes neither compression nor overlap).
+    ``check_supported`` raises for ``optimizer="adamw"``, which belongs to
+    a later slice.  The sharding fields (``fsdp``, ``shard_grads``,
+    ``pure_dp``) change nothing in pure data parallelism, as in the
+    reference on a one-device mesh.
     """
     precision: str = "bf16"            # f32 | bf16 | f16
     accum_steps: int = 4
@@ -214,26 +214,26 @@ class TrainConfig:
     seed: int = 0
 
     def check_supported(self) -> None:
-        """Raise for the knobs that belong to later slices (naming the
-        slice) and for an unknown strategy."""
-        later = (
-            ("grad_compression", "none", "the fp16/int8 compressed exchange "
-             "with its error-feedback residual"),
-            ("overlap_exchange", False, "the overlapped drain"),
-            ("optimizer", "lamb", "AdamW"))
-        for name, default, slice_ in later:
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r}: "
-                    f"{slice_} comes with a later slice of the port")
-        if self.collective_strategy == "local":
+        """Raise for AdamW (a later slice, named), and ``ValueError`` for
+        an unknown strategy or compression and for ``"local"`` with
+        compression or overlap."""
+        from repro_torch.core.collectives import GRAD_COMPRESSIONS, STRATEGIES
+        if self.optimizer != "lamb":
             raise NotImplementedError(
-                "TrainConfig.collective_strategy='local': the no-exchange "
-                "calibration twin comes with the overlapped drain's slice")
-        if self.collective_strategy not in (
-                "psum", "ring", "hierarchical", "bucketed"):
+                f"TrainConfig.optimizer={self.optimizer!r}: AdamW comes with "
+                "a later slice of the port")
+        if self.collective_strategy not in STRATEGIES + ("local",):
             raise ValueError(f"unknown collective strategy "
                              f"{self.collective_strategy!r}")
+        if self.grad_compression not in GRAD_COMPRESSIONS:
+            raise ValueError(f"unknown gradient compression "
+                             f"{self.grad_compression!r} (one of "
+                             f"{GRAD_COMPRESSIONS})")
+        if self.collective_strategy == "local" and (
+                self.grad_compression != "none" or self.overlap_exchange):
+            raise ValueError("collective_strategy 'local' (the calibration "
+                             "twin) exchanges nothing: it takes no "
+                             "grad_compression and no overlap_exchange")
         if self.bucket_bytes <= 0:
             raise ValueError(f"bucket_bytes {self.bucket_bytes} must be "
                              "positive")

@@ -74,6 +74,14 @@ class DPMesh:
         return self.rank // self.n_fast
 
     @property
+    def exchange_order(self) -> list:
+        """The ranks in the order of the reference's compressed exchange,
+        which runs over its axes ("data", "pod"): position p is the rank
+        of fast index p // pods in pod p % pods."""
+        return [(p % self.pods) * self.n_fast + p // self.pods
+                for p in range(self.world)]
+
+    @property
     def backend(self) -> Optional[str]:
         return None if self.group is None else dist.get_backend(self.group)
 

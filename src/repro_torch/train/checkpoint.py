@@ -295,9 +295,12 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
 
     With ``step=None`` walks checkpoints newest to oldest, skipping invalid
     ones loudly; raises ``FileNotFoundError`` when no valid checkpoint
-    exists (callers treat that as "start fresh").  An explicit ``step``
-    must validate or a ``ValueError`` is raised.  Returns (tree, step); a
-    tree with ``load_checkpoint_leaves`` is ``like`` itself, updated.
+    exists (callers treat that as "start fresh"), chained to the last
+    load error (a ``ValueError`` when a valid checkpoint holds another
+    state's leaves, which ``train/trainer.py`` does not start fresh
+    over).  An explicit ``step`` must validate or a ``ValueError`` is
+    raised.  Returns (tree, step); a tree with ``load_checkpoint_leaves``
+    is ``like`` itself, updated.
     """
     if step is not None:
         if not validate_checkpoint(ckpt_dir, step):
@@ -332,5 +335,5 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
     if last_err is not None:
         raise FileNotFoundError(
             f"no restorable checkpoint in {ckpt_dir} "
-            f"(last error: {last_err})")
+            f"(last error: {last_err})") from last_err
     raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")

@@ -48,13 +48,16 @@ rank.
 
 * rank 0 alone writes checkpoints, the emergency checkpoint too, and every
   rank waits at a barrier after each regular save, so no rank runs ahead
-  of a checkpoint that may not exist yet.  On ``resume`` every rank
-  restores the newest checkpoint it finds, then the ranks compare the step
-  and the manifest's checksums they restored and raise unless all agree
-  (ranks that do not share the directory would otherwise start from
-  different states and exchange gradients of different steps).  The
-  loader cursor is then the same on every rank, since every rank reads the
-  same global loader;
+  of a checkpoint that may not exist yet.  With the compressed exchange
+  the state holds a residual per rank (``TrainState.err``), and a
+  checkpoint must hold every rank's row: before each regular save every
+  rank joins a gather of the rows to rank 0 (``gather_residual``).  On
+  ``resume`` every rank restores the newest checkpoint it finds (its own
+  residual row), then the ranks compare the step and the manifest's
+  checksums they restored and raise unless all agree (ranks that do not
+  share the directory would otherwise start from different states and
+  exchange gradients of different steps).  The loader cursor is then the
+  same on every rank, since every rank reads the same global loader;
 * the supervision reads only reduced values (the loss, the skip flag of
   the reduced gradients), so every rank counts the same skips and aborts
   at the same step, and ``REPRO_FAULTS`` fires on every rank at the same
@@ -69,7 +72,19 @@ rank.
   fail in their next collective (at once when its process is gone, at
   the process group's timeout otherwise).  Not covered, so: a transient
   error of one rank alone is not retried; the run ends, and ``resume``
-  takes it up from its last checkpoint.
+  takes it up from its last checkpoint;
+* the emergency checkpoint of a state with a residual needs every rank's
+  row, so a gather every rank must join.  Every rank reaches the
+  emergency path at the same step only for ``NonFiniteBudgetError`` and
+  for ``TransientStepError`` whose retries ran out (the supervision reads
+  reduced values alone, and ``REPRO_FAULTS`` fires on every rank): those
+  gather and save.  For any other error at world > 1 with a residual no
+  emergency checkpoint is written, and a warning names the last regular
+  one: a checkpoint with a rank's residual missing, zeroed or stale is
+  never written.
+* A checkpoint whose leaves are not the state's (a residual group where
+  the run has none or the other way round, another world) raises
+  ``ValueError`` on ``resume`` instead of starting fresh over it.
 """
 from __future__ import annotations
 
@@ -82,6 +97,7 @@ from repro_torch.core.amp import LossScaleState, loss_scale_summary
 from repro_torch.train.checkpoint import (load_manifest, restore_checkpoint,
                                           save_checkpoint)
 from repro_torch.train.faults import FaultInjector, TransientStepError
+from repro_torch.train.train_step import ResidualRows, gather_residual
 
 logger = logging.getLogger("repro_torch.train")
 
@@ -109,7 +125,12 @@ def _resume(state, batches, ckpt_dir: str, fingerprint: Optional[str]):
     """Restore (state, start_step), reloading the data cursor if possible."""
     try:
         state, start = restore_checkpoint(ckpt_dir, state)
-    except FileNotFoundError:
+    except FileNotFoundError as e:
+        if isinstance(e.__cause__, ValueError):
+            # a valid checkpoint of another state: starting fresh would
+            # write over the run it belongs to
+            raise ValueError(f"cannot resume from {ckpt_dir}: "
+                             f"{e.__cause__}") from e
         logger.info("no checkpoint in %s: starting fresh from step 0",
                     ckpt_dir)
         return state, 0
@@ -169,14 +190,15 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
     from the ``REPRO_FAULTS`` env var (no-op when unset).
 
     ``timing_calib``: optional ``{"compute_s": float, "serial_step_s":
-    float}`` calibration (the reference's ``launch/train.py`` times a
-    no-exchange twin and a serial-schedule twin of its data-parallel step
-    once at startup; the port's exchange comes with the data-parallel
-    slice, and no caller passes it yet).  When present, every logged
-    window also reports ``compute_s`` / ``exchange_s`` (mean step time
-    split against the compute twin) and ``overlap_frac`` (the fraction of
-    the serial schedule's exchange time this run hides), so overlap wins
-    are observable per-run, not inferred from benchmarks.
+    float}`` calibration (``launch/pretrain_bert.py --timing-breakdown``
+    times a no-exchange twin and a serial-schedule twin of its
+    data-parallel step at the start of each phase, as the reference's
+    ``launch/train.py`` does once).  When present, every logged window
+    also reports ``compute_s`` / ``exchange_s`` (mean step time split
+    against the compute twin) and ``overlap_frac`` (the fraction of the
+    serial schedule's exchange time this run hides; not reported when the
+    serial twin shows no exchange time to hide), so overlap wins are
+    observable per-run, not inferred from benchmarks.
 
     ``mesh``: the data-parallel ranks (see the module docstring), or None
     for one process.
@@ -184,10 +206,16 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
     faults = faults if faults is not None else FaultInjector()
     writer = mesh is None or mesh.rank == 0
 
+    gather = getattr(state, "err", None) is not None and mesh is not None \
+        and mesh.world > 1
+
     def _save(step_no, **extra):
+        tree = state
+        if gather:   # every rank joins; rank 0 gets every rank's row
+            tree = ResidualRows(state, gather_residual(state, mesh))
         path = None
         if writer:
-            path = save_checkpoint(ckpt_dir, step_no, state, keep=keep,
+            path = save_checkpoint(ckpt_dir, step_no, tree, keep=keep,
                                    extra=dict(_extra(), **extra))
         return path
     start = 0
@@ -204,6 +232,7 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
                                  fingerprint=config_fingerprint, seed=seed)
 
     history = []
+    last_saved = start or None     # the newest checkpoint this run has
     consecutive_skips = total_skips = slow_steps = retries_used = 0
     step = start
     ema_dt: Optional[float] = None
@@ -315,17 +344,29 @@ def train_loop(step_fn: Callable, state, batches: Iterator, *,
             faults.maybe_crash(step + 1)
             if ckpt_dir and (step + 1) % ckpt_every == 0:
                 path = _save(step + 1)
+                last_saved = step + 1
                 if path is not None:
                     faults.maybe_torn_write(step + 1, path)
                 if mesh is not None:
                     mesh.barrier()
-    except Exception:
-        if ckpt_dir and writer:
+    except Exception as e:
+        everywhere = isinstance(e, (NonFiniteBudgetError,
+                                    TransientStepError))
+        if ckpt_dir and gather and not everywhere:
+            if writer:
+                logger.warning(
+                    "no emergency checkpoint: %s may have ended this rank "
+                    "alone, and the residuals of the other ranks cannot be "
+                    "gathered; the last regular checkpoint in %s is step "
+                    "%s", type(e).__name__, ckpt_dir,
+                    "none" if last_saved is None else last_saved)
+        elif ckpt_dir and (writer or gather):
             done = step if step < total_steps else total_steps
             try:
                 _save(done, emergency=True)
-                logger.warning("emergency checkpoint saved at step %d in %s",
-                               done, ckpt_dir)
+                if writer:
+                    logger.warning("emergency checkpoint saved at step %d "
+                                   "in %s", done, ckpt_dir)
             except Exception as ce:  # noqa: BLE001 -- best effort only
                 logger.warning("emergency checkpoint failed: %s", ce)
         raise

@@ -253,24 +253,26 @@ def test_bert_phases_match_the_reference():
 
 
 def test_train_config_refuses_the_later_slices_knobs():
-    """The four uncompressed strategies and ``bucket_bytes`` are supported
-    (the data-parallel slice); compression, the overlapped drain, its
-    calibration-only ``"local"`` strategy and AdamW are refused, each
-    naming what it waits for."""
+    """The four strategies, ``bucket_bytes``, the compressed exchange, the
+    overlapped drain and its calibration-only ``"local"`` strategy are
+    supported; AdamW (a later slice) is refused, naming itself, and an
+    unknown strategy or compression, a bucket size of 0 and ``"local"``
+    with compression or overlap raise ``ValueError``."""
     TrainConfig().check_supported()
     TrainConfig(fsdp=False, pure_dp=True).check_supported()
     for strategy in ("psum", "ring", "hierarchical", "bucketed"):
-        TrainConfig(collective_strategy=strategy,
-                    bucket_bytes=64).check_supported()
-    for kw, names in (
-            (dict(grad_compression="int8"), "compressed exchange"),
-            (dict(grad_compression="fp16"), "compressed exchange"),
-            (dict(overlap_exchange=True), "overlapped drain"),
-            (dict(collective_strategy="local"), "overlapped drain"),
-            (dict(optimizer="adamw"), "AdamW")):
-        with pytest.raises(NotImplementedError, match=names):
-            TrainConfig(**kw).check_supported()
-    for kw in (dict(collective_strategy="allgather"), dict(bucket_bytes=0)):
+        for comp in ("none", "fp16", "int8"):
+            for overlap in (False, True):
+                TrainConfig(collective_strategy=strategy, bucket_bytes=64,
+                            grad_compression=comp,
+                            overlap_exchange=overlap).check_supported()
+    TrainConfig(collective_strategy="local").check_supported()
+    with pytest.raises(NotImplementedError, match="AdamW"):
+        TrainConfig(optimizer="adamw").check_supported()
+    for kw in (dict(collective_strategy="allgather"), dict(bucket_bytes=0),
+               dict(grad_compression="int4"),
+               dict(collective_strategy="local", grad_compression="int8"),
+               dict(collective_strategy="local", overlap_exchange=True)):
         with pytest.raises(ValueError):
             TrainConfig(**kw).check_supported()
     assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(
