@@ -141,7 +141,10 @@
    -m repro_torch.launch.pretrain_bert --dp --strategy psum`` with step
    8's arguments in bf16; every logged loss must have the float32 bits of
    step 8's bf16 run (at world 1 the all-reduce copies and the division by
-   1 is exact) and every training kernel must have launched.  (c) The
+   1 is exact) and every training kernel must have launched.  (a') The
+   same with ``--strategy bucketed --overlap``, at the same time as (a),
+   held the same way, every bucket of its last step started during the
+   backward.  (c) The
    same CLI with ``--grad-compression int8 --overlap --timing-breakdown
    --ckpt-every 3``, three processes: uninterrupted; crashed by
    ``REPRO_FAULTS=crash_at=4`` (after phase 1's checkpoint 3, whose
@@ -170,15 +173,44 @@
    compression, the quantise and dequantise seconds within it, the
    step's seconds, each rank's peak device memory and each part's
    seconds are logged.
-11. Prints one JSON line of kernel results, then, as the last line,
+11. Decoder-LM phase, after the BERT phases have freed their memory.
+   The causal flash forward and whole backward at the LM path's shape
+   (4, 32, 1024, 128) (Dh 128) in bf16 and f16: held against the plain
+   version (TOL, CALL_REL_L2_BOUND), each launched twice for the same
+   bits, timed beside SDPA's causal forward and backward, the plain
+   version and the bound; LAMB over the LM's largest leaf group (the
+   102400 x 4096 embedding), held and timed; ``F.embedding``'s backward of
+   the full-width and the smoke token table probed for run-to-run bits
+   (logged).  Then ``python -m repro_torch.launch.train --arch deepseek-7b
+   --full --layers 4 --batch 8 --seq 1024 --accum 2 --steps 4`` in bf16,
+   in process, with ``--optimizer lamb`` and then ``adamw``, launch counts
+   zeroed before and read after each: every loss finite and no step
+   skipped; the flash forward 16 and its backward (pre-pass, main pass,
+   post-pass) 8 times a step, all at S 1024; LAMB's kernel once a leaf
+   group a step under LAMB and never under AdamW; no other kernel.  Peak
+   device memory is logged.  Then one LAMB step from a fresh state on the
+   stream's first batch through the kernels and the plain versions, in
+   f32 and bf16: loss, every gradient group and every group's master
+   update within LM_BOUND, the same step taken, and every flash and LAMB
+   call of the kernel path held against its plain version on its own
+   inputs.  While those two steps run (nothing in them is timed), the CLI
+   runs on the card at the smoke size and S 1024 (the flash pair at Dh
+   32), ``--optimizer adamw``, 7 steps: uninterrupted;
+   ``REPRO_FAULTS=crash_at=5`` (exit 43, newest checkpoint 3), then
+   ``--resume``; and ``--dp --strategy ring`` through torchrun at world 1
+   on NCCL: every loss of the resumed and the data-parallel runs has the
+   uninterrupted run's float32 bits, and every flash kernel launched in
+   each run that ended.
+12. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
 kernel), ``--only layernorm`` after the build and the two LayerNorm phases,
 ``--only wkv6`` after the build and the wkv6 phase, ``--only resume`` after
 the build and the resume phase, ``--only dp`` after the build, step 8's
-bf16 run (the losses (a) is held to) and the data-parallel phase (exit 2,
-no result line in each case); without arguments everything runs.
+bf16 run (the losses (a) is held to) and the data-parallel phase, ``--only
+lm`` after the build and the decoder-LM phase (exit 2, no result line in
+each case); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -186,7 +218,9 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -1804,7 +1838,7 @@ def bias_gelu_bwd_phase(ops, timer):
     return out
 
 
-def lamb_phase(ops, timer, n_path):
+def lamb_phase(ops, timer, n_path, tag="lamb_moments"):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
 
     def state(n):
@@ -1840,8 +1874,8 @@ def lamb_phase(ops, timer, n_path):
     log(f"lamb n={n_path} (the largest leaf group): max err {err:.3e}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
         f"({bd[1]}), no single PyTorch call; kernel {spread(times)}")
-    return entry("lamb_moments", "lamb_update.cu", "lamb_update.py:49", err,
-                 ms, plain_ms, *bd, None)
+    return entry(tag, "lamb_update.cu", "lamb_update.py:49", err, ms,
+                 plain_ms, *bd, None)
 
 
 # ---------------------------------------------------------------------------
@@ -2074,8 +2108,8 @@ def check_calls(tag, res: dict) -> None:
                                  f"version (rel L2 {res['call_max_rel'][k]:.3e})")
 
 
-def check_train_parity(res: dict) -> None:
-    tag, bd = f"train parity {res['dtype']}", TRAIN_BOUND[res["dtype"]]
+def check_train_parity(res: dict, bounds=TRAIN_BOUND) -> None:
+    tag, bd = f"train parity {res['dtype']}", bounds[res["dtype"]]
     if not res["finite"]:
         raise AssertionError(f"{tag}: non-finite kernel-path gradients")
     if not res["same_step"]:
@@ -2413,14 +2447,23 @@ def dp_phase(ref_losses: list) -> dict:
     compressed exchange, the overlapped drain and the timing breakdown
     through the CLI, crash and resume included; (b) and (d) ``dp_check.py``
     with four gloo ranks sharing the card, the four strategies and then
-    the compressed and overlapped cases."""
+    the compressed and overlapped cases.  (a) and (a') run at the same
+    time (two processes on the card; nothing of theirs is timed but their
+    seconds)."""
     t_phase = time.perf_counter()
     cli_s = {}
-    for tag, extra in DP_WORLD1:
+
+    def world1(extra):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
             tmp = Path(tmp)
             run = dp_torchrun(tmp / "w", tmp / "loss.jsonl", extra)
             got = read_losses(tmp / "loss.jsonl") if run["rc"] == 0 else []
+        return run, got
+    with concurrent.futures.ThreadPoolExecutor(len(DP_WORLD1)) as pool:
+        started = [(tag, extra, pool.submit(world1, extra))
+                   for tag, extra in DP_WORLD1]
+        done = [(tag, extra, *f.result()) for tag, extra, f in started]
+    for tag, extra, run, got in done:
         cli_s[tag] = run["s"]
         out = run["out"]
         if run["rc"] != 0:
@@ -2529,6 +2572,436 @@ def dp_phase(ref_losses: list) -> dict:
             "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# decoder-LM training phase
+# ---------------------------------------------------------------------------
+
+# the LM path: deepseek-7b at full width and 4 layers, global batches of 8 x
+# 1024 tokens in 2 micro-batches, 4 steps in bf16; its attention calls are
+# (micro-batch, heads, S, Dh) = LM_ATTN, causal
+LM_LAYERS, LM_BATCH, LM_SEQ, LM_ACCUM, LM_STEPS = 4, 8, 1024, 2, 4
+LM_ATTN = (LM_BATCH // LM_ACCUM, 32, LM_SEQ, 128)
+LM_ARGS = ["--arch", "deepseek-7b", "--full", "--layers", str(LM_LAYERS),
+           "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--accum",
+           str(LM_ACCUM), "--steps", str(LM_STEPS), "--precision", "bf16",
+           "--device", DEVICE, "--seed", str(SEED), "--log-every", "1"]
+# a step's flash launches: each layer's forward twice a micro-batch (the
+# checkpoint recompute in the backward) and its backward once; at S 1024
+# the backward runs its pre-pass, main pass and, over 8 KV tiles, its
+# post-pass every call
+LM_FWD_PER_STEP = 2 * LM_LAYERS * LM_ACCUM
+LM_BWD_PER_STEP = LM_LAYERS * LM_ACCUM
+LM_HELD = ("flash_attention", "flash_attention_bwd", "lamb_moments")
+# kernel path vs plain path of one LM training step (LAMB) from the same
+# state on the same batch, per dtype, as TRAIN_BOUND holds BERT's: |loss
+# difference| / |loss|, the largest relative L2 difference of a gradient
+# group and of a group's master update.  Measured on the H100 (the seeds
+# fix the data, so the readings repeat): f32 loss 7.9e-8, worst gradient
+# group 6.2e-6 (blocks.mixer.wq), worst update 8.6e-5 (the same group:
+# LAMB's first step is m / sqrt(v) = g / |g| per element, so gradients
+# near 0 move the update far more than the gradients); bf16 loss 9.1e-6,
+# gradients 1.8e-2 (blocks.mixer.wq), update 4.9e-2 (embed.tok).  The
+# bounds sit 3-12x above the readings.
+LM_BOUND = {torch.float32: {"loss": 1e-6, "grad": 1e-4, "update": 5e-4},
+            torch.bfloat16: {"loss": 5e-5, "grad": 5e-2, "update": 0.15}}
+# the crash -> resume and data-parallel runs of the CLI: the smoke
+# deepseek-7b (Dh 32) at S 1024, so attention takes the flash pair; 7 steps
+# of 4 x 1024 tokens with checkpoints at 3 and 6 (and 7, the end); the
+# crash after step 5 leaves checkpoint 3
+LM_SMOKE_ARGS = ["--arch", "deepseek-7b", "--smoke", "--steps", "7",
+                 "--batch", "4", "--seq", "1024", "--precision", "bf16",
+                 "--optimizer", "adamw", "--log-every", "1", "--device",
+                 DEVICE, "--seed", str(SEED)]
+LM_CRASH, LM_FROM = 5, 3
+LM_FLASH = ("flash_fwd", "flash_bwd_prep", "flash_bwd", "flash_bwd_post")
+LAUNCH_LINE = re.compile(r"training-loop kernel launches (\{[^}]*\})")
+
+
+def lm_flash_phase(ops, fa, timer) -> dict:
+    """The causal flash forward and whole backward at the LM path's shape
+    LM_ATTN (Dh 128: the backward's main pass is the ``mma.sync`` kernel,
+    the ``wgmma`` one serving Dh 64), in bf16 and f16, in the model's
+    (B, S, H, Dh) layout: each held against its plain version (TOL and
+    CALL_REL_L2_BOUND) and launched twice for the same bits, then timed
+    beside SDPA's causal forward and backward, the plain version and the
+    bound (the backward also a launch at a time).  Returns the bf16
+    entries."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    b, h, s, dh = LM_ATTN
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entries = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, do = (torch.randn((b, s, h, dh), generator=gen,
+                                   device=DEVICE).to(dtype).transpose(1, 2)
+                       for _ in range(4))
+        out, lse = ops.flash_attention(q, k, v, causal=True)
+        want = ops.flash_attention(q, k, v, causal=True, impl="torch")
+        torch.cuda.synchronize()
+        fwd = [check_grad(f"lm flash fwd {dtype} {n}", g, w, dtype)
+               for g, w, n in zip((out, lse), want, ("out", "lse"))]
+        check_same_bits(f"lm flash fwd {dtype}", (out, lse),
+                        ops.flash_attention(q, k, v, causal=True))
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        want = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                       impl="torch")
+        torch.cuda.synchronize()
+        bwd = [check_grad(f"lm flash bwd {dtype} d{n}", g, w, dtype)
+               for g, w, n in zip(got, want, "qkv")]
+        check_same_bits(f"lm flash bwd {dtype}", got, fa.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True))
+        del got, want
+        fwd_t = timer.times(lambda: ops.flash_attention(q, k, v,
+                                                        causal=True))
+        bwd_t = timer.times(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True))
+        bufs = fa.bwd_buffers(q, s)
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        parts = {name: timer.times(lambda: fa.bwd_launch(
+            part, q, k, v, out, lse, do, bufs, grads, causal=True, window=0,
+            softcap=0.0)) for name, part in (
+                ("pre-pass", fa.PREP), ("main pass", fa.MAIN),
+                ("post-pass", fa.POST)) if part & fa.bwd_parts(bufs)}
+        del bufs, grads
+        fwd_plain = timer.ms(lambda: ops.flash_attention(
+            q, k, v, causal=True, impl="torch"))
+        bwd_plain = timer.ms(lambda: ops.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True, impl="torch"))
+        lib_fwd_t = timer.times(lambda: sdpa(q, k, v, is_causal=True))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = sdpa(qg, kg, vg, is_causal=True)
+        lib_bwd_t = timer.times(lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), do, retain_graph=True))
+        del sdpa_out, qg, kg, vg
+        fb = flash_fwd_bound(b, h, s, dh, causal=True, item=2)
+        bb = flash_bwd_bound(b, h, s, dh, causal=True, item=2)
+        ms = {"fwd": float(np.mean(fwd_t)), "bwd": float(np.mean(bwd_t)),
+              "sdpa_fwd": float(np.mean(lib_fwd_t)),
+              "sdpa_bwd": float(np.mean(lib_bwd_t))}
+        log(f"lm flash {LM_ATTN} {dtype} causal: forward max err "
+            f"{max(e for e, _ in fwd):.3e} (rel L2 "
+            f"{max(r for _, r in fwd):.3e}), {ms['fwd']:.4f} ms "
+            f"({ms['fwd'] / ms['sdpa_fwd']:.2f}x sdpa forward "
+            f"{ms['sdpa_fwd']:.4f}), plain {fwd_plain:.4f} ms, bound "
+            f"{fb[0]:.4f} ms ({fb[1]}); backward max err "
+            f"{max(e for e, _ in bwd):.3e} (rel L2 "
+            f"{max(r for _, r in bwd):.3e}), {ms['bwd']:.4f} ms "
+            f"({' + '.join(parts)}; {ms['bwd'] / ms['sdpa_bwd']:.2f}x sdpa "
+            f"backward {ms['sdpa_bwd']:.4f}), plain {bwd_plain:.4f} ms, "
+            f"bound {bb[0]:.4f} ms ({bb[1]}); forward and backward each two "
+            f"launches the same bits; forward {spread(fwd_t)}; backward "
+            f"{spread(bwd_t)}; sdpa forward {spread(lib_fwd_t)}; sdpa "
+            f"backward {spread(lib_bwd_t)}; " + "; ".join(
+                f"{n} {spread(t)}" for n, t in parts.items()))
+        if dtype == torch.bfloat16:
+            entries["flash_fwd_lm"] = entry(
+                "flash_fwd_lm", "flash_fwd.cu", "flash_attention.py:132",
+                max(e for e, _ in fwd), ms["fwd"], fwd_plain, *fb,
+                ms["sdpa_fwd"])
+            entries["flash_bwd_lm"] = entry(
+                "flash_bwd_lm", "flash_bwd.cu", "flash_attention.py:272",
+                max(e for e, _ in bwd), ms["bwd"], bwd_plain, *bb,
+                ms["sdpa_bwd"])
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return entries
+
+
+def lm_train_run(ops, train, optimizer) -> dict:
+    """``launch/train.py`` with LM_ARGS and ``--optimizer``, launch counts
+    zeroed just before and read just after.  Every step must be finite and
+    taken (bf16), the flash forward and backward must launch their
+    kernels LM_FWD_PER_STEP and LM_BWD_PER_STEP times a step at S 1024 and
+    nowhere else, LAMB's kernel once a leaf group a step under LAMB and
+    never under AdamW, and no other kernel."""
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, state, history = train.run(LM_ARGS + ["--optimizer", optimizer])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_groups = len(state.opt.groups.paths)
+    n_params = sum(t.numel() for t in state.opt.master.values())
+    del state
+    torch.cuda.empty_cache()
+    for r in history:
+        log(f"lm train {optimizer} step {r['step']:.0f}: loss {r['loss']:.4f}"
+            f" ({r['loss'].hex()}), grad norm {r['grad_norm']:.4f}, lr "
+            f"{r['lr']:.3g}, skipped {bool(r['skipped'])}, {r['ms']:.1f} ms")
+    if [r["step"] for r in history] != list(range(1, LM_STEPS + 1)) or any(
+            r["skipped"] or not np.isfinite(r["loss"]) for r in history):
+        raise AssertionError(f"lm train {optimizer}: expected {LM_STEPS} "
+                             f"finite steps, got {history}")
+    want = {"flash_fwd": LM_FWD_PER_STEP * LM_STEPS,
+            f"flash_fwd_s{LM_SEQ}": LM_FWD_PER_STEP * LM_STEPS,
+            "lamb_moments": n_groups * LM_STEPS if optimizer == "lamb" else 0}
+    for k in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post",
+              f"flash_bwd_s{LM_SEQ}"):
+        want[k] = LM_BWD_PER_STEP * LM_STEPS
+    got = {k: n for k, n in counts.items() if n}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"lm train {optimizer}: launches {got}, "
+                             f"expected {want}")
+    log(f"lm train deepseek-7b full width {optimizer}: {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {n_params / 1e9:.4f} B parameters "
+        f"in {n_groups} leaf groups; launches {got}; peak device memory "
+        f"{peak:.2f} GiB; {run_s:.1f} s (init included) on {nvidia_smi()}")
+    return {"counts": counts, "history": history, "peak_gib": peak,
+            "s": run_s}
+
+
+def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
+                    cfg, precision) -> dict:
+    """One LAMB step of the LM path from a fresh state on the stream's
+    first batch, through the kernels (every call of LM_HELD held against
+    its plain version on its inputs) and through the plain versions.  The
+    card holds one training state at a time: each path's gradients (as
+    the clip takes them) and master update go to host memory."""
+    pol = make_policy(precision)
+    tcfg = TrainConfig(precision=precision, accum_steps=LM_ACCUM,
+                       optimizer="lamb", total_steps=LM_STEPS,
+                       warmup_steps=2)
+    batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, LM_BATCH,
+                                          LM_SEQ)), DEVICE)
+    record = {name: [] for name in LM_HELD}
+    got = {}
+    for impl in (None, "torch"):
+        state = ts.init_train_state(
+            api.init_params(cfg, seed=SEED + 1, device=DEVICE), pol, tcfg)
+        old = {p: t.to("cpu") for p, t in state.opt.master.items()}
+        grads = {}
+
+        def keep(g):
+            grads.update({p: t.to("cpu") for p, t in g.items()})
+        with (held_against_plain(ops, record, {k: (None, False)
+                                               for k in LM_HELD})
+              if impl is None else contextlib.nullcontext()):
+            state, metrics = ts.train_step_fn(state, batch, cfg=cfg,
+                                              tcfg=tcfg, policy=pol,
+                                              impl=impl, on_grads=keep)
+            torch.cuda.synchronize()
+        got[impl] = (float(metrics["loss"]), grads,
+                     {p: state.opt.master[p].to("cpu") - old[p] for p in old},
+                     {k: metrics[k] for k in ("skipped", "loss_scale")})
+        del state, old, grads
+        torch.cuda.empty_cache()
+    (lk, gk, uk, mk), (lp, gp, up, mp) = got[None], got["torch"]
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))
+    grad_rel = {p: rel(gk[p], gp[p]) for p in gp}
+    upd_rel = {p: rel(uk[p], up[p]) for p in up}
+    worst = max(grad_rel, key=grad_rel.get)
+    worst_u = max(upd_rel, key=upd_rel.get)
+    res = {"dtype": pol.compute_dtype, "loss_rel": abs(lk - lp) / abs(lp),
+           "loss": (lk, lp), "grad_rel": grad_rel[worst],
+           "grad_worst": ".".join(worst), "update_rel": upd_rel[worst_u],
+           "update_worst": ".".join(worst_u),
+           "finite": all(bool(torch.isfinite(g).all()) for g in gk.values()),
+           "same_step": mk == mp, "step": mk, **call_summary(record)}
+    log(f"lm train parity {precision}: loss {lk:.6f} (kernels) vs {lp:.6f} "
+        f"(plain), rel {res['loss_rel']:.3e}; worst gradient group "
+        f"{res['grad_worst']} rel L2 {res['grad_rel']:.3e}; worst master "
+        f"update {res['update_worst']} rel L2 {res['update_rel']:.3e} "
+        f"(bounds {LM_BOUND[pol.compute_dtype]}); step {mk} (kernels) vs "
+        f"{mp} (plain); each kernel call vs plain on its inputs: " + ", ".join(
+            f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
+            f"err {res['call_max_err'][k]:.3e}, max rel L2 "
+            f"{res['call_max_rel'][k]:.3e}" for k in record))
+    return res
+
+
+def lm_cli(tmp: Path, tag: str, extra=(), faults: str = "",
+           torchrun: bool = False, out: str = "") -> subprocess.Popen:
+    """One process of ``python -m repro_torch.launch.train`` with
+    LM_SMOKE_ARGS, its loss log ``<tmp>/<tag>.jsonl`` (through torchrun
+    at world 1 with ``torchrun``), its output in ``<tmp>/<out or
+    tag>.out`` (a file: a pipe nobody reads while this process works
+    could fill and stall it)."""
+    env = _port_env()
+    if faults:
+        env["REPRO_FAULTS"] = faults
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"]
+    if torchrun:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "repro_torch.launch.train"]
+    with open(tmp / f"{out or tag}.out", "w") as f:
+        proc = subprocess.Popen(
+            cmd + [*LM_SMOKE_ARGS, "--loss-log", str(tmp / f"{tag}.jsonl"),
+                   *extra], env=env, stdout=f, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+    proc.out_path = tmp / f"{out or tag}.out"
+    return proc
+
+
+def lm_wait(tag: str, proc: subprocess.Popen, rc: int,
+            t0: float) -> dict:
+    """Wait for ``proc`` (killed with its group after 600 s); its exit
+    must be ``rc`` (torchrun exits 1 and names its rank's code), and a
+    run that ended must have launched every flash kernel."""
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        raise AssertionError(f"lm {tag}: timed out:\n"
+                             f"{proc.out_path.read_text()[-4000:]}")
+    out = proc.out_path.read_text()
+    if (proc.returncode == 0) != (rc == 0) or (
+            rc and proc.returncode != rc
+            and not re.search(rf"exitcode\s*:\s*{rc}", out)):
+        raise AssertionError(f"lm {tag}: exit {proc.returncode}, not {rc}:"
+                             f"\n{out[-4000:]}")
+    launches = LAUNCH_LINE.search(out)
+    launches = json.loads(launches[1]) if launches else {}
+    missed = [k for k in LM_FLASH if rc == 0 and not launches.get(k, 0) > 0]
+    if missed:
+        raise AssertionError(f"lm {tag}: never launched {missed}:\n"
+                             f"{out[-4000:]}")
+    return {"out": out, "launches": launches, "s": time.perf_counter() - t0}
+
+
+def lm_resume_phase(latest_step, during=None) -> dict:
+    """The decoder trainer's CLI on the card at the smoke size: an
+    uninterrupted run, one crashed by ``REPRO_FAULTS=crash_at=LM_CRASH``
+    (exit 43, newest checkpoint LM_FROM) and the crashed one resumed; and
+    the same run with ``--dp --strategy ring`` through torchrun at world 1
+    on NCCL.  Every loss of the faulted runs and of the data-parallel run
+    must have the uninterrupted run's float32 bits.  The uninterrupted,
+    crashed and data-parallel runs start together, and ``during()`` (work
+    of this process that times nothing) runs while they do; the resumed run
+    starts once the crashed one has ended."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        tmp = Path(tmp)
+        ckpt = ["--ckpt-every", "3", "--ckpt-dir", str(tmp / "ckpt")]
+        t0 = time.perf_counter()
+        procs = {"dp": (lm_cli(tmp, "dp", ["--dp", "--strategy", "ring"],
+                               torchrun=True), 0),
+                 "whole": (lm_cli(tmp, "whole", [
+                     "--ckpt-every", "3", "--ckpt-dir",
+                     str(tmp / "whole_ckpt")]), 0),
+                 "crash": (lm_cli(tmp, "run", ckpt, out="crash",
+                                  faults=f"crash_at={LM_CRASH}"), 43)}
+        if during is not None:
+            during()
+        runs = {"crash": lm_wait("crash", *procs.pop("crash"), t0)}
+        last = latest_step(str(tmp / "ckpt"))
+        t1 = time.perf_counter()
+        resumed = lm_cli(tmp, "run", ckpt + ["--resume"], out="resumed")
+        runs.update({k: lm_wait(k, *v, t0) for k, v in procs.items()})
+        runs["resumed"] = lm_wait("resumed", resumed, 0, t1)
+        ref = dict(read_lm_losses(tmp / "whole.jsonl"))
+        got = read_lm_losses(tmp / "run.jsonl")
+        dp_got = read_lm_losses(tmp / "dp.jsonl")
+    if sorted(ref) != list(range(1, 8)) or last != LM_FROM:
+        raise AssertionError(f"lm resume: uninterrupted steps {sorted(ref)}, "
+                             f"newest checkpoint {last}")
+    if f"resumed from checkpoint step {LM_FROM} in" not in \
+            runs["resumed"]["out"]:
+        raise AssertionError(f"lm resume: the resumed run did not start "
+                             f"from step {LM_FROM}")
+    if [s for s, _ in got] != list(range(1, LM_CRASH + 1)) + list(
+            range(LM_FROM + 1, 8)):
+        raise AssertionError(f"lm resume: the faulted runs logged {got}")
+    if "rank 0 of 1 (pod 0 of 1), nccl on cuda:0" not in runs["dp"]["out"]:
+        raise AssertionError("lm dp: the --dp run did not run on NCCL on "
+                             f"cuda:0:\n{runs['dp']['out'][-4000:]}")
+    if [s for s, _ in dp_got] != sorted(ref):
+        raise AssertionError(f"lm dp: logged {dp_got}")
+    differ = [(tag, s, v.hex(), ref[s].hex())
+              for tag, rows in (("resume", got), ("dp", dp_got))
+              for s, v in rows if v.hex() != ref[s].hex()]
+    for s, v in got:
+        log(f"lm resume: step {s} loss {v.hex()} ({v:.6f}), uninterrupted "
+            f"{ref[s].hex()}")
+    for s, v in dp_got:
+        log(f"lm dp: NCCL world 1 ring step {s} loss {v.hex()}, serial "
+            f"{ref[s].hex()}")
+    res = {"compared": len(got) + len(dp_got), "differ": differ,
+           "runs_s": {k: r["s"] for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"lm resume and dp on {nvidia_smi()}: smoke deepseek-7b at S "
+        f"{LM_SEQ}, runs " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                       res["runs_s"].items())
+        + f" from each start to its wait (the first three waited for after "
+        f"the in-process steps), launches {res['launches']}; "
+        f"{res['compared']} losses compared bit for bit, {len(differ)} "
+        f"differ; phase {res['phase_s']:.1f} s")
+    if differ:
+        raise AssertionError(f"lm resume/dp: losses differ from the "
+                             f"uninterrupted run's bits: {differ}")
+    return res
+
+
+def read_lm_losses(path: Path) -> list:
+    """(step, loss) for each line of a decoder ``--loss-log`` file."""
+    return [(r["step"], r["loss"]) for r in
+            map(json.loads, path.read_text().splitlines())]
+
+
+def lm_embedding_probe(probe_embedding, lm_batches) -> None:
+    """A reading, not judged: ``F.embedding``'s backward of the token
+    table, 8 times on one output gradient, at the LM path's micro-batch of
+    the full-width table (102400 x 4096) and of the smoke table (512 x
+    256), beside indexing (``determinism_check.probe_embedding``)."""
+    for vocab, d in ((102400, 4096), (512, 256)):
+        toks = torch.from_numpy(next(lm_batches(
+            SEED, vocab, LM_BATCH, LM_SEQ))["tokens"][:, :-1]).to(DEVICE)
+        rows = probe_embedding({"tokens": toks.long(),
+                                "type_ids": torch.zeros_like(toks).long()},
+                               d, vocab, 8, DEVICE)
+        for r in rows:
+            if r["table"] == "tok":
+                log(f"lm embedding probe: vocab {vocab} x d {d}, "
+                    f"{r['ids']} ids ({r['distinct_ids']} distinct), "
+                    f"{r['form']}: {r['differ']} of {r['runs'] - 1} "
+                    f"backwards differ from the first, {r['ms']:.3f} ms")
+        torch.cuda.empty_cache()
+
+
+def lm_phase(ops, fa) -> dict:
+    """The decoder-LM phase: the flash pair at the path shape, LAMB over
+    the LM's largest leaf group, the embedding probe, two CLI training runs
+    at full width (LAMB, AdamW), the kernels-vs-plain step in f32 and bf16,
+    and the smoke crash -> resume and NCCL world-1 runs.  Returns the
+    kernel entries and the runs' launch counts."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.amp import make_policy
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch import train
+    from repro_torch.launch.determinism_check import probe_embedding
+    from repro_torch.models import api
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import latest_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=LM_LAYERS)
+    timer = Timer()
+    entries = lm_flash_phase(ops, fa, timer)
+    # the largest LAMB leaf group of the LM: the 102400 x 4096 embedding
+    # (and the LM head)
+    entries["lamb_moments_lm"] = lamb_phase(
+        ops, timer, cfg.vocab_size * cfg.d_model, tag="lamb_moments_lm")
+    del timer
+    torch.cuda.empty_cache()
+    lm_embedding_probe(probe_embedding, lm_batches)
+    runs = {opt: lm_train_run(ops, train, opt) for opt in ("lamb", "adamw")}
+
+    def parity():     # while the smoke runs run: nothing here is timed
+        for precision in ("f32", "bf16"):
+            check_train_parity(lm_train_parity(
+                ops, api, ts, TrainConfig, make_policy, lm_batches, cfg,
+                precision), LM_BOUND)
+            torch.cuda.empty_cache()
+    resume = lm_resume_phase(latest_step, during=parity)
+    log(f"lm phase on {nvidia_smi()}: {time.perf_counter() - t_phase:.1f} s "
+        f"(the kernels-vs-plain steps and the smoke runs together "
+        f"{resume['phase_s']:.1f} s)")
+    return {"entries": entries, "runs": runs}
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -2585,6 +3058,10 @@ def main(argv=None) -> int:
     if only == "resume":
         resume_phase(latest_step)
         log("resume phase only: no other phase, no result")
+        return 2
+    if only == "lm":
+        lm_phase(ops, fa)
+        log("decoder-LM phase only: no other phase, no result")
         return 2
     if only == "dp":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
@@ -2670,6 +3147,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     resume_phase(latest_step)
     dp_phase(bf16_losses)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = lm_phase(ops, fa)
+    entries += [lm["entries"][k] for k in ("flash_fwd_lm", "flash_bwd_lm",
+                                           "lamb_moments_lm")]
 
     by_name = {
         "flash_fwd": launches["paged"]["flash_fwd"]
@@ -2686,6 +3168,10 @@ def main(argv=None) -> int:
                              + launches["rwkv_continuous"]["layernorm"])
     by_name["wkv6"] = (launches["rwkv_raw"]["wkv6"]
                        + launches["rwkv_continuous"]["wkv6"])
+    lm_runs = [r["counts"] for r in lm["runs"].values()]
+    by_name["flash_fwd_lm"] = sum(c[f"flash_fwd_s{LM_SEQ}"] for c in lm_runs)
+    by_name["flash_bwd_lm"] = sum(c[f"flash_bwd_s{LM_SEQ}"] for c in lm_runs)
+    by_name["lamb_moments_lm"] = lm["runs"]["lamb"]["counts"]["lamb_moments"]
     log(f"flash_fwd launches: serve {launches['paged']['flash_fwd']} + "
         f"{launches['paged_int8']['flash_fwd']}, train "
         f"{launches['train']['flash_fwd']}")

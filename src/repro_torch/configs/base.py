@@ -189,10 +189,9 @@ class TrainConfig:
     compressed exchange (``grad_compression``), the overlapped drain
     (``overlap_exchange``) and the calibration-only strategy ``"local"``
     (no exchange at all; it takes neither compression nor overlap).
-    ``check_supported`` raises for ``optimizer="adamw"``, which belongs to
-    a later slice.  The sharding fields (``fsdp``, ``shard_grads``,
-    ``pure_dp``) change nothing in pure data parallelism, as in the
-    reference on a one-device mesh.
+    ``optimizer`` is ``"lamb"`` or ``"adamw"``.  The sharding fields
+    (``fsdp``, ``shard_grads``, ``pure_dp``) change nothing in pure data
+    parallelism, as in the reference on a one-device mesh.
     """
     precision: str = "bf16"            # f32 | bf16 | f16
     accum_steps: int = 4
@@ -214,14 +213,15 @@ class TrainConfig:
     seed: int = 0
 
     def check_supported(self) -> None:
-        """Raise for AdamW (a later slice, named), and ``ValueError`` for
-        an unknown strategy or compression and for ``"local"`` with
+        """Raise ``ValueError`` for an optimizer other than LAMB and
+        AdamW, an unknown strategy or compression and for ``"local"`` with
         compression or overlap."""
         from repro_torch.core.collectives import GRAD_COMPRESSIONS, STRATEGIES
-        if self.optimizer != "lamb":
-            raise NotImplementedError(
-                f"TrainConfig.optimizer={self.optimizer!r}: AdamW comes with "
-                "a later slice of the port")
+        # the reference runs AdamW for any name but "lamb"
+        # (train/train_step.py _optimizer_update); the port refuses a typo
+        if self.optimizer not in ("lamb", "adamw"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r} (one of "
+                             "'lamb', 'adamw')")
         if self.collective_strategy not in STRATEGIES + ("local",):
             raise ValueError(f"unknown collective strategy "
                              f"{self.collective_strategy!r}")

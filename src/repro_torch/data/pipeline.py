@@ -1,6 +1,6 @@
-"""BERT pre-training example builder + data sharding (the BERT half of
-``repro/data/pipeline.py``, copied because the reference module imports
-JAX through ``repro.models.api``; paper §3.1.1, §4.1).
+"""BERT pre-training example builder, data sharding and the causal-LM
+streams (a copy of ``repro/data/pipeline.py``, made because the reference
+module imports JAX through ``repro.models.api``; paper §3.1.1, §4.1).
 
   * WordPiece-tokenize the raw text,
   * mask 15% of input tokens (80% [MASK] / 10% random / 10% kept, as BERT),
@@ -12,8 +12,11 @@ JAX through ``repro.models.api``; paper §3.1.1, §4.1).
 The code is the reference's, line for line, so the same seed gives
 byte-identical shards (``np.savez`` stamps each member with the clock, so
 two writers agree when they write within the same two seconds) and the
-loader yields the same batches and cursors.  The causal-LM streams come
-with the decoder-training slice.
+loader yields the same batches and cursors.  ``LMStream`` draws the
+reference's Zipfian token arrays bit for bit (the same
+``np.random.default_rng([seed, step])`` and ``choice``), and
+``build_lm_examples`` / ``prepare_lm_data`` pack and shard a tokenized
+corpus into causal-LM rows as the reference does.
 """
 from __future__ import annotations
 
@@ -231,6 +234,90 @@ def prepare_bert_data(out_dir: str, *, seq_len: int = 128,
         seq_len=seq_len,
         n_predictions=n_predictions or mlm_positions_count(seq_len))
     examples = build_bert_examples(docs_ids, tok, cfg, seed=seed)
+    write_shards(examples, out_dir, n_shards)
+    tok.save(str(Path(out_dir) / "vocab.json"))
+    return tok, Path(out_dir) / "index.json"
+
+
+class LMStream:
+    """Synthetic causal-LM stream (Zipfian unigrams) for the decoder
+    trainer.
+
+    A resumable iterator: batch ``i`` is drawn from an RNG derived from
+    ``(seed, i)``, so the stream is a pure function of the cursor and a
+    resumed run (``load_state_dict``) replays the exact batch sequence of
+    an uninterrupted one -- the same contract as ``ShardedLoader``.
+    """
+
+    def __init__(self, key_seed: int, vocab_size: int, batch: int,
+                 seq_len: int):
+        self.seed, self.vocab_size = key_seed, vocab_size
+        self.batch, self.seq_len = batch, seq_len
+        ranks = np.arange(1, vocab_size + 1)
+        self._p = (1.0 / ranks) / np.sum(1.0 / ranks)
+        self._step = 0            # batches already yielded
+
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self._step, "seed": self.seed}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        if state.get("seed", self.seed) != self.seed:
+            raise ValueError(
+                f"stream cursor was saved for seed {state.get('seed')}, "
+                f"this stream uses seed {self.seed}")
+        self._step = int(state["step"])
+
+    def __iter__(self) -> "LMStream":
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng([self.seed, self._step])
+        self._step += 1
+        return {"tokens": rng.choice(self.vocab_size,
+                                     size=(self.batch, self.seq_len + 1),
+                                     p=self._p).astype(np.int32)}
+
+
+def lm_batches(key_seed: int, vocab_size: int, batch: int, seq_len: int
+               ) -> LMStream:
+    """Synthetic causal-LM stream; returns a resumable ``LMStream``."""
+    return LMStream(key_seed, vocab_size, batch, seq_len)
+
+
+def build_lm_examples(docs: List[List[List[int]]], tok: WordPieceTokenizer,
+                      *, seq_len: int, eos_id: Optional[int] = None
+                      ) -> Dict[str, np.ndarray]:
+    """Pack tokenized documents into dense (N, seq_len+1) causal-LM rows.
+
+    Documents are concatenated with a separator token and split into
+    fixed-length windows (+1 for the shifted-label column); only the final
+    tail is dropped.
+    """
+    eos = tok.sep_id if eos_id is None else eos_id
+    stream: List[int] = []
+    for doc in docs:
+        for sent in doc:
+            stream.extend(sent)
+        stream.append(eos)
+    width = seq_len + 1
+    n = len(stream) // width
+    if n == 0:
+        raise ValueError("corpus smaller than one packed row")
+    arr = np.asarray(stream[: n * width], np.int32).reshape(n, width)
+    return {"tokens": arr}
+
+
+def prepare_lm_data(out_dir: str, *, seq_len: int = 128, n_docs: int = 400,
+                    vocab_size: int = 8192, n_shards: int = 8,
+                    seed: int = 0):
+    """Synthetic corpus -> tokenizer -> packed LM rows -> shards (paper
+    §4.1 sharding applied to the causal-LM pipeline).  Returns (tokenizer,
+    index_path)."""
+    docs_text = synth_corpus(n_docs=n_docs, seed=seed)
+    tok = train_wordpiece((s for d in docs_text for s in d),
+                          vocab_size=vocab_size)
+    docs_ids = [[tok.encode(s) for s in d] for d in docs_text]
+    examples = build_lm_examples(docs_ids, tok, seq_len=seq_len)
     write_shards(examples, out_dir, n_shards)
     tok.save(str(Path(out_dir) / "vocab.json"))
     return tok, Path(out_dir) / "index.json"

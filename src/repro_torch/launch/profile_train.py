@@ -1,8 +1,9 @@
 """Where the training time goes on the card: a torch.profiler breakdown of
-full training steps of BERT.
+full training steps of BERT or of the decoder LM.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \
-      [--full-width] [--steps 3] [--precision bf16]
+      [--full-width] [--steps 3] [--precision bf16] \
+      [--arch bert-large|deepseek-7b]
 
 Builds bert-large (as published with ``--full-width``, else the 2-layer
 smoke variant) with seeded random weights and LAMB state, and times
@@ -21,11 +22,15 @@ backward's time splits: under non-reentrant checkpoint the first
 LayerNorm backward of a block recomputes the block's forward, so
 ``_LayerNormBackward`` holds that recompute, and the span
 ``kernels.ops.LAYERNORM_BWD_SPAN`` inside it holds the LayerNorm backward
-alone.  Needs a CUDA device.
+alone.  ``--arch deepseek-7b`` profiles the decoder trainer's step
+instead, at the geometry of ``chip_smoke.py``'s LM phase: full width
+(with ``--full-width``) at ``LM_LAYERS`` layers, one phase of 8 x 1024
+tokens with accumulation 2 (``LM_PHASES``).  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -40,6 +45,8 @@ from repro_torch.train.train_step import init_train_state, train_step_fn
 
 SEED = 0
 PHASES = (("phase1", 128, 128), ("phase2", 512, 64))   # name, seq, batch
+LM_PHASES = (("lm", 1024, 8),)
+LM_LAYERS = 4     # the depth of the decoder at full width (one card)
 
 
 def main(argv=None):
@@ -47,12 +54,20 @@ def main(argv=None):
     ap.add_argument("--full-width", action="store_true")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--precision", default="bf16")
+    ap.add_argument("--arch", default="bert-large",
+                    choices=("bert-large", "deepseek-7b"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card: no CUDA device")
-    cfg = get_config("bert-large")
-    if not args.full_width:
-        cfg = smoke_variant(cfg, d_model=128, n_blocks=2)
+    cfg = get_config(args.arch)
+    if cfg.is_encoder_only:
+        phases = PHASES
+        if not args.full_width:
+            cfg = smoke_variant(cfg, d_model=128, n_blocks=2)
+    else:
+        phases = LM_PHASES
+        cfg = (dataclasses.replace(cfg, n_layers=LM_LAYERS)
+               if args.full_width else smoke_variant(cfg))
     pol = make_policy(args.precision)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": cfg.arch_id, "full_width": args.full_width,
@@ -60,7 +75,7 @@ def main(argv=None):
                       "precision": args.precision, "accum_steps": 2}),
           flush=True)
     state = None
-    for name, seq, batch in PHASES:
+    for name, seq, batch in phases:
         # a long warmup keeps the learning rate off zero through the run
         tcfg = TrainConfig(precision=args.precision, accum_steps=2,
                            learning_rate=2e-3, warmup_steps=1000,

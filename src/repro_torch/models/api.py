@@ -1,11 +1,13 @@
-"""Model API facade for training (port of the encoder-only part of
-``repro/models/api.py``): the loss function, parameter init, the train
-batch schema and synthetic batches.
+"""Model API facade for training (port of ``repro/models/api.py``): the
+loss functions, parameter init, the train batch schema and synthetic
+batches, for BERT (the encoder) and the dense decoder LMs.
 
 The reference's ``ShapeDtypeStruct`` schema becomes ``BatchField`` (shape
 and numpy dtype); synthetic batches are drawn with numpy from a seed and
-moved to the device by ``to_device``.  Decoder losses and the serving and
-sharding structs belong to later slices.
+moved to the device by ``to_device``.  Decoder training covers the
+attention layers the port runs (``transformer.check_supported``); RWKV,
+MoE, mamba, encoder-decoder and vision models are refused, each naming
+its slice.  The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
 
@@ -14,10 +16,12 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.amp import Policy
 from repro_torch.models import bert as BERT
+from repro_torch.models import transformer as T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,33 +35,70 @@ def mlm_positions_count(seq_len: int) -> int:
     return max(1, int(round(seq_len * 0.15)) + (0 if seq_len % 8 else 0))
 
 
-def _encoder_only(cfg: ModelConfig) -> None:
-    if not cfg.is_encoder_only:
-        raise NotImplementedError("the port trains encoder-only models "
-                                  "(BERT); decoder training ports later")
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port does not train
+    yet, naming the slice it waits for: an encoder-only model is BERT; a
+    decoder must be one ``transformer.check_supported`` runs, without an
+    rwkv layer."""
+    if cfg.is_encoder_only:
+        return
+    T.check_supported(cfg)
+    if any(mixer == "rwkv" for mixer, _ in cfg.layer_kinds()):
+        raise NotImplementedError(
+            "RWKV training is a later slice: the reference differentiates "
+            "wkv6's jnp form, and the port's wkv6 kernel has no backward")
+
+
+def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
+                  remat: bool = False, impl=None):
+    """Next-token cross-entropy of a decoder (the reference's
+    ``lm_train_loss``): inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``,
+    ``log_softmax`` of the logits in fp32, the mean NLL.  Returns (loss,
+    {"lm_loss", "router_aux"}), 0-d float32 tensors; ``router_aux`` is 0 for
+    a dense model (no MoE layer the port runs)."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
+    logits = T.apply_lm(params, inputs, cfg, policy, remat=remat, impl=impl)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = nll.mean()
+    return loss, {"lm_loss": loss.detach(),
+                  "router_aux": torch.zeros((), dtype=torch.float32,
+                                            device=loss.device)}
 
 
 def make_loss_fn(cfg: ModelConfig, policy: Policy, *, remat: bool = False,
                  impl=None):
-    """``loss_fn(params, batch) -> (loss, metrics)``."""
-    _encoder_only(cfg)
-
-    def loss_fn(params, batch):
-        return BERT.bert_pretrain_loss(params, batch, cfg, policy,
-                                       remat=remat, impl=impl)
+    """``loss_fn(params, batch) -> (loss, metrics)``: BERT's pretraining
+    loss for an encoder-only model, else ``lm_train_loss``."""
+    check_trainable(cfg)
+    if cfg.is_encoder_only:
+        def loss_fn(params, batch):
+            return BERT.bert_pretrain_loss(params, batch, cfg, policy,
+                                           remat=remat, impl=impl)
+    else:
+        def loss_fn(params, batch):
+            return lm_train_loss(params, batch, cfg, policy, remat=remat,
+                                 impl=impl)
     return loss_fn
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> dict:
-    _encoder_only(cfg)
-    return BERT.init_bert(cfg, seed=seed, dtype=dtype, device=device)
+    check_trainable(cfg)
+    if cfg.is_encoder_only:
+        return BERT.init_bert(cfg, seed=seed, dtype=dtype, device=device)
+    return T.init_model(cfg, seed=seed, dtype=dtype, device=device)
 
 
 def train_batch_struct(cfg: ModelConfig, shape: InputShape
                        ) -> Dict[str, BatchField]:
-    _encoder_only(cfg)
+    """BERT: tokens, type ids, MLM positions and labels, NSP labels.  A
+    decoder: tokens (B, S + 1), the inputs and the shifted labels."""
+    check_trainable(cfg)
     b, s = shape.global_batch, shape.seq_len
+    if not cfg.is_encoder_only:
+        return {"tokens": BatchField((b, s + 1))}
     p = mlm_positions_count(s)
     return {"tokens": BatchField((b, s)), "type_ids": BatchField((b, s)),
             "mlm_positions": BatchField((b, p)),
@@ -67,8 +108,9 @@ def train_batch_struct(cfg: ModelConfig, shape: InputShape
 def make_synth_batch(seed: int, cfg: ModelConfig, shape: InputShape
                      ) -> Dict[str, np.ndarray]:
     """A random batch with the schema's statistics, as the reference's:
-    positions 0 .. P-1, type ids 0, random tokens, labels and NSP labels.
-    Drawn with numpy (the values differ from ``jax.random``'s)."""
+    positions 0 .. P-1, type ids 0, random tokens, labels and NSP labels
+    (a decoder's: random tokens).  Drawn with numpy (the values differ
+    from ``jax.random``'s)."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, f in sorted(train_batch_struct(cfg, shape).items()):

@@ -12,8 +12,10 @@ to bf16, so where the reference asks XLA for fp32 results of bf16 operands
 Three of the paper's fused kernels sit on the encoder's path: LayerNorm
 (``kops.layernorm``), bias + GELU (``kops.bias_gelu``) and bidirectional
 attention through the flash forward and backward kernels
-(``kops.flash_attention_vjp``).  The reference computes the same functions
-in jnp on this path; the tests hold the two against each other.
+(``kops.flash_attention_vjp``).  The decoder's causal self-attention
+trains through the same pair at S^2 > 512^2 (``chunked_attention``).  The
+reference computes the same functions in jnp on this path; the tests hold
+the two against each other.
 
 Caches are updated in place (the reference rebuilds arrays): a decode write
 goes straight into the page pool or ring stripe, and the functions return
@@ -166,14 +168,28 @@ def chunked_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
     Routed to the flash kernel under the reference's conditions
     (``layers.py:396``): Sq == Skv and Sq % 128 == 0.  The kernel reads the
     (B, S, H, Dh) activations through strides and writes its output in that
-    layout, so no transpose is copied.  Otherwise the reference runs its jnp
-    chunk scan, which is the same math as ``naive_attention``; the port has
-    no counterpart of that scan and takes ``naive_attention``.
+    layout, so no transpose is copied.  A call that autograd records
+    (training) goes through ``kops.flash_attention_vjp``: the same forward
+    kernel, paired with the flash backward kernels, as the reference's
+    custom VJP pairs its own; the backward takes equal query and KV head
+    counts only.  A call autograd does not record (serving) writes into
+    ``out=`` and saves nothing.  Otherwise the reference runs its jnp chunk
+    scan, which is the same math as ``naive_attention``; the port has no
+    counterpart of that scan and takes ``naive_attention``.
     """
     sq, skv = q.shape[1], k.shape[1]
+    t = lambda x: x.transpose(1, 2)  # (B,S,H,D) <-> (B,H,S,D) views
+    if sq == skv and sq % 128 == 0 and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        if q.shape[2] != k.shape[2]:
+            raise NotImplementedError(
+                "training through grouped-query attention needs the GQA "
+                "flash backward, a later slice (the flash backward takes "
+                "equal query and KV head counts)")
+        return t(kops.flash_attention_vjp(t(q), t(k), t(v), causal=causal,
+                                          softcap=softcap, impl=impl))
     if sq == skv and sq % 128 == 0:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
-        t = lambda x: x.transpose(1, 2)  # (B,S,H,D) -> (B,H,S,D) view
         kops.flash_attention(t(q), t(k), t(v), causal=causal,
                              softcap=softcap, impl=impl, out=t(out))
         return out
@@ -197,7 +213,7 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
       its jnp ``naive_attention`` at S <= 512, the same function.
     * ``"attn"``, no cache: causal over the prompt's own K/V (returned as
       {"k", "v"} when ``return_cache``); long prompts go through
-      ``chunked_attention``.
+      ``chunked_attention`` (differentiable under autograd: training).
     * contiguous ring cache {"k", "v"} (B, Smax, KV, Dh): the decode token is
       written at ring index ``cache_pos`` (B,) in place, and the query
       attends the slot's ``kv_len`` valid rows.

@@ -32,6 +32,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amp import Policy
@@ -245,12 +246,20 @@ def _lm_logits(params, x, cfg: ModelConfig, policy: Policy):
 # ---------------------------------------------------------------------------
 
 def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
-             impl: Optional[str] = None):
-    """Full forward of (B, S) tokens -> logits (B, S, V).  (The reference
-    also returns the MoE aux loss, which a dense model does not have.)"""
+             remat: bool = False, impl: Optional[str] = None):
+    """Full forward of (B, S) tokens -> logits (B, S, V), for training and
+    scoring.  (The reference also returns the MoE aux loss, which a dense
+    model does not have.)  ``remat=True`` recomputes each layer in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant), as
+    ``jax.checkpoint`` wraps the reference's scan body (one block: one
+    layer of a one-position ``block_pattern``)."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
     for p, (mixer, _) in zip(params["blocks"], cfg.layer_kinds()):
-        x = _apply_layer(p, x, cfg, policy, mixer, impl=impl)
+        if remat:
+            x = checkpoint(_apply_layer, p, x, cfg, policy, mixer, impl=impl,
+                           use_reentrant=False)
+        else:
+            x = _apply_layer(p, x, cfg, policy, mixer, impl=impl)
     x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
     return _lm_logits(params, x, cfg, policy)
 

@@ -5,7 +5,8 @@ optimization stack composed.
          -> [gradient exchange: psum | ring | hierarchical | bucketed,
              uncompressed or fp16/int8 with error feedback, serial or
              overlapped with the last backward]
-         -> unscale -> finite check -> clip -> LAMB with fp32 master weights
+         -> unscale -> finite check -> clip -> [LAMB | AdamW] with fp32
+            master weights
 
 ``train_step_fn`` is the step on one card.  ``make_train_step_dp`` is the
 reference's pure data parallelism (``shard_map`` over the data axes, the
@@ -41,7 +42,8 @@ from repro_torch.core.amp import (LossScaleState, Policy, make_loss_scale,
                                   make_policy)
 from repro_torch.core.grad_accum import accumulate_gradients
 from repro_torch.models import api
-from repro_torch.optim import LambState, lamb_init, lamb_update
+from repro_torch.optim import (LambState, adamw_update, lamb_init,
+                               lamb_update)
 from repro_torch.optim import warmup_poly_decay
 from repro_torch.utils import Path, all_finite, global_norm, tree_map
 
@@ -73,13 +75,13 @@ class TrainState:
         for kind in ("master", "m", "v"):
             stacked = groups.stacked(getattr(self.opt, kind))
             for path in groups.paths:
-                yield f"opt/{kind}/" + "/".join(path), stacked[path]
+                yield f"opt/{kind}/" + groups.name(path), stacked[path]
 
     def _err_shapes(self):
         """(name, path, (world, L, *leaf)) of every residual leaf."""
         groups = self.opt.groups
         for path, view in groups.stacked(self.opt.master).items():
-            yield ("err/" + "/".join(path), path,
+            yield ("err/" + groups.name(path), path,
                    (self.world,) + tuple(view.shape))
 
     def _named_leaves(self):
@@ -230,8 +232,11 @@ def _optimizer_update(grads, opt: LambState, tcfg: TrainConfig, *,
     lr = warmup_poly_decay(opt.step + 1, base_lr=tcfg.learning_rate,
                            warmup_steps=tcfg.warmup_steps,
                            total_steps=tcfg.total_steps)
-    return lamb_update(grads, opt, lr=lr, wd=tcfg.weight_decay,
-                       skip_update=skip_update, impl=impl), lr
+    if tcfg.optimizer == "lamb":
+        return lamb_update(grads, opt, lr=lr, wd=tcfg.weight_decay,
+                           skip_update=skip_update, impl=impl), lr
+    return adamw_update(grads, opt, lr=lr, wd=tcfg.weight_decay,
+                        skip_update=skip_update), lr
 
 
 def _clip_grads(grads: dict, max_norm: float):

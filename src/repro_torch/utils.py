@@ -76,6 +76,13 @@ class LeafGroups:
     leaf's path starts with "blocks" and names no layer."""
 
     def __init__(self, tree: dict):
+        # a decoder's tree (transformer.init_model: ... "final_norm",
+        # "lm_head") is stacked by the reference per block_pattern position
+        # (a tuple of dicts), BERT's in one dict; the port trains decoders
+        # of one position, whose block leaves the reference names under
+        # position 0 ("blocks/0/mixer/wq")
+        self._block_name = ("blocks", "0") if "final_norm" in tree \
+            else ("blocks",)
         self.shapes: Dict[Path, torch.Size] = {}
         self.layers: Dict[Path, int] = {}     # 0 for a leaf outside blocks
         for path, leaf in _walk(tree, ()):
@@ -90,6 +97,15 @@ class LeafGroups:
                     raise ValueError(f"{path}: layers differ in shape")
                 self.layers[path] = len(blocks)
         self.paths: List[Path] = sorted(self.shapes)
+
+    def name(self, path: Path) -> str:
+        """The reference's key path of a group's (stacked) leaf, as its
+        checkpoints name it: ``blocks/mixer/wq`` for BERT,
+        ``blocks/0/mixer/wq`` for a decoder, ``embed/tok`` outside the
+        blocks."""
+        if self.layers[path]:
+            path = self._block_name + path[1:]
+        return "/".join(path)
 
     def numel(self, path: Path) -> int:
         return math.prod(self.shapes[path]) * max(self.layers[path], 1)

@@ -11,9 +11,10 @@ Also: checkpoints are interchangeable with the reference's in both
 directions, bit for bit, and a training step that raises part-way through
 the optimizer update leaves the ``TrainState`` as it was.
 
-Left out of the twins: the ``LMStream`` cursor test (decoder training
-streams are not ported yet) and the two serving deadline-eviction tests
-(serving, not the runtime)."""
+Left out of the twins: the two serving deadline-eviction tests (serving,
+not the runtime).  The ``LMStream`` cursor test's twin is in
+``tests/test_torch_lm_data.py``, and the decoder trainer's crash ->
+``--resume`` runs are in ``tests/test_torch_train_cli.py``."""
 import glob
 import json
 import os
@@ -314,9 +315,9 @@ def test_loss_scale_summary_matches_the_reference():
 # that raises part-way through the optimizer update
 # ---------------------------------------------------------------------------
 
-def _bert_state(precision, seed=0):
+def _bert_state(precision, seed=0, optimizer="lamb"):
     tcfg = TrainConfig(precision=precision, accum_steps=1, warmup_steps=1,
-                       total_steps=10)
+                       total_steps=10, optimizer=optimizer)
     pol = amp.make_policy(precision)
     params = api.init_params(CFG, seed=seed, device="cpu")
     return ts.init_train_state(params, pol, tcfg), tcfg, pol
@@ -405,6 +406,56 @@ def test_a_step_that_raises_mid_update_leaves_the_state_untouched(
     state, hist = train_loop(step, state, iter(batches), total_steps=2,
                              log_every=1, retry_backoff_s=0.0)
     assert hist[-1]["retries"] == 1
+    _assert_state_is(state, _snapshot(clean))
+
+
+class _FlakySqrt:
+    """Stands in for ``torch`` inside ``optim/adamw.py``: its ``sqrt``
+    (one call a leaf group) raises on the ``n``-th call, once."""
+
+    def __init__(self, n):
+        self.n, self.calls, self.raised = n, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def sqrt(self, x):
+        self.calls += 1
+        if self.calls == self.n and not self.raised:
+            self.raised += 1
+            raise RuntimeError("injected failure in the AdamW update")
+        return torch.sqrt(x)
+
+
+def test_an_adamw_step_that_raises_mid_update_leaves_the_state_untouched(
+        monkeypatch):
+    """The AdamW update raises on its third group: master, m, v, the step
+    count and the loss scale are bit-identical to before; through the
+    loop the retry re-runs the step to the bits of a run without the
+    failure."""
+    from repro_torch.optim import adamw
+    state, tcfg, pol = _bert_state("f16", optimizer="adamw")
+    batches = _bert_batches(2)
+    step = _bert_step(tcfg, pol)
+    step(state, batches[0])       # moments and loss scale not at init
+    snap = _snapshot(state)
+    flaky = _FlakySqrt(3)
+    monkeypatch.setattr(adamw, "torch", flaky)
+    with pytest.raises(RuntimeError, match="injected"):
+        step(state, batches[1])
+    assert flaky.raised == 1
+    _assert_state_is(state, snap)
+
+    monkeypatch.setattr(adamw, "torch", torch)
+    clean, _, _ = _bert_state("f16", optimizer="adamw")
+    for batch in batches:
+        step(clean, batch)
+    state, _, _ = _bert_state("f16", optimizer="adamw")
+    flaky = _FlakySqrt(len(state.opt.groups.paths) + 3)  # in step 2
+    monkeypatch.setattr(adamw, "torch", flaky)
+    state, hist = train_loop(step, state, iter(batches), total_steps=2,
+                             log_every=1, retry_backoff_s=0.0)
+    assert flaky.raised == 1 and hist[-1]["retries"] == 1
     _assert_state_is(state, _snapshot(clean))
 
 

@@ -254,10 +254,11 @@ def test_bert_phases_match_the_reference():
 
 def test_train_config_refuses_the_later_slices_knobs():
     """The four strategies, ``bucket_bytes``, the compressed exchange, the
-    overlapped drain and its calibration-only ``"local"`` strategy are
-    supported; AdamW (a later slice) is refused, naming itself, and an
-    unknown strategy or compression, a bucket size of 0 and ``"local"``
-    with compression or overlap raise ``ValueError``."""
+    overlapped drain, its calibration-only ``"local"`` strategy and both
+    optimizers (LAMB and AdamW) are supported; an unknown optimizer (which
+    the reference would run as AdamW), an unknown strategy or
+    compression, a bucket size of 0 and ``"local"`` with compression or
+    overlap raise ``ValueError``."""
     TrainConfig().check_supported()
     TrainConfig(fsdp=False, pure_dp=True).check_supported()
     for strategy in ("psum", "ring", "hierarchical", "bucketed"):
@@ -267,8 +268,9 @@ def test_train_config_refuses_the_later_slices_knobs():
                             grad_compression=comp,
                             overlap_exchange=overlap).check_supported()
     TrainConfig(collective_strategy="local").check_supported()
-    with pytest.raises(NotImplementedError, match="AdamW"):
-        TrainConfig(optimizer="adamw").check_supported()
+    TrainConfig(optimizer="adamw").check_supported()
+    with pytest.raises(ValueError, match="unknown optimizer 'sgd'"):
+        TrainConfig(optimizer="sgd").check_supported()
     for kw in (dict(collective_strategy="allgather"), dict(bucket_bytes=0),
                dict(grad_compression="int4"),
                dict(collective_strategy="local", grad_compression="int8"),
