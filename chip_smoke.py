@@ -40,7 +40,26 @@
    kernel call of the kernel path is held against its plain version on that
    call's own inputs at the tolerance above (30 flash calls at the full
    (1, 32, 1024, 128) shape, 120 paged calls), and the logits of the two
-   paths must agree within the bound stated for each dtype.
+   paths must agree within the bound stated for each dtype.  Then, on the
+   same bf16 weights, the prefix cache and the cohort scheduler:
+   (a) the prefix trace (``prefix_trace``: 12 requests, two 512-token
+   heads, two exact repeats admitted beside their seeds; max_len 2064, the
+   CLI's headroom rule) through ``ContinuousScheduler(prefix_cache=True)``
+   in "paged" and "paged_int8" and unshared in "paged": hits, full hits,
+   copy-on-write copies and saved prefill tokens all occur, fewer prefill
+   tokens than unshared, every request produces tokens, finite logits,
+   every page back, both kernels launched (paged decode on the split
+   kernel); in "paged" each full hit's tokens equal its seed's in bits
+   (logged in int8), and how many requests equal the unshared run's is
+   logged.  (b) A 777-token prompt whole into slot 0 and as a 512-token
+   prefill plus a suffix prefill at 512 into slot 1, then 4 decode steps,
+   every flash and paged call held against its plain version: logits rel
+   L2 within ``SUFFIX_REL_L2_BOUND``.  (c) ``copy_page`` on that pool: the
+   kept rows in bits (bf16) or within one quantisation step with a scale
+   no larger than the source's (int8), the rest zero.  (d) 8 requests of
+   600-1024 tokens through ``CohortScheduler`` (batch 4, the flash forward
+   at (4, 32, 1024, 128), every call held): 2 cohorts, each output its
+   budget, useful tokens and wasted slots as counted on the host.
 5. Training kernel phase: the kernels of the BERT training path against
    their plain versions -- the flash backward (pre-pass, main pass and, in
    16 bits over more than one 128-key tile, the post-pass that adds the dQ
@@ -209,7 +228,8 @@ kernel), ``--only layernorm`` after the build and the two LayerNorm phases,
 ``--only wkv6`` after the build and the wkv6 phase, ``--only resume`` after
 the build and the resume phase, ``--only dp`` after the build, step 8's
 bf16 run (the losses (a) is held to) and the data-parallel phase, ``--only
-lm`` after the build and the decoder-LM phase (exit 2, no result line in
+lm`` after the build and the decoder-LM phase, ``--only serve`` after the
+build and the deepseek serve phase (step 4) (exit 2, no result line in
 each case); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -1161,6 +1181,377 @@ def check_parity(res: dict) -> None:
     if rel is not None and not rel <= CALL_REL_L2_BOUND[res["dtype"]]:
         raise AssertionError(f"{mode}: a paged decode call departs from "
                              f"the plain version (rel L2 {rel:.3e})")
+
+# ---------------------------------------------------------------------------
+# the prefix cache and the cohort scheduler (deepseek-7b, bf16)
+# ---------------------------------------------------------------------------
+
+# the serve CLI's --prefix-cache rule: the bucket, one page for the first
+# decode writes, and a bucket of headroom for a suffix at offset `covered`
+PREFIX_MAX_LEN = PREFILL_LEN + PAGE_SIZE + PREFILL_LEN      # 2064
+PREFIX_HEAD = 512                 # the two shared heads, 32 pages each
+SUFFIX_PROMPT = PREFILL_LEN * 3 // 4 + 9                    # 777 tokens
+# suffix prefill (a 512-token head, then the rest at start 512) against
+# the whole prompt's prefill, logits rel L2 over the prefill and 4 decode
+# steps.  The suffix attends through the plain form in fp32 where the
+# whole prefill's flash forward rounds P to bf16, and that compounds over
+# 30 layers as the kernels-vs-plain path does: bf16 pages 3.662e-2 on an
+# H100, under LOGIT_REL_L2_BOUND.  int8 pages: the suffix's queries also
+# read the head's KV back quantised, where the whole prefill attends its
+# own unquantised KV: 3.980e-2 at the first reading (H100 80GB HBM3,
+# 700 W; the seeds fix the data); the bound is 1.5x that
+SUFFIX_REL_L2_BOUND = {"paged": LOGIT_REL_L2_BOUND[torch.bfloat16],
+                       "paged_int8": 6e-2}
+COW_VALID = 5                     # rows the copy-on-write check keeps
+
+
+def prefix_trace(vocab: int):
+    """(prompt, budget) of 12 requests: two seeded 512-token heads, each
+    followed by 64-480 fresh tokens, and two exact repeats.  Requests 0
+    and 2 seed heads 0 and 1, and 1 and 3 repeat them right after, so the
+    four are admitted together: each repeat is a full hit, and both of a
+    pair's slots hold the shared partial last page (no prompt is a
+    multiple of 16 tokens) when decoding starts, so the first decode write
+    copies it.  Requests 4-11 share a head each: hits of 32 pages and a
+    suffix prefill at start 512."""
+    rng = np.random.default_rng(SEED + 4)
+    heads = [rng.integers(0, vocab, size=PREFIX_HEAD, dtype=np.int32)
+             for _ in range(2)]
+
+    def fresh(h):
+        n = int(rng.integers(64, 481))
+        while (PREFIX_HEAD + n) % PAGE_SIZE == 0:
+            n = int(rng.integers(64, 481))
+        return np.concatenate(
+            [heads[h], rng.integers(0, vocab, size=n, dtype=np.int32)])
+
+    seeds = [fresh(0), fresh(1)]
+    prompts = [seeds[0], seeds[0], seeds[1], seeds[1]] + [
+        fresh(i % 2) for i in range(8)]
+    return [(p, int(rng.integers(4, 17))) for p in prompts]
+
+
+def prefix_run(ops, sched_mod, cfg, params, pol, mode, prefix_cache):
+    """The prefix trace through ``ContinuousScheduler`` (batch 4, bucket
+    1024, max_len 2064), launch counts zeroed just before and read just
+    after; every request must produce tokens, every logit be finite, every
+    page come back, both kernels launch (the paged decode on the split
+    kernel) and, with the prefix cache, hits, full hits, copies and saved
+    prefill tokens all occur."""
+    tag = f"prefix {mode} {'shared' if prefix_cache else 'unshared'}"
+    sched = sched_mod.ContinuousScheduler(
+        params, cfg, pol, batch=BATCH, max_len=PREFIX_MAX_LEN,
+        prefill_len=PREFILL_LEN, cache_mode=mode, page_size=PAGE_SIZE,
+        cache_dtype=torch.bfloat16, prefix_cache=prefix_cache, device=DEVICE)
+    trace = prefix_trace(cfg.vocab_size)
+    for rid, (prompt, new) in enumerate(trace):
+        sched.submit(sched_mod.Request(rid=rid, prompt=prompt,
+                                       max_new_tokens=new))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    done = sched.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = sched.stats
+    alloc = sched.allocator
+    if len(done) != len(trace) or any(
+            r.output is None or len(r.output) == 0 for r in done):
+        raise AssertionError(f"{tag}: not every request produced tokens")
+    if st.nonfinite_logits:
+        raise AssertionError(f"{tag}: {st.nonfinite_logits} non-finite "
+                             "logit rows")
+    if alloc.in_use or alloc.available != sched.num_pages - 1:
+        raise AssertionError(f"{tag}: pages not all returned "
+                             f"({alloc.in_use} in use)")
+    for k in SERVE_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"{tag}: kernel {k} never launched")
+    if counts.get("paged_decode_split", 0) != counts["paged_decode"]:
+        raise AssertionError(f"{tag}: paged decode off the split kernel")
+    if prefix_cache and not (st.prefix_hits and st.prefix_full_hits and
+                             st.cow_copies and st.prefill_tokens_saved):
+        raise AssertionError(f"{tag}: the prefix cache was not exercised "
+                             f"({st})")
+    step_ms = 1e3 * st.decode_s / max(st.decode_steps - 1, 1)
+    log(f"serve {tag}: {len(done)} requests, {st.prefills} prefills "
+        f"({st.prefill_tokens} tokens), hits {st.prefix_hits}/"
+        f"{st.prefix_lookups} ({st.prefix_full_hits} full), "
+        f"{st.pages_shared} pages shared, {st.prefill_tokens_saved} prefill "
+        f"tokens saved, {st.cow_copies} COW copies, {alloc.cached} cached "
+        f"pages held, {alloc.reclaimed} reclaimed; {st.decode_steps} decode "
+        f"steps, {st.useful_tokens} tokens in {st.wall_s:.3f} s, decode "
+        f"{step_ms:.3f} ms/step, launches {counts}")
+    return {"counts": counts, "stats": st,
+            "outputs": {r.rid: np.asarray(r.output) for r in done}}
+
+
+def first_difference(a, b):
+    """Index of the first differing token over the common length, or
+    None."""
+    n = min(len(a), len(b))
+    diff = np.flatnonzero(np.asarray(a[:n]) != np.asarray(b[:n]))
+    return int(diff[0]) if len(diff) else None
+
+
+def check_prefix_runs(runs: dict) -> None:
+    """Holds across the three prefix runs.  ``paged``: each full hit's
+    output (requests 1 and 3) equals its seed's over their common length,
+    in bits (the reference's own claim), and the shared run computes fewer
+    prefill tokens than the unshared one.  ``paged_int8``, whose copy is
+    requantised: logged only.  Both: how many requests match the unshared
+    ``paged`` run in bits."""
+    base = runs["unshared"]
+    if not runs["paged"]["stats"].prefill_tokens < \
+            base["stats"].prefill_tokens:
+        raise AssertionError("prefix paged: no prefill tokens saved against "
+                             "the unshared run")
+    for mode in ("paged", "paged_int8"):
+        out = runs[mode]["outputs"]
+        for seed, rep in ((0, 1), (2, 3)):
+            at = first_difference(out[rep], out[seed])
+            log(f"prefix {mode}: full hit {rep} vs its seed {seed}: "
+                + ("the same tokens over "
+                   f"{min(len(out[rep]), len(out[seed]))}" if at is None else
+                   f"first differs at step {at}"))
+            if mode == "paged" and at is not None:
+                raise AssertionError(f"prefix paged: full hit {rep} departs "
+                                     f"from its seed {seed} at step {at}")
+        same = sum(np.array_equal(out[r], base["outputs"][r]) for r in out)
+        firsts = {r: first_difference(out[r], base["outputs"][r])
+                  for r in out}
+        log(f"prefix {mode}: {same} of {len(out)} requests equal the "
+            f"unshared run's tokens in bits (first differing step by rid: "
+            f"{firsts})")
+
+
+def suffix_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
+    """(b) A 777-token prompt whole into slot 0 and as a 512-token prefill
+    plus a suffix prefill at start 512 into slot 1 (both prefills of the
+    1024 bucket: the flash forward), then 4 decode steps of both fed the
+    same tokens, every flash and paged-decode call held against its plain
+    version.  (c) Then ``copy_page`` on that pool: slot 1's last page into
+    a spare page, keeping ``COW_VALID`` rows."""
+    rng = np.random.default_rng(SEED + 3)
+    prompt = rng.integers(0, cfg.vocab_size, size=SUFFIX_PROMPT,
+                          dtype=np.int32)
+    mp = -(-PREFIX_MAX_LEN // PAGE_SIZE)
+    paged = T.PagedCacheConfig(page_size=PAGE_SIZE, num_pages=2 + 2 * mp,
+                               quantized=(mode == "paged_int8"))
+    state = T.init_decode_state(cfg, 2, PREFIX_MAX_LEN, pol.compute_dtype,
+                                paged=paged, device=DEVICE)
+    rows = np.arange(1, 1 + 2 * mp, dtype=np.int32).reshape(2, mp)
+    T.set_block_tables(state, rows)
+
+    def bucket(toks):
+        t = np.zeros((1, PREFILL_LEN), np.int32)
+        t[0, : len(toks)] = toks
+        return torch.from_numpy(t).to(DEVICE)
+
+    record = {"flash_attention": [], "paged_decode_attention": []}
+    with held_against_plain(ops, record, {k: (pol.compute_dtype, False)
+                                          for k in record}):
+        whole, state = serve_step.prefill_into_slot(
+            params, bucket(prompt), SUFFIX_PROMPT, state, 0, cfg, pol)
+        serve_step.prefill_into_slot(params, bucket(prompt[:PREFIX_HEAD]),
+                                     PREFIX_HEAD, state, 1, cfg, pol)
+        sfx, state = serve_step.prefill_into_slot(
+            params, bucket(prompt[PREFIX_HEAD:]), SUFFIX_PROMPT - PREFIX_HEAD,
+            state, 1, cfg, pol, start=PREFIX_HEAD)
+        seqs = [[whole], [sfx]]
+        feed = int(whole.argmax())
+        for _ in range(4):
+            tok = torch.full((2, 1), feed, device=DEVICE)
+            lg, state = T.decode_step(params, tok, state, cfg, pol)
+            seqs[0].append(lg[0])
+            seqs[1].append(lg[1])
+            feed = int(lg[0].argmax())
+    a, b = (torch.stack(x).float() for x in seqs)
+    res = {"mode": mode, "dtype": pol.compute_dtype,
+           "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+           "rel_l2": rel_l2(b, a), "max_abs": max_err(b, a),
+           "tokens_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1))),
+           **call_summary(record)}
+    log(f"suffix parity {mode}: {SUFFIX_PROMPT}-token prompt, suffix at "
+        f"{PREFIX_HEAD} vs whole, prefill + 4 decode logits: rel L2 "
+        f"{res['rel_l2']:.3e} (bound {SUFFIX_REL_L2_BOUND[mode]}), max abs "
+        f"{res['max_abs']:.3e}, greedy tokens equal {res['tokens_equal']}; "
+        "each kernel call vs plain: " + ", ".join(
+            f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
+            f"err {res['call_max_err'][k]:.3e}, max rel L2 "
+            f"{res['call_max_rel'][k]:.3e}" for k in record))
+    if not res["finite"]:
+        raise AssertionError(f"suffix parity {mode}: non-finite logits")
+    for k, n in res["calls"].items():
+        if n == 0 or res["calls_outside"][k]:
+            raise AssertionError(f"suffix parity {mode}: {k}: "
+                                 f"{res['calls_outside'][k]} of {n} calls "
+                                 "outside tolerance")
+    if not res["rel_l2"] <= SUFFIX_REL_L2_BOUND[mode]:
+        raise AssertionError(f"suffix parity {mode}: suffix departs from the "
+                             f"whole prefill (rel L2 {res['rel_l2']:.3e})")
+    cow_check(T, state, mode, src=int(rows[1][(SUFFIX_PROMPT + 3)
+                                              // PAGE_SIZE]),
+              dst=paged.num_pages - 1)
+
+    def wall_ms(fn, n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    whole_ms = wall_ms(lambda: serve_step.prefill_into_slot(
+        params, bucket(prompt), SUFFIX_PROMPT, state, 0, cfg, pol))
+    sfx_ms = wall_ms(lambda: serve_step.prefill_into_slot(
+        params, bucket(prompt[PREFIX_HEAD:]), SUFFIX_PROMPT - PREFIX_HEAD,
+        state, 1, cfg, pol, start=PREFIX_HEAD))
+    log(f"prefill wall {mode} (host clock, synchronized, 3 runs): whole "
+        f"prompt {', '.join(f'{t:.1f}' for t in whole_ms)} ms; suffix at "
+        f"{PREFIX_HEAD} (1024-token bucket, plain attention over "
+        f"{PREFIX_MAX_LEN} keys) {', '.join(f'{t:.1f}' for t in sfx_ms)} ms")
+    return res
+
+
+def cow_check(T, state, mode, src: int, dst: int) -> None:
+    """(c) ``copy_page(src -> dst, COW_VALID)`` on the serve pool, every
+    layer: bf16 keeps the source's rows in bits; int8 dequantises within
+    one quantisation step (the copy's scale) of the source's values, with
+    a scale no larger than the source's; past ``COW_VALID`` every row is 0
+    and the source keeps its bits."""
+    caches = [st["cache"] for st in state["blocks"]]
+    before = [{k: c[k][src].clone() for k in c if k != "block_table"}
+              for c in caches]
+    T.copy_page(state, src, dst, COW_VALID)
+    torch.cuda.synchronize()
+    worst, widest = 0.0, 0.0
+    for layer, (c, old) in enumerate(zip(caches, before)):
+        for pk, sk in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+            if not same_bits(c[pk][src], old[pk]):
+                raise AssertionError(f"cow {mode}: layer {layer} source "
+                                     "page changed")
+            got, want = c[pk][dst], old[pk]
+            if got[COW_VALID:].any():
+                raise AssertionError(f"cow {mode}: layer {layer} rows past "
+                                     f"{COW_VALID} not zero")
+            if sk not in c:
+                if not same_bits(got[:COW_VALID], want[:COW_VALID]):
+                    raise AssertionError(f"cow {mode}: layer {layer} {pk} "
+                                         "kept rows differ")
+                continue
+            scale, src_scale = c[sk][dst], old[sk]
+            err = (got[:COW_VALID].float() * scale[None, :, None]
+                   - want[:COW_VALID].float() * src_scale[None, :, None])
+            step = err.abs().amax(dim=(0, 2)) / scale.clamp(min=1e-30)
+            worst = max(worst, float(step.max()))
+            widest = max(widest, float((scale / src_scale.clamp(
+                min=1e-30)).max()))
+            if bool((step > 1.0).any()) or \
+                    bool((scale > src_scale * (1 + 1e-6)).any()):
+                raise AssertionError(
+                    f"cow {mode}: layer {layer} {pk}: copy off by "
+                    f"{float(step.max()):.3f} steps or its scale above the "
+                    "source's")
+    log(f"cow {mode}: page {src} -> {dst} keeping {COW_VALID} rows, "
+        f"{len(caches)} layers: "
+        + ("kept rows in bits, the rest 0" if mode == "paged" else
+           f"worst error {worst:.3f} of a quantisation step, largest scale "
+           f"{widest:.4f} of the source's, the rest 0"))
+
+
+def cohort_run(ops, sched_mod, cfg, params, pol) -> dict:
+    """(d) 8 requests of 600-1024 prompt tokens and 4-16 new through
+    ``CohortScheduler`` (batch 4, max_len 1040; each cohort's first prompt
+    is 1024 tokens, so its left-padded prefill takes the flash forward at
+    (4, 32, 1024, 128)), every flash call held against its plain version.
+    Launch counts zeroed just before and read just after: the flash
+    forward once a layer a cohort; 2 cohorts; each output its budget long;
+    ``useful_tokens`` and ``wasted_slots`` as counted on the host from the
+    budgets; finite logits."""
+    rng = np.random.default_rng(SEED + 5)
+    lens = rng.integers(600, PREFILL_LEN + 1, size=N_REQUESTS)
+    lens[::BATCH] = PREFILL_LEN
+    budgets = [int(x) for x in rng.integers(4, 17, size=N_REQUESTS)]
+    sched = sched_mod.CohortScheduler(params, cfg, pol, batch=BATCH,
+                                      max_len=MAX_LEN, device=DEVICE)
+    for rid, (n, new) in enumerate(zip(lens, budgets)):
+        sched.submit(sched_mod.Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab_size, size=int(n),
+                                         dtype=np.int32),
+            max_new_tokens=new))
+    record = {"flash_attention": []}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with held_against_plain(ops, record, {"flash_attention":
+                                          (pol.compute_dtype, False)}):
+        done = sched.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = sched.stats
+    useful = sum(budgets)
+    wasted = sum(sum(b <= step for b in budgets[c: c + BATCH])
+                 for c in range(0, N_REQUESTS, BATCH)
+                 for step in range(1, max(budgets[c: c + BATCH])))
+    calls = call_summary(record)
+    log(f"serve cohort: {len(done)} requests in {st.cohorts} cohorts, "
+        f"{st.decode_steps} decode steps, {st.useful_tokens} useful tokens "
+        f"(host count {useful}), {st.wasted_slots} wasted slots (host count "
+        f"{wasted}), utilisation {st.slot_utilisation:.3f}, "
+        f"{st.wall_s:.3f} s (held calls included), launches {counts}; "
+        f"flash calls vs plain: {calls['calls_outside']['flash_attention']}/"
+        f"{calls['calls']['flash_attention']} outside, max err "
+        f"{calls['call_max_err']['flash_attention']:.3e}, max rel L2 "
+        f"{calls['call_max_rel']['flash_attention']:.3e}")
+    if st.cohorts != N_REQUESTS // BATCH:
+        raise AssertionError(f"cohort: {st.cohorts} cohorts")
+    by_rid = {r.rid: r for r in done}
+    if sorted(by_rid) != list(range(N_REQUESTS)) or any(
+            len(by_rid[r].output) != budgets[r] for r in by_rid):
+        raise AssertionError("cohort: an output is not its budget long")
+    if (st.useful_tokens, st.wasted_slots) != (useful, wasted):
+        raise AssertionError("cohort: useful tokens / wasted slots differ "
+                             "from the host's count")
+    if st.nonfinite_logits:
+        raise AssertionError(f"cohort: {st.nonfinite_logits} non-finite "
+                             "logit rows")
+    want = st.cohorts * cfg.n_layers
+    if counts["flash_fwd"] != want or counts.get(
+            f"flash_fwd_s{PREFILL_LEN}", 0) != want:
+        raise AssertionError(f"cohort: flash launches {counts} (want {want} "
+                             f"at S {PREFILL_LEN})")
+    n = calls["calls"]["flash_attention"]
+    if n != want or calls["calls_outside"]["flash_attention"] or \
+            calls["call_max_rel"]["flash_attention"] > \
+            CALL_REL_L2_BOUND[pol.compute_dtype]:
+        raise AssertionError("cohort: flash calls disagree with the plain "
+                             f"version ({calls})")
+    return counts
+
+
+def prefix_cohort_phase(T, serve_step, ops, sched_mod, cfg, params,
+                        pol) -> dict:
+    """(a)-(d) on the serve phase's bf16 weights.  Returns each run's
+    launch counts."""
+    t0 = time.perf_counter()
+    runs = {"paged": prefix_run(ops, sched_mod, cfg, params, pol, "paged",
+                                True),
+            "paged_int8": prefix_run(ops, sched_mod, cfg, params, pol,
+                                     "paged_int8", True),
+            "unshared": prefix_run(ops, sched_mod, cfg, params, pol, "paged",
+                                   False)}
+    check_prefix_runs(runs)
+    torch.cuda.empty_cache()
+    for mode in ("paged", "paged_int8"):
+        suffix_parity(T, serve_step, ops, cfg, params, pol, mode)
+        torch.cuda.empty_cache()
+    counts = {f"prefix_{k}": v["counts"] for k, v in runs.items()}
+    counts["cohort"] = cohort_run(ops, sched_mod, cfg, params, pol)
+    torch.cuda.empty_cache()
+    log(f"prefix cache and cohort runs: {time.perf_counter() - t0:.1f} s")
+    return counts
+
 
 # ---------------------------------------------------------------------------
 # rwkv serve phases
@@ -3002,6 +3393,45 @@ def lm_phase(ops, fa) -> dict:
     return {"entries": entries, "runs": runs}
 
 
+def deepseek_serve_phase(T, ops, serve_step, sched_mod, get_config,
+                         make_policy) -> dict:
+    """Step 4: full-width deepseek-7b served in bf16 (the paged and int8
+    runs, the prefix cache and cohort runs, kernels vs plain), then the
+    kernels-vs-plain check in f32.  Returns each run's launch counts."""
+    cfg = get_config("deepseek-7b")
+    pol = make_policy("bf16")
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"deepseek-7b full width: {cfg.param_count() / 1e9:.3f} B params "
+        f"(bf16) made in {time.perf_counter() - t0:.1f} s")
+
+    launches = {}
+    for mode in ("paged", "paged_int8"):
+        launches[mode] = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+        torch.cuda.empty_cache()
+    for mode in ("paged", "paged_int8"):
+        check_parity(path_parity(T, serve_step, ops, cfg, params, pol, mode))
+    launches.update(prefix_cohort_phase(T, serve_step, ops, sched_mod, cfg,
+                                        params, pol))
+    # the same check in f32, where only summation order separates the paths
+    del params
+    torch.cuda.empty_cache()
+    pol32 = make_policy("f32")
+    params = T.init_model(cfg, seed=SEED, dtype=pol32.param_dtype,
+                          device=DEVICE)
+    for mode in ("paged", "paged_int8"):
+        check_parity(path_parity(T, serve_step, ops, cfg, params, pol32,
+                                 mode))
+    del params
+    torch.cuda.empty_cache()
+    log(f"peak device memory (deepseek serving) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -3071,6 +3501,12 @@ def main(argv=None) -> int:
         dp_phase(losses)
         log("data-parallel phase only: no other phase, no result")
         return 2
+    if only == "serve":
+        del timer
+        deepseek_serve_phase(T, ops, serve_step, sched_mod, get_config,
+                             make_policy)
+        log("deepseek serve phase only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -3089,34 +3525,8 @@ def main(argv=None) -> int:
         log("kernel phases only: no serve or training phase, no result")
         return 2
 
-    cfg = get_config("deepseek-7b")
-    pol = make_policy("bf16")
-    t0 = time.perf_counter()
-    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
-                          device=DEVICE)
-    torch.cuda.synchronize()
-    log(f"deepseek-7b full width: {cfg.param_count() / 1e9:.3f} B params "
-        f"(bf16) made in {time.perf_counter() - t0:.1f} s")
-
-    launches = {}
-    for mode in ("paged", "paged_int8"):
-        launches[mode] = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
-        torch.cuda.empty_cache()
-    for mode in ("paged", "paged_int8"):
-        check_parity(path_parity(T, serve_step, ops, cfg, params, pol, mode))
-    # the same check in f32, where only summation order separates the paths
-    del params
-    torch.cuda.empty_cache()
-    pol32 = make_policy("f32")
-    params = T.init_model(cfg, seed=SEED, dtype=pol32.param_dtype,
-                          device=DEVICE)
-    for mode in ("paged", "paged_int8"):
-        check_parity(path_parity(T, serve_step, ops, cfg, params, pol32,
-                                 mode))
-    del params
-    torch.cuda.empty_cache()
-    log(f"peak device memory (deepseek serving) "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = deepseek_serve_phase(T, ops, serve_step, sched_mod,
+                                    get_config, make_policy)
 
     torch.cuda.reset_peak_memory_stats()
     launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
@@ -3153,11 +3563,15 @@ def main(argv=None) -> int:
     entries += [lm["entries"][k] for k in ("flash_fwd_lm", "flash_bwd_lm",
                                            "lamb_moments_lm")]
 
+    serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
+                  "prefix_unshared", "cohort")
     by_name = {
-        "flash_fwd": launches["paged"]["flash_fwd"]
-        + launches["paged_int8"]["flash_fwd"] + launches["train"]["flash_fwd"],
-        "paged_decode": launches["paged"]["paged_decode"],
-        "paged_decode_int8": launches["paged_int8"]["paged_decode"],
+        "flash_fwd": sum(launches[r]["flash_fwd"] for r in serve_runs)
+        + launches["train"]["flash_fwd"],
+        "paged_decode": sum(launches[r]["paged_decode"] for r in (
+            "paged", "prefix_paged", "prefix_unshared")),
+        "paged_decode_int8": launches["paged_int8"]["paged_decode"]
+        + launches["prefix_paged_int8"]["paged_decode"],
     }
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
     for phase, (_, _, s, _) in enumerate(TRAIN_ATTN, start=1):
@@ -3172,9 +3586,9 @@ def main(argv=None) -> int:
     by_name["flash_fwd_lm"] = sum(c[f"flash_fwd_s{LM_SEQ}"] for c in lm_runs)
     by_name["flash_bwd_lm"] = sum(c[f"flash_bwd_s{LM_SEQ}"] for c in lm_runs)
     by_name["lamb_moments_lm"] = lm["runs"]["lamb"]["counts"]["lamb_moments"]
-    log(f"flash_fwd launches: serve {launches['paged']['flash_fwd']} + "
-        f"{launches['paged_int8']['flash_fwd']}, train "
-        f"{launches['train']['flash_fwd']}")
+    log("flash_fwd launches: serve " + " + ".join(
+        f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
+        + f", train {launches['train']['flash_fwd']}")
     for e in entries:
         e["launches"] = by_name[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -3,20 +3,26 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch deepseek-7b|rwkv6-1.6b] [--batch 4] [--prompt-len 32] \
-      [--new-tokens 16] [--mode raw|continuous] \
-      [--cache-mode contiguous|paged|paged_int8] [--full-width] \
+      [--new-tokens 16] [--mode raw|cohort|continuous] \
+      [--cache-mode contiguous|paged|paged_int8] \
+      [--prefix-cache [--prefix-groups 2]] [--full-width] \
       [--device cuda|cpu]
 
 ``--mode raw`` prefills a batch of random prompts and decodes it in
 lockstep, reporting tokens/s; for rwkv6-1.6b that prefill is unmasked and
 runs the chunked ``wkv6`` kernel (a prompt longer than 64 tokens must be a
-multiple of 64).  ``--mode continuous`` runs ``ContinuousScheduler`` over
-a synthetic mixed-length workload and reports slot utilisation,
-throughput and the KV and recurrent-state footprints; rwkv6-1.6b is not
-pageable and serves with ``--cache-mode contiguous``, its slot prefills
-through the masked sequential scan.  As in the example, there is no
-cohort mode here.  Without ``--full-width``
-the model is the reduced ``smoke_variant`` (as in the example); with it the
+multiple of 64).  ``--mode cohort`` and ``--mode continuous`` run
+``CohortScheduler`` and ``ContinuousScheduler`` over a synthetic
+mixed-length workload and report slot utilisation and throughput; the
+continuous mode also the KV and recurrent-state footprints.  rwkv6-1.6b is
+not pageable and serves continuously with ``--cache-mode contiguous``, its
+slot prefills through the masked sequential scan; cohort mode refuses it
+(left padding would step its recurrent state).  ``--prefix-cache``
+(continuous, paged cache modes) shares cached prompt-prefix pages across
+slots: the workload's prompts then start with one of ``--prefix-groups``
+shared heads, and ``max_len`` gains ``--prompt-len`` of headroom so a
+suffix prefill fits in the slot's extent.  Without ``--full-width`` the
+model is the reduced ``smoke_variant`` (as in the example); with it the
 model has its published widths and depth and runs in bf16 (the smoke
 variant runs in f32, as the example does).  Weights are random, drawn from
 a fixed seed.
@@ -44,36 +50,71 @@ def _sync(device):
 
 
 def run_scheduler(args, cfg, pol, params):
-    from repro_torch.serve.scheduler import ContinuousScheduler, Request
+    from repro_torch.serve.scheduler import (CohortScheduler,
+                                             ContinuousScheduler, Request)
     max_len = args.prompt_len + args.new_tokens
-    sched = ContinuousScheduler(
-        params, cfg, pol, batch=args.batch, max_len=max_len,
-        prefill_len=args.prompt_len, cache_mode=args.cache_mode,
-        page_size=args.page_size, num_pages=args.num_pages,
-        cache_dtype=pol.compute_dtype, device=args.device)
+    if args.prefix_cache:
+        # headroom for a suffix bucket (prefill_len wide) at offset covered
+        max_len += args.prompt_len
+    if args.mode == "continuous":
+        sched = ContinuousScheduler(
+            params, cfg, pol, batch=args.batch, max_len=max_len,
+            prefill_len=args.prompt_len, cache_mode=args.cache_mode,
+            page_size=args.page_size, num_pages=args.num_pages,
+            cache_dtype=pol.compute_dtype, prefix_cache=args.prefix_cache,
+            device=args.device)
+    else:
+        caps = cfg.decode_caps
+        if caps.needs_exact_prefill or caps.cross_cache:
+            raise SystemExit(
+                "cohort mode left-pads prompts (corrupts recurrent scans) "
+                "and has no per-request encoder-frame plumbing -- serve "
+                f"{cfg.arch_id} with --mode continuous")
+        sched = CohortScheduler(params, cfg, pol, batch=args.batch,
+                                max_len=max_len, device=args.device)
     rng = np.random.default_rng(SEED)
+    # shared heads, so that --prefix-cache has hits
+    groups = [rng.integers(0, cfg.vocab_size,
+                           size=max(args.prompt_len // 2, 1), dtype=np.int32)
+              for _ in range(args.prefix_groups)]
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=int(rng.integers(4, args.prompt_len + 1)),
                               dtype=np.int32)
+        if args.prefix_cache:
+            head = groups[i % len(groups)]
+            prompt = np.concatenate([head, prompt])[: args.prompt_len]
         sched.submit(Request(
             rid=i, prompt=prompt,
             max_new_tokens=int(rng.integers(2, args.new_tokens + 1))))
     done = sched.run()
     st = sched.stats
-    logger.info("continuous: %d requests done, %d useful tokens, %d wasted "
-                "slots", len(done), st.useful_tokens, st.wasted_slots)
+    logger.info("%s: %d requests done, %d useful tokens, %d wasted slots",
+                args.mode, len(done), st.useful_tokens, st.wasted_slots)
     logger.info("slot utilisation %.3f, %.1f tok/s, decode %.1f tok/s, p50 "
                 "latency %.3fs", st.slot_utilisation, st.tokens_per_s,
                 st.decode_tokens_per_s,
                 float(np.median([r.latency_s for r in done])))
-    logger.info("KV cache bytes %d (%s), recurrent state bytes %d",
-                st.cache_bytes, args.cache_mode, st.state_bytes)
-    if sched.allocator is not None:
+    if args.mode == "cohort":
+        logger.info("cohorts %d", st.cohorts)
+    else:
+        logger.info("KV cache bytes %d (%s), recurrent state bytes %d",
+                    st.cache_bytes, args.cache_mode, st.state_bytes)
+    alloc = getattr(sched, "allocator", None)
+    if alloc is not None:
         logger.info("paged cache: %d-page pool, %d preemptions, %d pages "
                     "leaked", sched.num_pages - 1, st.preemptions,
-                    sched.allocator.in_use)
-        if sched.allocator.in_use:
+                    alloc.in_use)
+        if args.prefix_cache:
+            logger.info(
+                "prefix cache: hit rate %.2f (%d/%d, %d full), %d pages "
+                "shared, %d prefill tokens saved (%d computed), %d COW "
+                "copies, %d cached pages held, %d reclaimed",
+                st.prefix_hit_rate, st.prefix_hits, st.prefix_lookups,
+                st.prefix_full_hits, st.pages_shared,
+                st.prefill_tokens_saved, st.prefill_tokens, st.cow_copies,
+                alloc.cached, alloc.reclaimed)
+        if alloc.in_use or alloc.available != sched.num_pages - 1:
             raise RuntimeError("pages leaked after drain")
     if st.nonfinite_logits:
         raise RuntimeError(f"{st.nonfinite_logits} non-finite logit rows")
@@ -124,15 +165,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--mode", default="raw", choices=["raw", "continuous"])
+    ap.add_argument("--mode", default="raw",
+                    choices=["raw", "cohort", "continuous"])
     ap.add_argument("--requests", type=int, default=12,
-                    help="workload size for --mode continuous")
+                    help="workload size for the scheduler modes")
     ap.add_argument("--cache-mode", default="contiguous",
                     choices=["contiguous", "paged", "paged_int8"])
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="page pool size incl. the trash page (default: "
                          "full provisioning); small pools force preemption")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share cached prompt-prefix pages across slots "
+                         "(continuous mode, paged cache modes); the "
+                         "workload gains shared heads so that hits occur")
+    ap.add_argument("--prefix-groups", type=int, default=2,
+                    help="distinct shared heads in the workload")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full-width", action="store_true",
                     help="the published configuration instead of the "
@@ -152,7 +200,7 @@ def main(argv=None):
     logger.info("serving %s (%s) on %s: %.2fM params", cfg.arch_id,
                 "full width" if args.full_width else "reduced", args.device,
                 cfg.param_count() / 1e6)
-    if args.mode == "continuous":
+    if args.mode != "raw":
         return run_scheduler(args, cfg, pol, params)
     return run_raw(args, cfg, pol, params)
 

@@ -126,13 +126,15 @@ def _soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def naive_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
-                    kv_len: Optional[torch.Tensor] = None,
+                    q_offset=0, kv_len: Optional[torch.Tensor] = None,
                     reduce_dtype=torch.float32) -> torch.Tensor:
     """Reference attention.  q: (B, Sq, H, Dh); k, v: (B, Skv, KV, Dh).  GQA
-    via head grouping.  ``kv_len``: scalar or (B,) valid KV lengths.
-    Logits and the PV product are taken in ``reduce_dtype`` from upcast
-    operands; the probabilities are rounded to v's dtype first, as in the
-    reference.  Fully masked rows give zeros."""
+    via head grouping.  ``q_offset`` (int or 0-d tensor) is the absolute
+    position of the first query: the causal mask is ``k <= q + q_offset``.
+    ``kv_len``: scalar or (B,) valid KV lengths.  Logits and the PV product
+    are taken in ``reduce_dtype`` from upcast operands; the probabilities
+    are rounded to v's dtype first, as in the reference.  Fully masked rows
+    give zeros."""
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -140,7 +142,7 @@ def naive_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
     logits = torch.einsum("bqvgd,bkvd->bvgqk", qg,
                           k.to(reduce_dtype)) / math.sqrt(dh)
     logits = _soft_cap(logits, softcap)
-    qi = torch.arange(sq, device=q.device)[:, None]
+    qi = q_offset + torch.arange(sq, device=q.device)[:, None]
     ki = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -216,7 +218,10 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
       ``chunked_attention`` (differentiable under autograd: training).
     * contiguous ring cache {"k", "v"} (B, Smax, KV, Dh): the decode token is
       written at ring index ``cache_pos`` (B,) in place, and the query
-      attends the slot's ``kv_len`` valid rows.
+      attends the slot's ``kv_len`` valid rows.  S > 1 tokens (the suffix
+      prefill, resuming at a cached prefix) are written at rows
+      [cache_pos, cache_pos + S) of a scalar ``cache_pos`` and attend
+      causally from there (``q_offset``).
     * paged cache {"k_pages", "v_pages", "block_table"[, "k_scale",
       "v_scale"]}: the token is written through
       ``block_table[slot, pos // page_size]`` in place (int8 pages
@@ -284,26 +289,42 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
             v_scale=cache.get("v_scale"), softcap=softcap,
             impl=impl)[:, None]
     elif cache is not None:
-        if s != 1:
-            raise NotImplementedError(
-                "multi-token writes into a contiguous cache (suffix prefill) "
-                "port with the prefix-cache slice")
         ck, cv = cache["k"], cache["v"]
         length = ck.shape[1]
-        cpos = torch.as_tensor(cache_pos, device=x.device).expand(b).long()
-        # a position past the stripe is a dropped write (its row keeps its
-        # value), never an alias into the next slot's stripe
-        ok = (cpos < length)[:, None, None]
-        idx = (torch.arange(b, device=x.device) * length
-               + torch.clamp(cpos, max=length - 1))
-        for buf, tok in ((ck, k[:, 0]), (cv, v[:, 0])):
-            old = buf.view((-1,) + tuple(buf.shape[2:]))[idx]
-            _flat_row_write(buf, idx, torch.where(ok, tok.to(buf.dtype), old))
+        cpos = torch.as_tensor(cache_pos, device=x.device).long()
+        if s > 1:
+            # suffix prefill: S rows from one scalar position, which never
+            # wraps.  The start is clamped to length - S, as the reference's
+            # dynamic_update_slice clamps; prefill_into_slot refuses a
+            # suffix that would need it
+            if cpos.ndim or s > length:
+                raise ValueError("a multi-token cache write takes one scalar "
+                                 f"cache_pos and at most {length} tokens")
+            rows = (torch.clamp(cpos, max=length - s)
+                    + torch.arange(s, device=x.device))
+            ck.index_copy_(1, rows, k.to(ck.dtype))
+            cv.index_copy_(1, rows, v.to(cv.dtype))
+        else:
+            cpos = cpos.expand(b)
+            # a position past the stripe is a dropped write (its row keeps
+            # its value), never an alias into the next slot's stripe
+            ok = (cpos < length)[:, None, None]
+            idx = (torch.arange(b, device=x.device) * length
+                   + torch.clamp(cpos, max=length - 1))
+            for buf, tok in ((ck, k[:, 0]), (cv, v[:, 0])):
+                old = buf.view((-1,) + tuple(buf.shape[2:]))[idx]
+                _flat_row_write(buf, idx,
+                                torch.where(ok, tok.to(buf.dtype), old))
         if return_cache:
             new_cache = cache
         if kv_len is None:
             kv_len = torch.clamp(cpos + s, max=length)
-        out = naive_attention(q, ck, cv, causal=False, kv_len=kv_len,
+        # one token: no causal mask, the ring's kv_len is the window; S
+        # tokens: causal within the chunk, at their absolute positions.
+        # This is the reference's jnp form for both (no kernel on either
+        # side): the suffix's queries read the cached prefix through it
+        out = naive_attention(q, ck, cv, causal=s > 1,
+                              q_offset=cpos if s > 1 else 0, kv_len=kv_len,
                               softcap=softcap,
                               reduce_dtype=policy.reduce_dtype)
     else:
@@ -448,6 +469,33 @@ def paged_prefill_write(pcache: dict, k: torch.Tensor, v: torch.Tensor,
         dt = pcache["k_pages"].dtype
         pcache["k_pages"][pids] = kr.to(dt)
         pcache["v_pages"][pids] = vr.to(dt)
+    return pcache
+
+
+def copy_page_cow(pcache: dict, src, dst, valid) -> dict:
+    """Copy-on-write: duplicate page ``src`` into ``dst`` of one layer's
+    pool, in place, so a slot can append privately while siblings still
+    read ``src``.  Only the first ``valid`` rows (the copying slot's tokens
+    in that page) are kept; the rest are zeroed.  An int8 copy restarts its
+    scale: the source is dequantised at its own scale, the dead rows
+    zeroed, and the page requantised fresh (``quantize_pages``), so a
+    sibling's larger appends never coarsen the copy."""
+    ps = pcache["k_pages"].shape[1]
+    dev = pcache["k_pages"].device
+    keep = (torch.arange(ps, device=dev) < torch.as_tensor(valid, device=dev)
+            )[:, None, None]
+    if "k_scale" in pcache:
+        for pk, sk in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+            page = (pcache[pk][src].to(torch.float32)
+                    * pcache[sk][src][None, :, None])
+            q, sc = quantize_pages(
+                torch.where(keep, page, torch.zeros_like(page))[None])
+            pcache[pk][dst] = q[0]
+            pcache[sk][dst] = sc[0]
+    else:
+        for pk in ("k_pages", "v_pages"):
+            page = pcache[pk][src]
+            pcache[pk][dst] = torch.where(keep, page, torch.zeros_like(page))
     return pcache
 
 

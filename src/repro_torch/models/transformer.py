@@ -156,9 +156,12 @@ def set_block_tables(state: dict, rows, slot: Optional[int] = None) -> dict:
 # Per-layer apply
 # ---------------------------------------------------------------------------
 
-def _decode_positions(decode_pos: torch.Tensor, s: int = 1) -> torch.Tensor:
-    p = decode_pos.long()[:, None]
-    return p + torch.arange(s, device=p.device)[None]
+def _decode_positions(decode_pos: torch.Tensor, batch: int,
+                      s: int = 1) -> torch.Tensor:
+    """Absolute positions (B, S) of ``s`` tokens from ``decode_pos``, a
+    scalar (the suffix prefill) or per slot (B,) (decode)."""
+    p = decode_pos.long().reshape(-1, 1)
+    return (p + torch.arange(s, device=p.device)[None]).expand(batch, s)
 
 
 def _fit_cache(new_cache: dict, state: dict, valid_len=None) -> None:
@@ -220,7 +223,8 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
         kv_len = torch.clamp(decode_pos + h.shape[1], max=cache_len)
         y, _ = L.apply_attention(
             p["mixer"], h, cfg, policy,
-            positions=_decode_positions(decode_pos, h.shape[1]), cache=cache,
+            positions=_decode_positions(decode_pos, h.shape[0], h.shape[1]),
+            cache=cache,
             cache_pos=write_pos, kv_len=kv_len, impl=impl)
     else:
         y, nc = L.apply_attention(p["mixer"], h, cfg, policy,
@@ -290,6 +294,51 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
     logits = _lm_logits(params, x_last, cfg, policy)[:, 0]
     state["pos"].copy_(new_pos)
     return logits, state
+
+
+def prefill_suffix(params, tokens, start, length, cfg: ModelConfig,
+                   policy: Policy, *, state, impl: Optional[str] = None):
+    """Resume a prefill at position ``start``: run only the uncached suffix.
+
+    ``tokens``: (B, P) right-padded suffix bucket; ``length``: its true
+    length (scalar or (B,)); ``state``: a decode state with contiguous
+    caches that already hold positions [0, start) (a prefix-cache hit).
+    The suffix's K/V are written in place at [start, start + P), and each
+    suffix query attends causally at its absolute position, RoPE included.
+    Returns (logits at the last true suffix token (B, V), state), with
+    ``pos`` at ``start + length``.  Attention-only architectures: pad tokens
+    must not step a recurrent scan."""
+    if any(mixer != "attn" for mixer, _ in cfg.layer_kinds()):
+        raise ValueError("suffix prefill requires attention-only "
+                         f"architectures, not {cfg.arch_id}")
+    b = tokens.shape[0]
+    dev = tokens.device
+    pos0 = torch.as_tensor(start, device=dev).to(torch.int32).reshape(())
+    x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    for p, st, (mixer, _) in zip(params["blocks"], state["blocks"],
+                                 cfg.layer_kinds()):
+        x = _apply_layer(p, x, cfg, policy, mixer, state=st, decode_pos=pos0,
+                         impl=impl)
+    lengths = torch.as_tensor(length, device=dev).to(torch.int32)
+    lengths = lengths.reshape(-1).expand(b)
+    x_last = x[torch.arange(b, device=dev), lengths.long() - 1][:, None]
+    x_last = L.apply_norm(params["final_norm"], x_last, cfg, policy,
+                          impl=impl)
+    logits = _lm_logits(params, x_last, cfg, policy)[:, 0]
+    state["pos"].copy_(pos0 + lengths)
+    return logits, state
+
+
+def copy_page(state: dict, src, dst, valid) -> dict:
+    """Copy-on-write of page ``src`` into ``dst`` in every paged layer's
+    pool, in place (``layers.copy_page_cow``: rows past ``valid`` zeroed, an
+    int8 copy's scale restarted).  The block table is untouched: the
+    scheduler repoints the diverging slot's row afterwards."""
+    for st in state["blocks"]:
+        cache = st.get("cache")
+        if cache is not None and "k_pages" in cache:
+            L.copy_page_cow(cache, src, dst, valid)
+    return state
 
 
 def decode_step(params, token, state, cfg: ModelConfig, policy: Policy, *,

@@ -11,8 +11,16 @@ pool with the slot's block-table row -- so the prefill writes the slot's
 rows and pages in place and touches nothing of its neighbours.  The pages
 written are the ``ceil(P / page_size)`` that the bucket covers, as in the
 reference.  An rwkv layer's view is its slot's rows of the recurrent
-state, which the masked prefill overwrites in place.  The prefix-cache
-``start`` (suffix) mode is a later slice.
+state, which the masked prefill overwrites in place.
+
+The prefix cache's ``start`` (suffix) mode cannot prefill through views:
+the suffix's queries must read the cached prefix.  It gathers the slot's
+pages into a one-row contiguous scratch state (int8 pages dequantised into
+fp32, as the reference's ``_cache_geometry`` chooses), runs
+``transformer.prefill_suffix`` over it and writes back only the pages that
+cover [start, start + ceil(P / page_size) * page_size); pages below
+``start`` -- shared, possibly read by sibling slots -- are never
+rewritten.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amp import Policy
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -56,13 +65,87 @@ def slot_view(state: dict, slot: int) -> dict:
     return {"pos": state["pos"][rows], "blocks": blocks}
 
 
+def _gather_pages_into_row(cache: dict, slot: int):
+    """The pages ``block_table[slot]`` names, read back into one contiguous
+    row (1, max_pages * page_size, KV, Dh) each of K and V; int8 pages are
+    dequantised through their scales into fp32.  Rows past the slot's true
+    length are garbage that the suffix prefill masks (``kv_len``) or
+    overwrites."""
+    bt = cache["block_table"][slot].long()
+    out = []
+    for pk, sk in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+        pages = cache[pk][bt]                               # (mp, ps, KV, Dh)
+        if sk in cache:
+            pages = pages.to(torch.float32) * cache[sk][bt][:, None, :, None]
+        out.append(pages.reshape(1, -1, *pages.shape[2:]))
+    return out
+
+
+def _scatter_suffix_into_pages(cache: dict, row: dict, slot: int,
+                               start: int, length: int, width: int) -> None:
+    """Write the scratch row's rows [start, start + n * page_size), n =
+    ceil(width / page_size), into the pages ``block_table[slot]`` names at
+    those positions, in place (``layers.paged_prefill_write``: rows past the
+    suffix's ``length`` zeroed, int8 pages requantised).  A page index past
+    the table goes to the trash page 0."""
+    ps = cache["k_pages"].shape[1]
+    bt = cache["block_table"][slot]
+    mp, cap = bt.shape[0], row["k"].shape[1]
+    n = min(cap, -(-width // ps) * ps) // ps
+    dev = bt.device
+    idx = start // ps + torch.arange(n, device=dev)
+    pids = torch.where(idx < mp, bt[torch.clamp(idx, max=mp - 1)],
+                       torch.zeros_like(idx, dtype=bt.dtype))
+    rows = torch.clamp(start + torch.arange(n * ps, device=dev), max=cap - 1)
+    view = dict(cache, block_table=pids[None].to(torch.int32))
+    L.paged_prefill_write(view, row["k"][:, rows], row["v"][:, rows],
+                          valid_len=torch.tensor([length], device=dev))
+
+
+def _prefill_suffix_into_slot(params, tokens, length: int, state: dict,
+                              slot: int, start: int, cfg: ModelConfig,
+                              policy: Policy, impl: Optional[str]):
+    p = tokens.shape[1]
+    caches = [st.get("cache") for st in state["blocks"]]
+    if any(c is None or "k_pages" not in c for c in caches):
+        raise ValueError("suffix prefill requires a paged cache in every "
+                         "layer")
+    ps = caches[0]["k_pages"].shape[1]
+    extent = cache_extent(state)
+    if start % ps:
+        raise ValueError(f"suffix start {start} is not page-aligned "
+                         f"(page_size {ps})")
+    if start + p > extent:
+        raise ValueError(f"suffix bucket [{start}, {start + p}) exceeds the "
+                         f"cache extent {extent}")
+    blocks = []
+    for c in caches:
+        k, v = _gather_pages_into_row(c, slot)
+        blocks.append({"cache": {"k": k, "v": v}})
+    dev = state["pos"].device
+    row = {"pos": torch.zeros((1,), dtype=torch.int32, device=dev),
+           "blocks": blocks}
+    logits, row = T.prefill_suffix(params, tokens, start, length, cfg, policy,
+                                   state=row, impl=impl)
+    for c, st in zip(caches, row["blocks"]):
+        _scatter_suffix_into_pages(c, st["cache"], slot, start, length, p)
+    state["pos"][slot] = row["pos"][0]
+    return logits[0], state
+
+
 def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
                       cfg: ModelConfig, policy: Policy, *,
+                      start: Optional[int] = None,
                       impl: Optional[str] = None):
     """Prefill ONE right-padded request (1, P) of true length ``length``
     into live slot ``slot``; neighbouring slots are untouched.  A paged
     state needs the slot's block-table row written first.  Returns
-    (next-token logits (V,), state), the state updated in place."""
+    (next-token logits (V,), state), the state updated in place.
+
+    ``start`` (paged states only, page-aligned): the slot's table already
+    maps ``start`` cached positions; ``tokens`` holds only the uncached
+    suffix, of true length ``length``, and ``start + P`` must lie within
+    the cache extent."""
     b1, p = tokens.shape
     if b1 != 1:
         raise ValueError("prefill_into_slot takes a single request")
@@ -70,6 +153,9 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
     if extent is not None and p > extent:
         raise ValueError(f"prefill bucket {p} exceeds the cache extent "
                          f"{extent}")
+    if start is not None:
+        return _prefill_suffix_into_slot(params, tokens, length, state, slot,
+                                         start, cfg, policy, impl)
     row = slot_view(state, slot)
     lengths = torch.tensor([length], dtype=torch.int32,
                            device=state["pos"].device)

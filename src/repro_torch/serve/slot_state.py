@@ -5,11 +5,13 @@ for dense attention and RWKV-6 architectures).
 slot, so ``ContinuousScheduler`` stays pure policy over abstract slots:
 
 * ``init_state()``                    -- allocate the batch's decode state;
-* ``prefill(state, tokens, length, slot)`` -- one request into one slot;
+* ``prefill(state, tokens, length, slot[, start=])`` -- one request into
+  one slot (``start``: the suffix after a cached prefix, paged states);
 * ``reset_slot(state, slot)``         -- zero a released slot's position
   and recurrent rows;
 * ``write_table_row(state, slot, pages)`` -- mirror a slot's page list into
   the block table (unallocated entries point at the trash page);
+* ``copy_page(state, src, dst, valid)`` -- copy-on-write of a shared page;
 * ``cache_bytes()`` / ``state_bytes()`` -- KV footprint vs recurrent
   state, from the sizes of the tensors ``init_state`` makes.
 
@@ -19,8 +21,7 @@ advanced by the pad tokens of the prefill bucket.  The slot prefill passes
 run the sequential scan, and a padded slot prefill leaves the same state,
 bit for bit, as an unpadded prefill of the true prompt.
 
-Cross-attention state, suffix prefill and copy-on-write come with the
-architecture-family and prefix-cache slices.
+Cross-attention state comes with the architecture-family slice.
 """
 from __future__ import annotations
 
@@ -82,10 +83,12 @@ class SlotStateAdapter:
                                    self.cache_dtype, paged=self.paged_cfg,
                                    device=self.device)
 
-    def prefill(self, state, tokens, length: int, slot: int):
-        """Prefill one request into ``slot``.  Returns (logits (V,), state)."""
+    def prefill(self, state, tokens, length: int, slot: int, *,
+                start: Optional[int] = None):
+        """Prefill one request into ``slot``; ``start`` resumes after a
+        cached page-aligned prefix.  Returns (logits (V,), state)."""
         return prefill_into_slot(self.params, tokens, length, state, slot,
-                                 self.cfg, self.policy)
+                                 self.cfg, self.policy, start=start)
 
     def reset_slot(self, state, slot: int):
         """Zero the slot's position and recurrent rows, in place.  Hygiene,
@@ -101,6 +104,9 @@ class SlotStateAdapter:
         row = np.zeros((self.max_pages,), np.int32)
         row[: len(pages)] = pages
         return T.set_block_tables(state, row, slot=slot)
+
+    def copy_page(self, state, src: int, dst: int, valid: int):
+        return T.copy_page(state, src, dst, valid)
 
     def state_bytes(self) -> int:
         """Bytes of non-KV state over the batch: rwkv's token shifts and

@@ -107,14 +107,48 @@ def test_greedy_generate_matches_jax(weights):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("mode", ["raw", "continuous"])
-def test_serve_cli_runs_on_cpu(mode):
+# mode -> (extra flags, lines the CLI must log)
+CLI_MODES = {
+    "raw": ([], ["prefill: 4 x 16 tokens"]),
+    "continuous": ([], ["continuous: 3 requests done",
+                        "paged cache: ", "0 pages leaked"]),
+    "cohort": ([], ["cohort: 3 requests done", "cohorts 1"]),
+    "prefix": (["--cache-mode", "paged", "--prefix-cache", "--requests",
+                "6", "--page-size", "4"],
+               ["continuous: 6 requests done", "prefix cache: hit rate",
+                "0 pages leaked"]),
+}
+
+
+@pytest.mark.parametrize("mode", list(CLI_MODES))
+def test_serve_cli_runs_on_cpu(mode, caplog):
     from repro_torch.launch import serve
-    out = serve.main(["--device", "cpu", "--mode", mode, "--cache-mode",
-                      "paged_int8", "--requests", "3", "--prompt-len", "16",
-                      "--new-tokens", "4"])
+    extra, lines = CLI_MODES[mode]
+    args = ["--device", "cpu", "--mode",
+            "continuous" if mode == "prefix" else mode, "--cache-mode",
+            "paged_int8", "--requests", "3", "--prompt-len", "16",
+            "--new-tokens", "4"] + extra
+    with caplog.at_level("INFO", logger="repro_torch.serve"):
+        out = serve.main(args)
+    for line in lines:
+        assert line in caplog.text, line
     if mode == "raw":
         assert out.shape == (4, 4)
+    elif mode == "cohort":
+        assert out.stats.cohorts == 1 and out.stats.nonfinite_logits == 0
+        assert out.stats.useful_tokens > 0
     else:
         assert out.allocator.in_use == 0
-        assert out.stats.prefills == 3 and out.stats.nonfinite_logits == 0
+        assert out.stats.nonfinite_logits == 0
+        if mode == "prefix":
+            assert out.stats.prefix_hits > 0
+            assert out.stats.prefill_tokens_saved > 0
+        else:
+            assert out.stats.prefills == 3
+
+
+def test_serve_cli_refuses_rwkv_cohort():
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="cohort mode left-pads"):
+        serve.main(["--device", "cpu", "--arch", "rwkv6-1.6b", "--mode",
+                    "cohort", "--requests", "2"])
