@@ -14,8 +14,8 @@
    GQA at every head dim, S 256, 200, 130 (across a 128-row q tile) and 17
    (under one), Dh 32, 64 and 128, and the model's (B, S, H, Dh) layout read
    through transposed views with ``out=`` into one; paged
-   decode with page_size 16 over f32, bf16 and int8 pages, H/KV 1, 2, 4
-   and 8, at B = 5 and B = 8 with one empty slot and one slot whose table
+   decode with page_size 16 over f32, bf16 and int8 pages, H/KV 1, 2, 4,
+   7 and 8, at B = 5 and B = 8 with one empty slot and one slot whose table
    points at the trash page, at tables the split kernel splits (one slot
    of 600-1040 tokens, two of 2000-4800 in 300-page tables), at short
    contexts (B = 4 slots of 16-64 tokens in the serve tables) and at the
@@ -60,6 +60,32 @@
    600-1024 tokens through ``CohortScheduler`` (batch 4, the flash forward
    at (4, 32, 1024, 128), every call held): 2 cohorts, each output its
    budget, useful tokens and wasted slots as counted on the host.
+4b. Dense decoder variants phase, after the deepseek phase has freed its
+   memory: full width, depth cut, bf16 weights seeded on the card.  (a)
+   gemma2-27b at 8 layers (4 local/global blocks): the serve CLI's raw
+   mode, 2 prompts of 8192 tokens (twice the 4096 window: the flash
+   forward's window mask bites on the local layers, softcap 50 on all,
+   and the local rings keep the last 4096 positions) and 16 greedy decode
+   steps, every flash call held against its plain version; the same
+   prefill and 16 steps through the kernels and the plain versions,
+   logits within ``LOGIT_REL_L2_BOUND``; ``ContinuousScheduler`` in
+   contiguous mode (batch 4, bucket 4096 = the window, max_len 4224, 8
+   requests of 600-4096 tokens, 4-16 new): every request produces tokens,
+   the flash forward launches once a layer a prefill; ``paged``,
+   ``paged_int8`` and ``prefix_cache`` raise ``ValueError``.  (b)
+   qwen1.5-32b and (c) deepseek-coder-33b at 4 layers (qwen's QKV biases
+   drawn non-zero from a seed) served as deepseek-7b is in "paged" and
+   "paged_int8" (``serve_run``: the coder's paged decode at 56 heads over
+   8, group 7, on the split kernel) and held kernels vs plain
+   (``path_parity``: the coder's 7:1 flash prefill among its calls).  (d)
+   The same holds in f32 at 2 layers (gemma2: one 8192-token prompt and 4
+   decode steps).  Then the two new shapes timed beside the plain version,
+   the bound, a ``torch.sum`` of the same bytes and an empty kernel, each
+   held first: the flash forward at (2, 32, 8192, 128) over 16 KV heads,
+   window 4096, softcap 50 (also run without the window, which must move
+   the output), and paged decode at group 7 (bf16 and int8 pages, the
+   serve geometry, split kernel, the same bits on relaunch).  No single
+   PyTorch call computes either (SDPA has no softcap).
 5. Training kernel phase: the kernels of the BERT training path against
    their plain versions -- the flash backward (pre-pass, main pass and, in
    16 bits over more than one 128-key tile, the post-pass that adds the dQ
@@ -229,8 +255,9 @@ kernel), ``--only layernorm`` after the build and the two LayerNorm phases,
 the build and the resume phase, ``--only dp`` after the build, step 8's
 bf16 run (the losses (a) is held to) and the data-parallel phase, ``--only
 lm`` after the build and the decoder-LM phase, ``--only serve`` after the
-build and the deepseek serve phase (step 4) (exit 2, no result line in
-each case); without arguments everything runs.
+build and the deepseek serve phase (step 4), ``--only decoders`` after the
+build and the dense decoder variants phase (step 4b) (exit 2, no result
+line in each case); without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -492,8 +519,8 @@ def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
 # (B, S, H, Dh) layout read through transposed views with ``out=`` into one.
 FLASH_CASES = ((2, 4, 2, 256, 64, False), (1, 8, 8, 200, 128, False),
                (1, 4, 1, 130, 32, False), (2, 4, 4, 130, 64, True),
-               (1, 8, 2, 130, 128, True), (1, 4, 2, 17, 64, True),
-               (1, 4, 4, 17, 128, False))
+               (1, 8, 2, 130, 128, True), (1, 14, 2, 130, 128, True),
+               (1, 4, 2, 17, 64, True), (1, 4, 4, 17, 128, False))
 
 
 def flash_phase(ops, timer):
@@ -651,13 +678,14 @@ def paged_phase(ops, timer):
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     mp = -(-MAX_LEN // PAGE_SIZE)
-    # small cases: GQA groups (H/KV 2, 4, 8 and 1), f32 and bf16, float and
-    # int8 pages
+    # small cases: GQA groups (H/KV 2, 4, 8, 7 and 1), f32 and bf16, float
+    # and int8 pages
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
             for (h, kvh, dh) in ((8, 4, 64), (8, 2, 128), (16, 2, 64),
-                                 (4, 4, 128), (4, 4, 64)):
+                                 (14, 2, 128), (7, 1, 64), (4, 4, 128),
+                                 (4, 4, 64)):
                 for softcap in (0.0, 30.0):
                     q, kp, vp, bt, kvl, sc = paged_inputs(
                         gen, edge_lens(cases, 5, 6), h=h, kvh=kvh, dh=dh,
@@ -3432,6 +3460,365 @@ def deepseek_serve_phase(T, ops, serve_step, sched_mod, get_config,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dense decoder variants: gemma2-27b, qwen1.5-32b, deepseek-coder-33b
+# ---------------------------------------------------------------------------
+
+# full width, depth cut: gemma2 4 local/global blocks, qwen and coder 4
+# layers; the f32 holds take 2 layers of each
+DECODER_LAYERS = {"gemma2-27b": 8, "qwen1.5-32b": 4, "deepseek-coder-33b": 4}
+DECODER_F32_LAYERS = 2
+# gemma2's raw prefill: 2 prompts of 8192 tokens, twice its 4096-token
+# window, so the flash forward's window mask bites on the local layers and
+# their rings keep the last 4096 positions (8192 % 4096 == 0: the first
+# decode write wraps to row 0); then 16 greedy decode steps
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW = 2, 8192, 16
+# gemma2's continuous run: the bucket is the window (a slot prefill cannot
+# roll a ring), 8 requests of 600-4096 tokens and 4-16 new tokens
+GEMMA_BUCKET, GEMMA_MAX_LEN = 4096, 4224
+# qwen1.5-32b's QKV biases are drawn at this std (init leaves zeros): about
+# the spread of x wq at full width, so the bias path carries weight
+QKV_BIAS_STD = 1.0
+# the paged yardstick at deepseek-coder-33b's group: 56 query heads over 8
+# KV heads, the serve geometry's slots
+CODER_HEADS = (56, 8)
+
+
+def decoder_model(T, get_config, arch, layers, pol):
+    """(config at ``layers`` layers, seeded weights on the card); QKV
+    biases drawn from a seed at ``QKV_BIAS_STD``."""
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device=DEVICE)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+        for layer in params["blocks"]:
+            for name in ("bq", "bk", "bv"):
+                b = layer["mixer"][name]
+                b.copy_(L.trunc_normal(tuple(b.shape), gen,
+                                       stddev=QKV_BIAS_STD, dtype=b.dtype,
+                                       device=DEVICE))
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def check_held(tag: str, record, dtype) -> None:
+    """Every held call within TOL[dtype] and CALL_REL_L2_BOUND[dtype]."""
+    for k, calls in record.items():
+        if not calls:
+            raise AssertionError(f"{tag}: {k} was never called")
+        bad = sum(not c.ok for c in calls)
+        worst = max(c.rel for c in calls)
+        if bad or not worst <= CALL_REL_L2_BOUND[dtype]:
+            raise AssertionError(f"{tag}: {bad} of {len(calls)} {k} calls "
+                                 f"outside {TOL[dtype]}, worst rel L2 "
+                                 f"{worst:.3e}")
+
+
+def gemma_raw_run(ops, serve, cfg, params, pol) -> dict:
+    """The serve CLI's raw mode (``run_raw``): 2 prompts of 8192 tokens,
+    16 new tokens.  The prefill launches the flash forward once a layer at
+    S 8192 (window 4096 and softcap 50 on the local layers, softcap on the
+    global ones), each launch held against its plain version; decode reads
+    the rings through ``naive_attention`` (the reference's jnp form: no
+    kernel on either side).  ``run_raw`` raises on a non-finite logit
+    row."""
+    args = serve.build_parser().parse_args([
+        "--arch", cfg.arch_id, "--full-width", "--mode", "raw", "--batch",
+        str(GEMMA_BATCH), "--prompt-len", str(GEMMA_PROMPT), "--new-tokens",
+        str(GEMMA_NEW), "--device", DEVICE])
+    record = {"flash_attention": []}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with held_against_plain(ops, record, {"flash_attention": (
+            pol.compute_dtype, False)}):
+        ids = serve.run_raw(args, cfg, pol, params)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    if ids.shape != (GEMMA_BATCH, GEMMA_NEW):
+        raise AssertionError(f"gemma2 raw: generated {ids.shape}")
+    if counts["flash_fwd"] != cfg.n_layers or \
+            counts.get(f"flash_fwd_s{GEMMA_PROMPT}") != cfg.n_layers or \
+            counts["paged_decode"]:
+        raise AssertionError(f"gemma2 raw: launches {counts}; expected the "
+                             f"flash forward once a layer at S "
+                             f"{GEMMA_PROMPT} and no paged decode")
+    check_held("gemma2 raw", record, pol.compute_dtype)
+    res = call_summary(record)
+    log(f"gemma2 raw ({cfg.n_layers} layers, full width): {GEMMA_BATCH} x "
+        f"{GEMMA_PROMPT} prompt tokens, {GEMMA_NEW} new, {wall:.3f} s with "
+        f"each flash call held (worst max err "
+        f"{res['call_max_err']['flash_attention']:.3e}, rel L2 "
+        f"{res['call_max_rel']['flash_attention']:.3e}); launches {counts}")
+    return counts
+
+
+def gemma_parity(T, ops, cfg, params, pol, batch, new) -> dict:
+    """``batch`` prompts of 8192 tokens prefilled and ``new`` decode steps
+    taken through the kernels and through the plain versions, fed the same
+    tokens; every flash call of the kernel path held against its plain
+    version on its inputs.  Returns the readings in ``path_parity``'s
+    form."""
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(batch, GEMMA_PROMPT), dtype=np.int32)).to(
+            DEVICE)
+    record = {"flash_attention": []}
+    feed, logits = [], {}
+    with held_against_plain(ops, record, {"flash_attention": (
+            pol.compute_dtype, False)}):
+        for impl in (None, "torch"):
+            state = T.init_decode_state(cfg, batch, GEMMA_PROMPT + new,
+                                        pol.compute_dtype, device=DEVICE)
+            rows = [st["cache"]["k"].shape[1] for st in state["blocks"]]
+            if rows[0] != cfg.sliding_window or \
+                    rows[1] != GEMMA_PROMPT + new:
+                raise AssertionError(f"gemma2: cache rows {rows}")
+            lg, state = T.prefill(params, toks, cfg, pol, state=state,
+                                  impl=impl)
+            seq = [lg]
+            for i in range(new):
+                if impl is None:
+                    feed.append(lg.argmax(-1, keepdim=True))
+                lg, state = T.decode_step(params, feed[i], state, cfg, pol,
+                                          impl=impl)
+                seq.append(lg)
+            logits[impl] = torch.stack(seq).float()
+            del state
+    a, b = logits[None], logits["torch"]
+    res = {"mode": f"gemma2 raw {batch} x {GEMMA_PROMPT} + {new}",
+           "dtype": pol.compute_dtype,
+           "finite": bool(torch.isfinite(a).all()),
+           "rel_l2": float((a - b).norm() / b.norm()),
+           "max_abs": float((a - b).abs().max()), **call_summary(record)}
+    log(f"path parity {res['mode']} {pol.compute_dtype} ({cfg.n_layers} "
+        f"layers): logits kernels vs plain rel L2 {res['rel_l2']:.3e} "
+        f"(bound {LOGIT_REL_L2_BOUND[pol.compute_dtype]}), max abs "
+        f"{res['max_abs']:.3e}, max |logit| {float(b.abs().max()):.3f}; "
+        f"flash calls {res['calls_outside']['flash_attention']}/"
+        f"{res['calls']['flash_attention']} outside {TOL[pol.compute_dtype]}"
+        f", max err {res['call_max_err']['flash_attention']:.3e}, max rel "
+        f"L2 {res['call_max_rel']['flash_attention']:.3e}")
+    return res
+
+
+def gemma_continuous_run(ops, sched_mod, cfg, params, pol) -> dict:
+    """``ContinuousScheduler`` in contiguous mode: batch 4, bucket 4096
+    (the window), 8 requests of 600-4096 tokens and 4-16 new tokens.  Every
+    slot prefill launches the flash forward once a layer; ``paged``,
+    ``paged_int8`` and ``prefix_cache`` are refused with ``ValueError``."""
+    for kw in (dict(cache_mode="paged"), dict(cache_mode="paged_int8"),
+               dict(cache_mode="paged", prefix_cache=True),
+               dict(prefix_cache=True)):
+        try:
+            sched_mod.ContinuousScheduler(
+                params, cfg, pol, batch=BATCH, max_len=GEMMA_MAX_LEN,
+                prefill_len=GEMMA_BUCKET, device=DEVICE, **kw)
+        except ValueError as e:
+            log(f"gemma2 {kw}: refused ({e})")
+        else:
+            raise AssertionError(f"gemma2 {kw}: not refused")
+    rng = np.random.default_rng(SEED + 8)
+    sched = sched_mod.ContinuousScheduler(
+        params, cfg, pol, batch=BATCH, max_len=GEMMA_MAX_LEN,
+        prefill_len=GEMMA_BUCKET, cache_mode="contiguous",
+        cache_dtype=torch.bfloat16, device=DEVICE)
+    for rid in range(N_REQUESTS):
+        n = int(rng.integers(600, GEMMA_BUCKET + 1))
+        sched.submit(sched_mod.Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab_size, size=n,
+                                         dtype=np.int32),
+            max_new_tokens=int(rng.integers(4, 17))))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    done = sched.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = sched.stats
+    if len(done) != N_REQUESTS or any(
+            r.output is None or len(r.output) == 0 for r in done):
+        raise AssertionError("gemma2 continuous: not every request produced "
+                             "tokens")
+    if st.nonfinite_logits:
+        raise AssertionError(f"gemma2 continuous: {st.nonfinite_logits} "
+                             "non-finite logit rows")
+    if counts["flash_fwd"] != st.prefills * cfg.n_layers or \
+            counts["paged_decode"]:
+        raise AssertionError(f"gemma2 continuous: launches {counts} for "
+                             f"{st.prefills} prefills")
+    step_ms = 1e3 * st.decode_s / max(st.decode_steps - 1, 1)
+    log(f"gemma2 continuous (contiguous, bucket {GEMMA_BUCKET}, max_len "
+        f"{GEMMA_MAX_LEN}): {len(done)} requests, {st.prefills} prefills, "
+        f"{st.decode_steps} decode steps, {st.useful_tokens} tokens in "
+        f"{st.wall_s:.3f} s ({st.tokens_per_s:.1f} tok/s), decode "
+        f"{step_ms:.3f} ms/step; launches {counts}; KV cache "
+        f"{st.cache_bytes / 2**30:.3f} GiB (local rings of "
+        f"{cfg.sliding_window} rows)")
+    return counts
+
+
+def flash_window_bound(b, h, kvh, s, dh, window, item=2):
+    """(bound ms, by) of the causal windowed flash forward with GQA: q and
+    out (B H S Dh), k and v (B KV S Dh) read or written once, lse (fp32),
+    against 4 operations per unmasked (query, key) pair and channel: query
+    i sees min(i + 1, window) keys."""
+    w = min(window, s)
+    pairs = b * h * (w * (w + 1) // 2 + (s - w) * w)
+    return bound((2 * h + 2 * kvh) * b * s * dh * item + b * h * s * 4,
+                 4 * pairs * dh)
+
+
+def decoder_yardsticks(ops) -> dict:
+    """The two new path shapes timed: the flash forward at gemma2's prefill
+    (2, 32, 8192, 128) over 16 KV heads, causal, window 4096, softcap 50,
+    and paged decode at deepseek-coder-33b's group 7 (56 heads over 8, the
+    serve geometry, bf16 and int8 pages).  Each held against its plain
+    version first, then timed beside the plain version, one PyTorch op
+    over the same bytes and an empty kernel; no single PyTorch call
+    computes either (SDPA has no softcap; there is no paged call)."""
+    from repro_torch.kernels import paged_attention as pa
+    timer = Timer()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    dtype = torch.bfloat16
+    b, h, kvh, s, dh = GEMMA_BATCH, 32, 16, GEMMA_PROMPT, 128
+    q = torch.randn(b, h, s, dh, generator=gen, device=DEVICE).to(dtype)
+    k, v = (torch.randn(b, kvh, s, dh, generator=gen, device=DEVICE).to(
+        dtype) for _ in range(2))
+    kw = dict(causal=True, window=4096, softcap=50.0)
+    o, lse = ops.flash_attention(q, k, v, **kw)
+    ro, rlse = ops.flash_attention(q, k, v, impl="torch", **kw)
+    wide, _ = ops.flash_attention(q, k, v, causal=True, softcap=50.0)
+    torch.cuda.synchronize()
+    tag = f"flash {(b, h, s, dh)} over {kvh} KV heads {kw}"
+    err = check_grad(tag + " out", o, ro, dtype)[0]
+    check_grad(tag + " lse", lse, rlse, dtype)
+    bites = rel_l2(o, wide)
+    if not bites > 1e-2:
+        raise AssertionError(f"{tag}: the window changes the output by "
+                             f"{bites:.3e} only")
+    same = torch.ones(((2 * h + 2 * kvh) * b * s * dh * 2) // 4,
+                      device=DEVICE)
+    res = yardstick_times(timer, lambda: ops.flash_attention(q, k, v, **kw),
+                          lambda: same.sum())
+    plain = timer.times(lambda: ops.flash_attention(q, k, v, impl="torch",
+                                                     **kw), iters=5)
+    # what the softcap's tanh a score costs: the same call without it
+    nocap = timer.times(lambda: ops.flash_attention(
+        q, k, v, causal=True, window=kw["window"]))
+    bd = flash_window_bound(b, h, kvh, s, dh, kw["window"])
+    out = {"flash_window": dict(
+        err=err, ms=float(np.mean(res["times"])), plain_ms=median(plain),
+        bound_ms=bd[0], bound_by=bd[1], library_ms=None)}
+    log(f"{tag}: max err {err:.3e}; the window moves the output by rel L2 "
+        f"{bites:.3e} against no window; kernel {spread(res['times'])}, "
+        f"plain median {median(plain):.4f} ms, bound {bd[0]:.4f} ms "
+        f"({bd[1]}), library none (SDPA has no softcap); without the "
+        f"softcap: kernel {spread(nocap)}; "
+        + yardstick_log(res, "torch.sum of the same bytes"))
+    del q, k, v, o, ro, wide, same
+    mp = -(-MAX_LEN // PAGE_SIZE)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    h, kvh = CODER_HEADS
+    for quant in (False, True):
+        lens = np.random.default_rng(500 + quant).integers(
+            600, MAX_LEN + 1, size=BATCH)
+        qd, kp, vp, bt, kvl, sc = paged_inputs(
+            gen, lens, h=h, kvh=kvh, dh=128, mp=mp, dtype=dtype, quant=quant)
+        args = (qd, kp, vp, bt, kvl)
+        tag = (f"paged_decode{'_int8' if quant else ''} G 7 ({h} heads over "
+               f"{kvh}) B={BATCH} split {pa.split_plan(mp, BATCH * kvh, n_sm)}")
+        ops.reset_launch_counts()
+        err = paged_check(ops, tag, args, sc, dtype)
+        if ops.launch_counts().get("paged_decode_split") != 1:
+            raise AssertionError(f"{tag}: not on the split kernel")
+        first = ops.paged_decode_attention(*args, **sc)
+        second = ops.paged_decode_attention(*args, **sc)
+        torch.cuda.synchronize()
+        check_same_bits(tag, (first,), (second,))
+        nbytes = paged_bytes(lens, kp, qd, quant)
+        same = torch.ones(nbytes // 4, device=DEVICE)
+        res = yardstick_times(
+            timer, lambda: ops.paged_decode_attention(*args, **sc),
+            lambda: same.sum())
+        plain = timer.times(lambda: ops.paged_decode_attention(
+            *args, impl="torch", **sc))
+        bd = bound(nbytes, 4 * int(lens.sum()) * h * 128, dtype)
+        out[f"paged_g7{'_int8' if quant else ''}"] = dict(
+            err=err, ms=float(np.mean(res["times"])), plain_ms=median(plain),
+            bound_ms=bd[0], bound_by=bd[1], library_ms=None)
+        log(f"{tag} (kv_len {lens.tolist()}): max err {err:.3e}, the same "
+            f"bits on relaunch; kernel {spread(res['times'])}, plain median "
+            f"{median(plain):.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+            "library none; " + yardstick_log(res, "torch.sum of the same "
+                                                  "bytes"))
+    return out
+
+
+def decoders_phase(T, ops, serve, serve_step, sched_mod, get_config,
+                   make_policy) -> dict:
+    """The dense decoder variants at full width, depth cut, bf16 weights
+    seeded on the card: (a) gemma2-27b's raw mode, its kernels-vs-plain
+    logits and its continuous run; (b) qwen1.5-32b and (c)
+    deepseek-coder-33b served in paged and paged_int8 (deepseek-7b's
+    geometry) and held kernels vs plain; (d) each model's kernels-vs-plain
+    hold in f32 at 2 layers; then the yardsticks of the two new shapes.
+    Returns each run's launch counts and the yardsticks."""
+    t_phase = time.perf_counter()
+    pol, pol32 = make_policy("bf16"), make_policy("f32")
+    launches = {}
+    t0 = time.perf_counter()
+    cfg, params = decoder_model(T, get_config, "gemma2-27b",
+                                DECODER_LAYERS["gemma2-27b"], pol)
+    log(f"gemma2-27b full width, {cfg.n_layers} layers: "
+        f"{cfg.param_count() / 1e9:.3f} B params (bf16) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches["gemma2 raw"] = gemma_raw_run(ops, serve, cfg, params, pol)
+    check_parity(gemma_parity(T, ops, cfg, params, pol, GEMMA_BATCH,
+                              GEMMA_NEW))
+    launches["gemma2 continuous"] = gemma_continuous_run(ops, sched_mod, cfg,
+                                                         params, pol)
+    del params
+    torch.cuda.empty_cache()
+    for arch in ("qwen1.5-32b", "deepseek-coder-33b"):
+        t0 = time.perf_counter()
+        cfg, params = decoder_model(T, get_config, arch,
+                                    DECODER_LAYERS[arch], pol)
+        log(f"{arch} full width, {cfg.n_layers} layers: "
+            f"{cfg.param_count() / 1e9:.3f} B params (bf16) made in "
+            f"{time.perf_counter() - t0:.1f} s; {cfg.n_heads} query heads "
+            f"over {cfg.n_kv_heads} KV heads, QKV bias {cfg.qkv_bias}")
+        for mode in ("paged", "paged_int8"):
+            launches[f"{arch} {mode}"] = serve_run(T, ops, sched_mod, cfg,
+                                                   params, pol, mode)
+            torch.cuda.empty_cache()
+        for mode in ("paged", "paged_int8"):
+            check_parity(path_parity(T, serve_step, ops, cfg, params, pol,
+                                     mode))
+        del params
+        torch.cuda.empty_cache()
+    # (d) the same holds in f32, where only summation order separates them
+    for arch in ("gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b"):
+        cfg, params = decoder_model(T, get_config, arch, DECODER_F32_LAYERS,
+                                    pol32)
+        if arch == "gemma2-27b":
+            check_parity(gemma_parity(T, ops, cfg, params, pol32, 1, 4))
+        else:
+            for mode in ("paged", "paged_int8"):
+                check_parity(path_parity(T, serve_step, ops, cfg, params,
+                                         pol32, mode))
+        del params
+        torch.cuda.empty_cache()
+    yard = decoder_yardsticks(ops)
+    torch.cuda.empty_cache()
+    log(f"peak device memory (dense decoder variants) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; decoders phase "
+        f"on {nvidia_smi()}: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "yardsticks": yard}
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -3507,6 +3894,12 @@ def main(argv=None) -> int:
                              make_policy)
         log("deepseek serve phase only: no other phase, no result")
         return 2
+    if only == "decoders":
+        del timer
+        decoders_phase(T, ops, serve_cli, serve_step, sched_mod, get_config,
+                       make_policy)
+        log("dense decoder variants phase only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -3527,6 +3920,9 @@ def main(argv=None) -> int:
 
     launches = deepseek_serve_phase(T, ops, serve_step, sched_mod,
                                     get_config, make_policy)
+    torch.cuda.reset_peak_memory_stats()
+    decoders = decoders_phase(T, ops, serve_cli, serve_step, sched_mod,
+                              get_config, make_policy)
 
     torch.cuda.reset_peak_memory_stats()
     launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
@@ -3565,13 +3961,19 @@ def main(argv=None) -> int:
 
     serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
                   "prefix_unshared", "cohort")
+    dec = decoders["launches"]
     by_name = {
         "flash_fwd": sum(launches[r]["flash_fwd"] for r in serve_runs)
-        + launches["train"]["flash_fwd"],
+        + launches["train"]["flash_fwd"]
+        + sum(c["flash_fwd"] for c in dec.values()),
         "paged_decode": sum(launches[r]["paged_decode"] for r in (
-            "paged", "prefix_paged", "prefix_unshared")),
+            "paged", "prefix_paged", "prefix_unshared"))
+        + sum(c["paged_decode"] for r, c in dec.items()
+              if r.endswith(" paged")),
         "paged_decode_int8": launches["paged_int8"]["paged_decode"]
-        + launches["prefix_paged_int8"]["paged_decode"],
+        + launches["prefix_paged_int8"]["paged_decode"]
+        + sum(c["paged_decode"] for r, c in dec.items()
+              if r.endswith(" paged_int8")),
     }
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
     for phase, (_, _, s, _) in enumerate(TRAIN_ATTN, start=1):
@@ -3588,7 +3990,12 @@ def main(argv=None) -> int:
     by_name["lamb_moments_lm"] = lm["runs"]["lamb"]["counts"]["lamb_moments"]
     log("flash_fwd launches: serve " + " + ".join(
         f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
-        + f", train {launches['train']['flash_fwd']}")
+        + f", train {launches['train']['flash_fwd']}, dense decoder "
+        "variants " + " + ".join(f"{c['flash_fwd']} ({r})"
+                                 for r, c in dec.items()))
+    log("paged_decode launches of the dense decoder variants: " + ", ".join(
+        f"{c['paged_decode']} ({r})" for r, c in dec.items()
+        if "paged" in r))
     for e in entries:
         e["launches"] = by_name[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,16 +1,21 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants
 (copy of ``repro/configs/__init__.py`` for the architectures the port
-runs: deepseek-7b and rwkv6-1.6b for serving, bert-large and bert-base
+runs: deepseek-7b, rwkv6-1.6b and the dense decoder variants gemma2-27b,
+qwen1.5-32b and deepseek-coder-33b for serving, bert-large and bert-base
 for pretraining)."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import bert_large, deepseek_7b, rwkv6_1p6b
+from repro_torch.configs import (bert_large, deepseek_7b,
+                                 deepseek_coder_33b, gemma2_27b,
+                                 qwen1p5_32b, rwkv6_1p6b)
 from repro_torch.configs.base import (DecodeCaps, InputShape, ModelConfig,
                                       TrainConfig)
 
 ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, rwkv6_1p6b.CONFIG,
+                                gemma2_27b.CONFIG, qwen1p5_32b.CONFIG,
+                                deepseek_coder_33b.CONFIG,
                                 bert_large.CONFIG, bert_large.BERT_BASE]}
 
 

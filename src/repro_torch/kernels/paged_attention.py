@@ -32,7 +32,7 @@ from repro_torch.kernels import build
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_GROUPS = (1, 2, 4, 8)
+_GROUPS = (1, 2, 4, 7, 8)   # query heads a KV head (7: deepseek-coder-33b)
 _HEAD_DIMS = (64, 128)
 SPLIT_PAGES = (8, 16, 32)    # page sizes the split kernel is built for
 WARPS = 4                    # warps a block of the split kernel (kWarps)

@@ -14,6 +14,9 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+# scores of one block of query rows in ``flash_attention_ref`` (512 MiB of
+# fp32)
+QUERY_BLOCK_SCORES = 2 ** 27
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -26,28 +29,39 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as in the kernel, after the tanh softcap.  Unlike
     ``repro.kernels.ref.flash_attention_ref`` this honours ``window`` and
     ``softcap``.  Returns (out in q's dtype, lse (B, H, Sq) float32) with
-    ``lse = m + log(max(l, 1e-30))``.
+    ``lse = m + log(max(l, 1e-30))``.  Query rows are taken in blocks of
+    at most ``QUERY_BLOCK_SCORES`` scores, so that long prompts (gemma2's
+    8192 tokens) do not hold the whole score matrix at once; each row's
+    arithmetic is the same either way.
     """
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.float().reshape(b, kvh, g, sq, dh)
-    s = torch.einsum("bvgqd,bvkd->bvgqk", qg, k.float()) * (1.0 / math.sqrt(dh))
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    qi = torch.arange(sq, device=q.device)[:, None]
+    kf, vf = k.float(), v.float()
     ki = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window:
-        mask &= ki > qi - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l = torch.clamp(p.sum(dim=-1), min=1e-30)
-    out = torch.einsum("bvgqk,bvkd->bvgqd", p, v.float()) / l[..., None]
-    lse = m + torch.log(l)
+    rows = max(1, QUERY_BLOCK_SCORES // max(1, b * h * skv))
+    outs, lses = [], []
+    for q0 in range(0, sq, rows):
+        s = torch.einsum("bvgqd,bvkd->bvgqk", qg[:, :, :, q0:q0 + rows],
+                         kf) * (1.0 / math.sqrt(dh))
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        qi = torch.arange(q0, min(q0 + rows, sq), device=q.device)[:, None]
+        mask = torch.ones((qi.shape[0], skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= ki <= qi
+        if window:
+            mask &= ki > qi - window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        l = torch.clamp(p.sum(dim=-1), min=1e-30)
+        outs.append(torch.einsum("bvgqk,bvkd->bvgqd", p, vf) / l[..., None])
+        lses.append(m + torch.log(l))
+    out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]
+    lse = torch.cat(lses, dim=3) if len(lses) > 1 else lses[0]
     return (out.reshape(b, h, sq, dh).to(q.dtype),
             lse.reshape(b, h, sq))
 

@@ -2,7 +2,8 @@
 ``examples/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      [--arch deepseek-7b|rwkv6-1.6b] [--batch 4] [--prompt-len 32] \
+      [--arch deepseek-7b|rwkv6-1.6b|gemma2-27b|qwen1.5-32b|\
+              deepseek-coder-33b] [--batch 4] [--prompt-len 32] \
       [--new-tokens 16] [--mode raw|cohort|continuous] \
       [--cache-mode contiguous|paged|paged_int8] \
       [--prefix-cache [--prefix-groups 2]] [--full-width] \
@@ -17,7 +18,14 @@ mixed-length workload and report slot utilisation and throughput; the
 continuous mode also the KV and recurrent-state footprints.  rwkv6-1.6b is
 not pageable and serves continuously with ``--cache-mode contiguous``, its
 slot prefills through the masked sequential scan; cohort mode refuses it
-(left padding would step its recurrent state).  ``--prefix-cache``
+(left padding would step its recurrent state).  gemma2-27b keeps
+sliding-window rings in its local layers: it is not pageable either, and
+its continuous prefill bucket (``--prompt-len``) may not exceed its window
+(16 in the smoke variant, 4096 at full width); a raw or cohort prefill
+wider than the window keeps the ring's last positions.  qwen1.5-32b (QKV
+biases) and deepseek-coder-33b (56 query heads over 8 KV heads) serve in
+every mode.  MoE, mamba, cross-attention and vision architectures are not
+ported yet.  ``--prefix-cache``
 (continuous, paged cache modes) shares cached prompt-prefix pages across
 slots: the workload's prompts then start with one of ``--prefix-groups``
 shared heads, and ``max_len`` gains ``--prompt-len`` of headroom so a
@@ -161,7 +169,11 @@ def run_raw(args, cfg, pol, params):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="deepseek-7b",
-                    choices=["deepseek-7b", "rwkv6-1.6b"])
+                    choices=["deepseek-7b", "rwkv6-1.6b", "gemma2-27b",
+                             "qwen1.5-32b", "deepseek-coder-33b"],
+                    help="the architectures the port serves (MoE, mamba, "
+                         "cross-attention and vision ones are not ported "
+                         "yet)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

@@ -39,7 +39,8 @@ def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
     decoder must be one ``transformer.check_supported`` runs, without an
-    rwkv layer."""
+    rwkv layer, and without the features of the dense variants, which
+    the port serves but does not train yet."""
     if cfg.is_encoder_only:
         return
     T.check_supported(cfg)
@@ -47,6 +48,14 @@ def check_trainable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "RWKV training is a later slice: the reference differentiates "
             "wkv6's jnp form, and the port's wkv6 kernel has no backward")
+    if cfg.n_heads != cfg.n_kv_heads or cfg.sliding_window or \
+            cfg.qkv_bias or cfg.post_block_norm or cfg.tie_embeddings or \
+            cfg.scale_embeddings or cfg.mlp_kind != "swiglu":
+        raise NotImplementedError(
+            "training the dense decoder variants (grouped-query attention, "
+            "sliding windows, QKV biases, post-norms, tied or scaled "
+            "embeddings, GeGLU) is a later slice: gemma2-27b and "
+            "deepseek-coder-33b wait for the GQA flash backward")
 
 
 def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,

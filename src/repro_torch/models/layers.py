@@ -1,7 +1,10 @@
 """Layer library (port of the decoder and encoder subsets of
-``repro/models/layers.py``): RMSNorm and LayerNorm, RoPE, causal and
-bidirectional attention with the decoder's contiguous and paged KV caches,
-the SwiGLU and GELU MLPs, and the token embedding with learned positions.
+``repro/models/layers.py``): RMSNorm and LayerNorm, RoPE, causal,
+sliding-window and bidirectional attention (QKV biases and the logit
+softcap included) with the decoder's contiguous, ring and paged KV caches,
+the SwiGLU, GeGLU and GELU MLPs, and the token embedding with learned
+positions or the sqrt(d_model) scale.  Query/key norms and M-RoPE
+positions belong to later slices (qwen3-moe, qwen2-vl) and raise.
 
 Dtype discipline as in the reference: matmuls run in
 ``policy.compute_dtype``; norms, softmax and logits run in
@@ -111,12 +114,18 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator, *,
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     std_o = 0.02 / math.sqrt(2 * cfg.n_layers)
     kw = dict(generator=generator, dtype=dtype, device=device)
-    return {
+    params = {
         "wq": trunc_normal((d, h, dh), **kw),
         "wk": trunc_normal((d, kv, dh), **kw),
         "wv": trunc_normal((d, kv, dh), **kw),
         "wo": trunc_normal((h, dh, d), stddev=std_o, **kw),
     }
+    if cfg.qkv_bias:   # zeros at init, as the reference's
+        params.update(
+            bq=torch.zeros((h, dh), dtype=dtype, device=device),
+            bk=torch.zeros((kv, dh), dtype=dtype, device=device),
+            bv=torch.zeros((kv, dh), dtype=dtype, device=device))
+    return params
 
 
 def _soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
@@ -125,12 +134,14 @@ def _soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return logits
 
 
-def naive_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
-                    q_offset=0, kv_len: Optional[torch.Tensor] = None,
+def naive_attention(q, k, v, *, causal: bool, window: int = 0,
+                    softcap: float = 0.0, q_offset=0,
+                    kv_len: Optional[torch.Tensor] = None,
                     reduce_dtype=torch.float32) -> torch.Tensor:
     """Reference attention.  q: (B, Sq, H, Dh); k, v: (B, Skv, KV, Dh).  GQA
     via head grouping.  ``q_offset`` (int or 0-d tensor) is the absolute
-    position of the first query: the causal mask is ``k <= q + q_offset``.
+    position of the first query: the causal mask is ``k <= q + q_offset``,
+    and a ``window`` keeps only ``k > q + q_offset - window``.
     ``kv_len``: scalar or (B,) valid KV lengths.  Logits and the PV product
     are taken in ``reduce_dtype`` from upcast operands; the probabilities
     are rounded to v's dtype first, as in the reference.  Fully masked rows
@@ -147,6 +158,8 @@ def naive_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
         mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
     if kv_len is not None:
         kvl = torch.as_tensor(kv_len, device=q.device)
         if kvl.ndim:  # (B,) per-slot valid lengths
@@ -163,9 +176,11 @@ def naive_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
     return out.reshape(b, sq, h, dh)
 
 
-def chunked_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      softcap: float = 0.0,
                       impl: Optional[str] = None) -> torch.Tensor:
-    """Long self-attention.  q: (B, S, H, Dh); k, v: (B, S, KV, Dh).
+    """Long self-attention.  q: (B, S, H, Dh); k, v: (B, S, KV, Dh);
+    ``window`` > 0 masks keys ``window`` or more positions back.
 
     Routed to the flash kernel under the reference's conditions
     (``layers.py:396``): Sq == Skv and Sq % 128 == 0.  The kernel reads the
@@ -189,13 +204,15 @@ def chunked_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
                 "flash backward, a later slice (the flash backward takes "
                 "equal query and KV head counts)")
         return t(kops.flash_attention_vjp(t(q), t(k), t(v), causal=causal,
-                                          softcap=softcap, impl=impl))
+                                          window=window, softcap=softcap,
+                                          impl=impl))
     if sq == skv and sq % 128 == 0:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
-        kops.flash_attention(t(q), t(k), t(v), causal=causal,
+        kops.flash_attention(t(q), t(k), t(v), causal=causal, window=window,
                              softcap=softcap, impl=impl, out=t(out))
         return out
-    return naive_attention(q, k, v, causal=causal, softcap=softcap)
+    return naive_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)
 
 
 def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -213,9 +230,13 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
       the flash forward and backward kernels at every length
       (``kops.flash_attention_vjp``, differentiable).  The reference takes
       its jnp ``naive_attention`` at S <= 512, the same function.
-    * ``"attn"``, no cache: causal over the prompt's own K/V (returned as
-      {"k", "v"} when ``return_cache``); long prompts go through
-      ``chunked_attention`` (differentiable under autograd: training).
+    * ``"attn"``, ``"attn_global"`` and ``"attn_local"``, no cache: causal
+      over the prompt's own K/V (returned as {"k", "v"} when
+      ``return_cache``), a local layer within ``cfg.sliding_window``; long
+      prompts go through ``chunked_attention`` (differentiable under
+      autograd: training).  With a cache the caller passes ``"attn"``: the
+      ring of a local layer holds only its window, so ``kv_len`` is the
+      window and no mask is applied.
     * contiguous ring cache {"k", "v"} (B, Smax, KV, Dh): the decode token is
       written at ring index ``cache_pos`` (B,) in place, and the query
       attends the slot's ``kv_len`` valid rows.  S > 1 tokens (the suffix
@@ -227,17 +248,21 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
       ``block_table[slot, pos // page_size]`` in place (int8 pages
       requantise their page), and the query attends through the paged-decode
       kernel.  A write past the slot's capacity goes to the trash page 0.
-    ``impl`` is passed to the kernels (see ``kernels/ops.py``).
+    ``cfg.qkv_bias`` adds ``bq``/``bk``/``bv`` after the projections, before
+    RoPE.  ``impl`` is passed to the kernels (see ``kernels/ops.py``).
     """
-    if cfg.qkv_bias or cfg.qk_norm or cfg.pos_kind == "mrope":
+    if cfg.qk_norm or cfg.pos_kind == "mrope":
         raise NotImplementedError(
-            "attention with qkv_bias/qk_norm/mrope positions ports with the "
-            "architecture-family slice")
-    if mixer_kind not in ("attn", "attn_bidir"):
-        raise NotImplementedError(f"{mixer_kind} mixers port with the "
-                                  "architecture-family slice")
+            "query/key norms (qwen3-moe) and M-RoPE positions (qwen2-vl) "
+            "belong to later slices")
+    if mixer_kind not in ("attn", "attn_local", "attn_global",
+                          "attn_bidir"):
+        raise NotImplementedError(f"{mixer_kind} mixers: the port runs "
+                                  "attn, attn_local, attn_global and "
+                                  "attn_bidir")
     b, s, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.sliding_window if mixer_kind == "attn_local" else 0
     softcap = cfg.attn_logit_softcap
     cdt = policy.compute_dtype
 
@@ -245,6 +270,10 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     q = (xc @ params["wq"].to(cdt).reshape(d, h * dh)).reshape(b, s, h, dh)
     k = (xc @ params["wk"].to(cdt).reshape(d, kv * dh)).reshape(b, s, kv, dh)
     v = (xc @ params["wv"].to(cdt).reshape(d, kv * dh)).reshape(b, s, kv, dh)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(cdt)
+        k = k + params["bk"].to(cdt)
+        v = v + params["bv"].to(cdt)
     if cfg.pos_kind == "rope":
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -319,8 +348,9 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
             new_cache = cache
         if kv_len is None:
             kv_len = torch.clamp(cpos + s, max=length)
-        # one token: no causal mask, the ring's kv_len is the window; S
-        # tokens: causal within the chunk, at their absolute positions.
+        # one token: no causal or window mask, the ring's kv_len is the
+        # window; S tokens: causal within the chunk, at their absolute
+        # positions.
         # This is the reference's jnp form for both (no kernel on either
         # side): the suffix's queries read the cached prefix through it
         out = naive_attention(q, ck, cv, causal=s > 1,
@@ -330,10 +360,11 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         sq, skv = q.shape[1], k.shape[1]
         if sq * skv > 512 * 512:
-            out = chunked_attention(q, k, v, causal=True, softcap=softcap,
-                                    impl=impl)
+            out = chunked_attention(q, k, v, causal=True, window=window,
+                                    softcap=softcap, impl=impl)
         else:
-            out = naive_attention(q, k, v, causal=True, softcap=softcap,
+            out = naive_attention(q, k, v, causal=True, window=window,
+                                  softcap=softcap,
                                   reduce_dtype=policy.reduce_dtype)
         if return_cache:
             new_cache = {"k": k, "v": v}
@@ -508,7 +539,7 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, *,
     d, f = cfg.d_model, cfg.d_ff
     std_o = 0.02 / math.sqrt(2 * cfg.n_layers)
     kw = dict(generator=generator, dtype=dtype, device=device)
-    if cfg.mlp_kind == "swiglu":
+    if cfg.mlp_kind in ("swiglu", "geglu"):
         return {"wi": trunc_normal((d, f), **kw),
                 "wg": trunc_normal((d, f), **kw),
                 "wo": trunc_normal((f, d), stddev=std_o, **kw)}
@@ -517,27 +548,31 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, *,
                 "bi": torch.zeros((f,), dtype=dtype, device=device),
                 "wo": trunc_normal((f, d), stddev=std_o, **kw),
                 "bo": torch.zeros((d,), dtype=dtype, device=device)}
-    raise NotImplementedError(f"{cfg.mlp_kind} MLPs port with the "
-                              "architecture-family slice")
+    raise NotImplementedError(f"{cfg.mlp_kind} MLPs: the port runs swiglu, "
+                              "geglu and gelu")
 
 
 def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
               policy: Policy, *, impl: Optional[str] = None) -> torch.Tensor:
-    """SwiGLU: (silu(x wg) * (x wi)) wo.  GELU (BERT): the up-projection's
+    """SwiGLU: (silu(x wg) * (x wi)) wo.  GeGLU (gemma2): the same with the
+    tanh-GELU in place of silu, elementwise in PyTorch as the reference's
+    is in jnp (no kernel on either side).  GELU (BERT): the up-projection's
     bias and the tanh-GELU in one kernel, gelu(x wi + bi) wo + bo.  All in
     the compute dtype."""
     cdt = policy.compute_dtype
     xc = x.to(cdt)
-    if cfg.mlp_kind == "swiglu":
+    if cfg.mlp_kind in ("swiglu", "geglu"):
         hi = xc @ params["wi"].to(cdt)
         hg = xc @ params["wg"].to(cdt)
-        return (F.silu(hg) * hi) @ params["wo"].to(cdt)
+        act = (F.silu(hg) if cfg.mlp_kind == "swiglu"
+               else F.gelu(hg, approximate="tanh"))
+        return (act * hi) @ params["wo"].to(cdt)
     if cfg.mlp_kind == "gelu":
         h = kops.bias_gelu(xc @ params["wi"].to(cdt), params["bi"].to(cdt),
                            impl=impl)
         return h @ params["wo"].to(cdt) + params["bo"].to(cdt)
-    raise NotImplementedError(f"{cfg.mlp_kind} MLPs port with the "
-                              "architecture-family slice")
+    raise NotImplementedError(f"{cfg.mlp_kind} MLPs: the port runs swiglu, "
+                              "geglu and gelu")
 
 
 def init_embedding(cfg: ModelConfig, generator: torch.Generator, *,
@@ -553,12 +588,15 @@ def init_embedding(cfg: ModelConfig, generator: torch.Generator, *,
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  policy: Policy) -> torch.Tensor:
-    """Token embedding in the compute dtype, plus the learned position
+    """Token embedding in the compute dtype, times sqrt(d_model) rounded
+    to the compute dtype first (``cfg.scale_embeddings``, gemma2: 67.88 is
+    68.0 in bf16, as in the reference), plus the learned position
     embedding of positions 0 .. S-1 (``cfg.pos_kind == "learned"``)."""
-    if cfg.scale_embeddings:
-        raise NotImplementedError("scaled embeddings port with the "
-                                  "architecture-family slice")
     x = F.embedding(tokens.long(), params["tok"]).to(policy.compute_dtype)
+    if cfg.scale_embeddings:
+        # the scale rounded on the host (a Python float of its bits): a
+        # Python float times a bf16 tensor would keep the scale unrounded
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
     if cfg.pos_kind == "learned":
         s = tokens.shape[-1]
         x = x + params["pos"][:s].to(x.dtype)

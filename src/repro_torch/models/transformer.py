@@ -1,5 +1,6 @@
 """Decoder-only LM (port of ``repro/models/transformer.py`` for dense
-attention layers and RWKV-6 layers).
+attention layers -- full, sliding-window local and global -- and RWKV-6
+layers).
 
 The reference stacks the blocks' weights on a leading axis and runs them
 with ``lax.scan``; here each layer is its own dict of tensors in a list and
@@ -9,22 +10,31 @@ a Python loop runs them in the same order (block-major, then position in
 Parameters are a plain dict::
 
     {"embed": {"tok": (V, d)}, "blocks": [layer, ...],
-     "final_norm": {"scale"[, "bias"]}, "lm_head": (d, V)}
+     "final_norm": {"scale"[, "bias"]}[, "lm_head": (d, V)]}
     attention layer = {"norm1", "mixer": {"wq" (d,H,Dh), "wk", "wv",
-                       "wo" (H,Dh,d)}, "norm2", "mlp": {"wi", "wg", "wo"}}
+                       "wo" (H,Dh,d)[, "bq" (H,Dh), "bk", "bv" (KV,Dh)]}
+                       [, "postnorm1"], "norm2", "mlp": {"wi", "wg", "wo"}
+                       [, "postnorm2"]}
     rwkv layer = {"norm1", "mixer": time mix, "norm2", "mlp": channel mix}
                  (``models/rwkv.py``; norms are LayerNorms with a bias)
 
+A tied model (``cfg.tie_embeddings``, gemma2) has no ``lm_head``: the
+logits are taken against ``embed.tok`` transposed.  ``cfg.post_block_norm``
+(gemma2) norms each sublayer's output before its residual add.
+
 The decode state is ``{"pos": (B,) int32, "blocks": [layer state, ...]}``
 with ``{"cache": ...}`` for an attention layer and ``{"tm_shift", "wkv",
-"cm_shift"}`` (fp32) for an rwkv layer.  ``prefill`` and ``decode_step``
-update it in place and return the same dict.  In a paged state every
+"cm_shift"}`` (fp32) for an rwkv layer.  A local (sliding-window) layer's
+contiguous cache is a ring of ``min(max_len, sliding_window)`` rows: decode
+writes position p at row p % rows, and a prefill wider than the ring keeps
+its last rows there, rolled to the same place.  ``prefill`` and
+``decode_step`` update it in place and return the same dict.  In a paged state every
 layer's cache holds the same ``block_table`` tensor: one logical
 allocation per slot serves all layers (the reference keeps one stacked
 copy per block).
 
-MoE, mamba, cross-attention, sliding-window and M-RoPE layers belong to
-later slices and raise ``NotImplementedError``.
+MoE, mamba, cross-attention, query/key-norm, M-RoPE and vision layers
+belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ from repro_torch.core.amp import Policy
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RW
 
-LAYER_KINDS = (("attn", "dense"), ("rwkv", "rwkv_cm"))
+LAYER_KINDS = (("attn", "dense"), ("attn_local", "dense"),
+               ("attn_global", "dense"), ("rwkv", "rwkv_cm"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +69,15 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if tuple(kind) not in LAYER_KINDS:
             raise NotImplementedError(
-                f"{kind} layers: the port runs {LAYER_KINDS}; MoE, mamba "
-                "and the local/global attention mixers come with later "
-                "architecture-family slices")
+                f"{kind} layers: the port runs {LAYER_KINDS}; MoE and "
+                "mamba layers come with later architecture-family slices")
     if cfg.is_encoder_decoder or cfg.is_encoder_only:
-        raise NotImplementedError("encoder-decoder and encoder-only models "
-                                  "port with the family and BERT slices")
-    if cfg.n_vision_tokens or cfg.post_block_norm or cfg.tie_embeddings:
-        raise NotImplementedError("vision stubs, post-block norms and tied "
-                                  "embeddings port with the family slice")
+        raise NotImplementedError(
+            "encoder-decoder models (cross-attention) come with a later "
+            "family slice; encoder-only models are BERT (models/bert.py)")
+    if cfg.n_vision_tokens or cfg.qk_norm or cfg.pos_kind == "mrope":
+        raise NotImplementedError("vision stubs, query/key norms and M-RoPE "
+                                  "positions come with later family slices")
 
 
 # ---------------------------------------------------------------------------
@@ -92,13 +103,16 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
         else:
             mix, mlp = (L.init_attention(cfg, gen, **kw),
                         L.init_mlp(cfg, gen, **kw))
-        params["blocks"].append({"norm1": L.init_norm(cfg, **kw),
-                                 "mixer": mix,
-                                 "norm2": L.init_norm(cfg, **kw),
-                                 "mlp": mlp})
+        layer = {"norm1": L.init_norm(cfg, **kw), "mixer": mix,
+                 "norm2": L.init_norm(cfg, **kw), "mlp": mlp}
+        if cfg.post_block_norm:
+            layer.update(postnorm1=L.init_norm(cfg, **kw),
+                         postnorm2=L.init_norm(cfg, **kw))
+        params["blocks"].append(layer)
     params["final_norm"] = L.init_norm(cfg, **kw)
-    params["lm_head"] = L.trunc_normal((cfg.d_model, cfg.vocab_size), gen,
-                                       **kw)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.trunc_normal((cfg.d_model, cfg.vocab_size),
+                                           gen, **kw)
     return params
 
 
@@ -108,9 +122,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> dict:
     """Per-layer decode state with per-slot positions ``pos`` (B,).
     ``paged`` replaces each slot's contiguous (max_len, KV, Dh) stripe with
-    the global page pool and one block table shared by all layers.  An
-    rwkv layer holds its fp32 recurrent rows and no cache (``max_len`` and
-    ``cache_dtype`` do not apply to it)."""
+    the global page pool and one block table shared by all layers; a
+    sliding-window ring cannot be paged and raises ``ValueError``.  A local
+    layer's contiguous cache is a ring of ``min(max_len,
+    cfg.sliding_window)`` rows.  An rwkv layer holds its fp32 recurrent
+    rows and no cache (``max_len`` and ``cache_dtype`` do not apply to
+    it)."""
     check_supported(cfg)
     blocks = []
     table = None
@@ -123,12 +140,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             blocks.append(RW.init_rwkv_state(cfg, batch, device=device))
             continue
         if paged is not None:
+            if mixer != "attn":
+                raise ValueError(f"paged KV cache: {mixer} layers (a "
+                                 "sliding-window model's) cannot be paged")
             cache = L.init_paged_attention_cache(
                 cfg, batch, paged.num_pages, paged.page_size,
                 table.shape[1], dtype=cache_dtype, quantized=paged.quantized,
                 device=device, block_table=table)
         else:
-            cache = L.init_attention_cache(cfg, batch, max_len, cache_dtype,
+            rows = max_len
+            if mixer == "attn_local" and cfg.sliding_window:
+                rows = min(max_len, cfg.sliding_window)
+            cache = L.init_attention_cache(cfg, batch, rows, cache_dtype,
                                            device=device)
         blocks.append({"cache": cache})
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -168,19 +191,22 @@ def _fit_cache(new_cache: dict, state: dict, valid_len=None) -> None:
     """Write a prefill's contiguous K/V (B, S, KV, Dh) into the layer's
     allocated cache, in place: through the block table for a paged cache,
     else into the first S rows of each stripe (rows past S are zeroed, as
-    the reference pads)."""
+    the reference pads).  A prefill wider than a ring of ``tgt`` rows keeps
+    its last ``tgt`` positions, rolled by ``S % tgt`` so that position p
+    sits at row p % tgt, where decode writes it."""
     cache = state["cache"]
     if "k_pages" in cache:
         L.paged_prefill_write(cache, new_cache["k"], new_cache["v"],
                               valid_len=valid_len)
         return
-    s = new_cache["k"].shape[1]
-    if s > cache["k"].shape[1]:
-        raise NotImplementedError("a prefill wider than the cache wraps a "
-                                  "sliding-window ring: family slice")
+    s, tgt = new_cache["k"].shape[1], cache["k"].shape[1]
     for key in ("k", "v"):
-        cache[key][:, :s] = new_cache[key]
-        cache[key][:, s:] = 0
+        if s > tgt:
+            cache[key].copy_(torch.roll(new_cache[key][:, -tgt:],
+                                        shifts=s % tgt, dims=1))
+        else:
+            cache[key][:, :s] = new_cache[key]
+            cache[key][:, s:] = 0
 
 
 def _apply_rwkv_layer(p, x, cfg: ModelConfig, policy: Policy, *,
@@ -209,6 +235,11 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
     if mixer == "rwkv":
         return _apply_rwkv_layer(p, x, cfg, policy, state=state,
                                  valid_len=valid_len, impl=impl)
+    def post(y, which):   # gemma2's norm of a sublayer's output
+        if cfg.post_block_norm:
+            return L.apply_norm(p[which], y, cfg, policy)
+        return y
+
     h = L.apply_norm(p["norm1"], x, cfg, policy)
     cache = state.get("cache") if state is not None else None
     if cache is not None and decode_pos is not None:
@@ -221,6 +252,7 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
             cache_len = cache["k"].shape[1]
             write_pos = torch.remainder(decode_pos, cache_len)
         kv_len = torch.clamp(decode_pos + h.shape[1], max=cache_len)
+        # "attn" whatever the layer: a ring's kv_len is its window
         y, _ = L.apply_attention(
             p["mixer"], h, cfg, policy,
             positions=_decode_positions(decode_pos, h.shape[0], h.shape[1]),
@@ -228,17 +260,24 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
             cache_pos=write_pos, kv_len=kv_len, impl=impl)
     else:
         y, nc = L.apply_attention(p["mixer"], h, cfg, policy,
+                                  mixer_kind=mixer,
                                   return_cache=state is not None, impl=impl)
         if state is not None:
             _fit_cache(nc, state, valid_len)
-    x = x + y.to(x.dtype)
+    x = x + post(y, "postnorm1").to(x.dtype)
     h = L.apply_norm(p["norm2"], x, cfg, policy)
-    return x + L.apply_mlp(p["mlp"], h, cfg, policy).to(x.dtype)
+    return x + post(L.apply_mlp(p["mlp"], h, cfg, policy),
+                    "postnorm2").to(x.dtype)
 
 
 def _lm_logits(params, x, cfg: ModelConfig, policy: Policy):
+    """Logits against ``lm_head``, or the token table transposed where the
+    embeddings are tied; the final softcap in the reduce dtype."""
     cdt = policy.compute_dtype
-    logits = x.to(cdt) @ params["lm_head"].to(cdt)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"]["tok"].T
+    logits = x.to(cdt) @ head.to(cdt)
     if cfg.final_logit_softcap:
         logits = L._soft_cap(logits.to(policy.reduce_dtype),
                              cfg.final_logit_softcap)
@@ -308,7 +347,7 @@ def prefill_suffix(params, tokens, start, length, cfg: ModelConfig,
     Returns (logits at the last true suffix token (B, V), state), with
     ``pos`` at ``start + length``.  Attention-only architectures: pad tokens
     must not step a recurrent scan."""
-    if any(mixer != "attn" for mixer, _ in cfg.layer_kinds()):
+    if any(not mixer.startswith("attn") for mixer, _ in cfg.layer_kinds()):
         raise ValueError("suffix prefill requires attention-only "
                          f"architectures, not {cfg.arch_id}")
     b = tokens.shape[0]

@@ -29,7 +29,9 @@ a recurrent architecture (rwkv6-1.6b) serves through the same loop: it is
 not pageable, so it takes ``cache_mode="contiguous"`` and holds no KV at
 all (``cache_bytes`` 0); its per-slot state is the fixed-size recurrent
 rows (``state_bytes``), and every admission runs the masked sequential
-scan.
+scan.  gemma2-27b's local layers keep sliding-window rings, which cannot
+be paged either: it serves in ``"contiguous"`` mode with a prefill bucket
+no wider than its window.
 
 The host policy is numpy and Python, as in the reference.
 """
@@ -419,15 +421,25 @@ class ContinuousScheduler(_SchedulerBase):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         caps = cfg.decode_caps
         if cache_mode != "contiguous" and not caps.pageable:
-            raise ValueError(f"{cfg.arch_id} is not pageable: serve it with "
-                             "cache_mode='contiguous'")
+            raise ValueError(
+                "paged KV cache requires a pageable arch (every "
+                "self-attention layer full-attention): sliding-window rings "
+                "and attention-free state cannot be paged -- serve "
+                f"{cfg.arch_id} with cache_mode='contiguous'")
         if prefix_cache and cache_mode == "contiguous":
             raise ValueError("prefix_cache requires a paged cache_mode "
                              "(sharing works at page granularity)")
         if prefix_cache and not caps.prefix_shareable:
-            raise ValueError("prefix_cache requires prefix_shareable: the "
-                             "cache must be a pure function of the prompt's "
-                             f"token ids, which {cfg.arch_id}'s is not")
+            raise ValueError(
+                "prefix_cache requires prefix_shareable: the cache must be "
+                "a pure function of prompt token ids (recurrent state, "
+                "encoder frames and vision embeds all break the token-hash "
+                f"index) -- not satisfied by {cfg.arch_id}")
+        if caps.windowed and prefill_len > cfg.sliding_window:
+            # the reference asserts this at the first slot prefill
+            raise ValueError(f"prefill_len {prefill_len} exceeds the "
+                             f"sliding window {cfg.sliding_window}: a slot "
+                             "prefill cannot roll a ring")
         self.prefill_len = prefill_len
         self.cache_mode = cache_mode
         self.cache_dtype = cache_dtype

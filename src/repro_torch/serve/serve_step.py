@@ -36,16 +36,13 @@ from repro_torch.models import transformer as T
 
 def cache_extent(state: dict) -> Optional[int]:
     """Per-slot KV capacity of a decode state (max_pages * page_size for a
-    paged cache, the stripe length for a contiguous one); None for an
-    attention-free state, which has no KV extent."""
-    for st in state["blocks"]:
-        cache = st.get("cache")
-        if cache is None:
-            continue
-        if "k_pages" in cache:
-            return cache["block_table"].shape[1] * cache["k_pages"].shape[1]
-        return cache["k"].shape[1]
-    return None
+    paged cache, the longest stripe for a contiguous one: a sliding-window
+    ring may be shorter); None for an attention-free state, which has no
+    KV extent."""
+    extents = [c["block_table"].shape[1] * c["k_pages"].shape[1]
+               if "k_pages" in c else c["k"].shape[1]
+               for c in (st.get("cache") for st in state["blocks"]) if c]
+    return max(extents, default=None)
 
 
 def slot_view(state: dict, slot: int) -> dict:
@@ -139,7 +136,9 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
                       impl: Optional[str] = None):
     """Prefill ONE right-padded request (1, P) of true length ``length``
     into live slot ``slot``; neighbouring slots are untouched.  A paged
-    state needs the slot's block-table row written first.  Returns
+    state needs the slot's block-table row written first.  P may not exceed
+    the cache extent, nor a sliding-window ring's rows (``ValueError``, as
+    the reference asserts).  Returns
     (next-token logits (V,), state), the state updated in place.
 
     ``start`` (paged states only, page-aligned): the slot's table already
@@ -153,6 +152,13 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
     if extent is not None and p > extent:
         raise ValueError(f"prefill bucket {p} exceeds the cache extent "
                          f"{extent}")
+    ring = min((st["cache"]["k"].shape[1] for st in state["blocks"]
+                if "k" in st.get("cache", {})), default=None)
+    if ring is not None and p > ring:
+        # a masked slot prefill cannot roll a ring: its pad tokens would
+        # push true positions out of the window
+        raise ValueError(f"prefill bucket {p} exceeds a sliding-window "
+                         f"ring of {ring} rows")
     if start is not None:
         return _prefill_suffix_into_slot(params, tokens, length, state, slot,
                                          start, cfg, policy, impl)

@@ -69,12 +69,13 @@ def test_flash_ref_keeps_dtype():
     assert out.shape == q.shape and lse.shape == (1, 2, 64)
 
 
-def _paged_inputs(quantized):
+def _paged_inputs(quantized, h=4):
     """The inputs of tests/test_paged.py::test_paged_kernel_matches_ref:
     disjoint tables, unallocated entries on the trash page, a kv_len 0
-    slot, GQA with 2 query heads per KV head."""
+    slot, GQA with ``h`` query heads over 2 KV heads (2 a KV head by
+    default)."""
     rng = np.random.default_rng(0)
-    b, h, kv, dh, pool, ps = 3, 4, 2, 32, 9, 4
+    b, kv, dh, pool, ps = 3, 2, 32, 9, 4
     q = rng.normal(size=(b, h, dh)).astype(np.float32)
     if quantized:
         kp = rng.integers(-127, 128, (pool, ps, kv, dh)).astype(np.int8)
@@ -105,6 +106,27 @@ def test_paged_ref_matches_pallas_kernel(quantized, softcap):
     got = ops.paged_decode_attention(
         _t(q), _t(kp), _t(vp), _t(bt), _t(kvl), softcap=softcap,
         **{k: _t(v) for k, v in sc.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert np.all(got[2].numpy() == 0.0)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_ref_matches_pallas_kernel_at_group_7(quantized, softcap):
+    """deepseek-coder-33b's group, 7 query heads a KV head (14 over 2
+    here, 56 over 8 at full width): the plain version groups query head h
+    on KV head h // 7 as the Pallas kernel does, f32 and int8 pages at
+    1e-5, the empty slot zeros."""
+    q, kp, vp, bt, kvl, sc = _paged_inputs(quantized, h=14)
+    want = jops.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(kvl), softcap=softcap, impl="pallas_interpret",
+        **{k: jnp.asarray(v) for k, v in sc.items()})
+    got = ops.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(bt), _t(kvl), softcap=softcap,
+        **{k: _t(v) for k, v in sc.items()})
+    assert got.shape == (3, 14, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     assert np.all(got[2].numpy() == 0.0)
@@ -276,6 +298,17 @@ def test_nvcc_includes_the_package_csrc(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
         assert '#include "hopper.cuh"' in (real / name).read_text()
+
+
+def test_only_paged_decode_splits_its_compile(monkeypatch):
+    """paged_decode.cu's 130 instances compile with ``--split-compile 0``
+    (the optimizer on every core); every other source with the common
+    flags alone."""
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    for name, src in build.sources().items():
+        cmd = build.nvcc_command(src, Path("x.so"))
+        assert cmd[1:1 + len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+        assert ("--split-compile" in cmd) == (name == "paged_decode"), name
 
 
 @pytest.mark.parametrize("dtype,dh,code", [

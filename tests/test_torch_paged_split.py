@@ -60,12 +60,13 @@ def test_split_plan_splits_where_sms_would_idle():
     assert pps == tpa.MAX_PAGES_PER_SPLIT and n_split == 3
 
 
-def _inputs(quantized):
+def _inputs(quantized, h=4):
     """4 slots over 7-page tables of 4 tokens: an empty slot, a tail page
     masked mid-page, a full table, and a slot whose table points at the
-    trash page 0 only; GQA with 2 query heads a KV head."""
+    trash page 0 only; GQA with ``h`` query heads over 2 KV heads (2 a KV
+    head by default)."""
     rng = np.random.default_rng(7)
-    b, h, kv, dh, ps, mp = 4, 4, 2, 32, 4, 7
+    b, kv, dh, ps, mp = 4, 2, 32, 4, 7
     pool = 1 + 3 * mp
     q = rng.normal(size=(b, h, dh)).astype(np.float32)
     if quantized:
@@ -86,8 +87,8 @@ def _inputs(quantized):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_out(quantized, softcap):
-    q, kp, vp, bt, kvl, sc = _inputs(quantized)
+def _jax_out(quantized, softcap, h=4):
+    q, kp, vp, bt, kvl, sc = _inputs(quantized, h)
     return np.asarray(jops.paged_decode_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
         jnp.asarray(kvl), softcap=softcap, impl="pallas_interpret",
@@ -127,6 +128,41 @@ def test_split_combine_matches_unsplit(quantized, softcap, plan):
         assert (l[slot, :, :n_live] > 0).all()
         assert (l[slot, :, n_live:] == 0).all()
         assert torch.isinf(m[slot, :, n_live:]).all()
+
+
+@pytest.mark.parametrize("plan", PLANS[1:])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_combine_matches_unsplit_at_group_7(quantized, plan):
+    """deepseek-coder-33b's group, 7 query heads a KV head (14 over 2):
+    the per-split partials keep each query row of the group apart, and
+    their combine equals the unsplit plain version within 1e-6 and the
+    Pallas kernel within 1e-5, softcap 20."""
+    q, kp, vp, bt, kvl, sc = _inputs(quantized, h=14)
+    t = {k: torch.from_numpy(v) for k, v in sc.items()}
+    args = tuple(torch.from_numpy(x) for x in (q, kp, vp, bt, kvl))
+    n_split, pps = plan
+    m, l, acc = ref.paged_decode_partials_ref(
+        *args, n_split=n_split, pages_per_split=pps, softcap=20.0, **t)
+    assert acc.shape == (4, 14, n_split, 32)
+    got = ref.paged_combine_ref(m, l, acc)
+    want = ref.paged_decode_attention_ref(*args, softcap=20.0, **t)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), _jax_out(quantized, 20.0, 14),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+def test_split_plan_at_the_coder_serve_geometry():
+    """The plan reads the (slot, KV head) pairs, not the group: the
+    coder's 4 slots x 8 KV heads on 132 SMs split its 65-page serve tables
+    four ways (32 blocks a split), as one slot's 32 heads of deepseek-7b
+    are; one slot's 8 KV heads (path parity) 13 ways of 5 pages; and a
+    300-page table is covered within one block's pages a split."""
+    assert tpa.split_plan(65, 4 * 8, 132) == (4, 17)
+    assert tpa.split_plan(65, 1 * 8, 132) == (13, 5)
+    n_split, pps = tpa.split_plan(300, 4 * 8, 132)
+    assert n_split * pps >= 300 and pps <= tpa.MAX_PAGES_PER_SPLIT
 
 
 def test_combine_leaves_out_splits_without_tokens():
@@ -215,6 +251,31 @@ def test_wrapper_passes_the_plan_without_reading_back(monkeypatch, qdt, pdt,
                    for k in ops.launch_counts())
 
 
+@pytest.mark.parametrize("pdt,codes", [(torch.bfloat16, (1, 1)),
+                                       (torch.int8, (1, 2))])
+def test_wrapper_passes_group_7(monkeypatch, pdt, codes):
+    """deepseek-coder-33b at full width: 56 query heads over 8 KV heads go
+    to the split kernel with G 7 and the serve geometry's plan (4 slots x
+    8 KV heads: four splits of 17 pages), a workspace and the tickets."""
+    b, h, kv, dh, mp, pool, ps = 4, 56, 8, 128, 65, 300, 16
+    q = torch.zeros((b, h, dh), dtype=torch.bfloat16)
+    pages = torch.zeros((pool, ps, kv, dh), dtype=pdt)
+    sc = {}
+    if pdt == torch.int8:
+        sc = dict(k_scale=torch.ones((pool, kv)),
+                  v_scale=torch.ones((pool, kv)))
+    calls = _recording(monkeypatch)
+    tpa._tickets.cache_clear()
+    out = tpa.paged_decode_attention(
+        q, pages, pages, torch.zeros((b, mp), dtype=torch.int32),
+        torch.zeros((b,), dtype=torch.int32), **sc)
+    assert (out.shape, out.dtype) == ((b, h, dh), torch.bfloat16)
+    a = calls[-1]
+    assert a[:4] == (*codes, 7, dh)
+    assert a[15:22] == (b, kv, pool, ps, mp, 17, 4)
+    assert a[12] is not None and a[13] is not None
+
+
 def test_wrapper_sends_rows_16_byte_copies_cannot_read_to_the_walk(
         monkeypatch):
     """bf16 pages of 16 tokens whose rows start 8 bytes off a 16-byte
@@ -233,7 +294,7 @@ def test_wrapper_sends_rows_16_byte_copies_cannot_read_to_the_walk(
 def test_wrapper_refuses_what_the_split_kernel_cannot_read(monkeypatch,
                                                            case):
     """Page rows that neither kernel's loads can read, head dims other than
-    64/128 and H/KV outside 1, 2, 4, 8 raise before any launch."""
+    64/128 and H/KV outside 1, 2, 4, 7, 8 raise before any launch."""
     calls = _recording(monkeypatch)
     h, dh, pad = {"misaligned_rows": (4, 128, 1), "head_dim": (4, 96, 0),
                   "group": (12, 128, 0)}[case]
