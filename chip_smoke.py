@@ -189,9 +189,10 @@
    1 is exact) and every training kernel must have launched.  (a') The
    same with ``--strategy bucketed --overlap``, at the same time as (a),
    held the same way, every bucket of its last step started during the
-   backward.  (c) The
+   backward.  (c) Beside them, the
    same CLI with ``--grad-compression int8 --overlap --timing-breakdown
-   --ckpt-every 3``, three processes: uninterrupted; crashed by
+   --ckpt-every 3 --layers 4`` (bert-large's width at 4 of its 24
+   layers), three processes: uninterrupted and, at the same time, crashed by
    ``REPRO_FAULTS=crash_at=4`` (after phase 1's checkpoint 3, whose
    residual group -- 26 leaves of (1, ...) -- must be nonzero); and
    resumed from step 3.  Every loss of the faulted runs must have the
@@ -200,9 +201,10 @@
    twin's step (each phase) and ``compute_s``, ``exchange_s`` and
    ``overlap_frac`` (each logged step); the checkpoint's bytes and the
    residual's are logged.  (b) and (d) Four gloo ranks sharing the card:
-   ``python -m repro_torch.launch.dp_check --full-width --world 4 --pods 2
-   --backend gloo --share-device --cases ...`` (bert-large at full width
-   and depth, bf16, one phase-1 global batch of 128 x 128 tokens with
+   ``python -m repro_torch.launch.dp_check --full-width --layers 4 --world
+   4 --pods 2 --backend gloo --share-device --cases ...`` (bert-large's
+   width at 4 of its layers, bf16, one phase-1 global batch of 128 x 128
+   tokens with
    accumulation 2, one step under each case: psum, ring, hierarchical,
    bucketed, then fp16 over hierarchical, int8 over psum, bucketed with
    the overlapped drain and int8 over psum with it): every rank's
@@ -246,7 +248,36 @@
    on NCCL: every loss of the resumed and the data-parallel runs has the
    uninterrupted run's float32 bits, and every flash kernel launched in
    each run that ended.
-12. Prints one JSON line of kernel results, then, as the last line,
+12. Training the dense decoder variants, full width, depth cut
+   (``LM_PATHS``): gemma2-27b's first (local) layer at 2 x 8192 tokens
+   (twice its window), qwen1.5-32b's first layer and deepseek-coder-33b's
+   first two at 8 x 1024, each in 2 micro-batches.  (a) ``launch/train.py
+   --full --layers N`` of each, 4 steps of bf16 under LAMB, in process:
+   every loss finite and no step skipped, the launches exactly
+   ``train_launches`` (the flash forward twice and its backward once a
+   layer a micro-batch, K and V expanded over the query group; LAMB once a
+   leaf group a step; nothing else).  (b) One LAMB step kernels vs plain
+   in bf16 on the path and in f32 at one layer (gemma2's at S 4224), every
+   flash and LAMB call held against its plain version, within LM_BOUND.
+   (c) Two gradient steps of the coder from one state in the same bits;
+   the flash forward and backward at gemma2's (1, 32, 8192, 128) with
+   window 4096 and softcap 50 and at the coder's (4, 56, 1024, 128)
+   launched twice for the same bits.  (d) The same two shapes held against
+   the plain versions and timed beside their bounds, the plain versions,
+   SDPA's forward and backward (the coder's) and the expansion's copy and
+   group sum; the JSON rows ``flash_fwd_gemma2``, ``flash_bwd_gemma2``,
+   ``flash_fwd_coder`` and ``flash_bwd_coder`` take those models' launches
+   in (a), qwen's go on the LM path's rows.
+13. Training rwkv6-1.6b at full width and depth, 8 x 1024 tokens in 2
+   micro-batches: (a) the CLI as in 12 (wkv6 twice a layer a
+   micro-batch, the recompute's included, its backward the chunked
+   form's VJP; LayerNorm and its backward; LAMB), (b) one LAMB step
+   kernels vs plain in bf16 and in f32 at one layer (the plain bf16
+   path's distance from plain f32 logged beside it), every wkv6,
+   LayerNorm and LAMB call held (wkv6 within WKV_TOL), within LM_BOUND;
+   (e) the wkv6 forward and the VJP timed at the training shape
+   (4, 1024, 32, 64).
+14. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
@@ -256,8 +287,10 @@ the build and the resume phase, ``--only dp`` after the build, step 8's
 bf16 run (the losses (a) is held to) and the data-parallel phase, ``--only
 lm`` after the build and the decoder-LM phase, ``--only serve`` after the
 build and the deepseek serve phase (step 4), ``--only decoders`` after the
-build and the dense decoder variants phase (step 4b) (exit 2, no result
-line in each case); without arguments everything runs.
+build and the dense decoder variants phase (step 4b), ``--only
+variants_train`` and ``--only rwkv_train`` after the build and step 12 or
+13 (exit 2, no result line in each case); without arguments everything
+runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -284,6 +317,11 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src"))
+# each decoder's training path on one card, the table
+# ``launch/profile_train.py`` profiles: (layers at full width, global
+# batch, S, micro-batches)
+from repro_torch.launch.profile_train import LM_PATHS  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense, no TF32
@@ -1093,7 +1131,11 @@ def held_against_plain(ops, record, spec):
     absolute part TOL times the plain output's RMS when ``rms`` is true: a
     dot product's rounding error scales with the magnitude of its terms,
     and where outputs run to 10^2 a fixed floor fails wherever terms
-    cancel."""
+    cancel.  LAMB's moment kernel is elementwise: over a group of more
+    than HOLD_SLICE elements its plain version runs a slice at a time
+    (gemma2's 1.18 G-element table would need ~20 GB of plain temporaries
+    beside the training state), each slice held, the relative L2 error
+    taken over the whole group."""
     saved = {name: getattr(ops, name) for name in spec}
 
     def held(name, fn):
@@ -1103,17 +1145,36 @@ def held_against_plain(ops, record, spec):
             got = fn(*args, impl=impl, **kw)
             if impl is None:
                 kw.pop("out", None)
-                want = fn(*args, impl="torch", **kw)
                 tol = TOL[dtype or args[0].dtype]
-                pairs = list(zip(got, want)) if isinstance(got, tuple) \
-                    else [(got, want)]     # tuples: e.g. flash's (out, lse)
-                rms = [float(w.float().square().mean().sqrt())
-                       for _, w in pairs]
-                errs = [compare(g, w, tol, sc if by_rms else 1.0)
-                        for (g, w), sc in zip(pairs, rms)]
+                gots = got if isinstance(got, tuple) else (got,)
+                n = args[0].numel()
+                if name == "lamb_moments" and n > HOLD_SLICE:
+                    cuts = [slice(i, i + HOLD_SLICE)
+                            for i in range(0, n, HOLD_SLICE)]
+                else:
+                    cuts = [slice(None)]
+                err, ok = 0.0, True
+                diff2, want2 = [0.0] * len(gots), [0.0] * len(gots)
+                for cut in cuts:
+                    part = args if len(cuts) == 1 else \
+                        tuple(a[cut] for a in args)
+                    want = fn(*part, impl="torch", **kw)
+                    wants = want if isinstance(want, tuple) else (want,)
+                    for i, (g, w) in enumerate(zip(gots, wants)):
+                        g = g if len(cuts) == 1 else g[cut]
+                        want2[i] += float(w.float().square().sum())
+                        diff2[i] += float((g.float() - w.float()).square()
+                                          .sum())
+                        sc = float(w.float().square().mean().sqrt()) \
+                            if by_rms else 1.0
+                        e, good = compare(g, w, tol, sc)
+                        err, ok = max(err, e), ok and good
+                    del want, wants
                 record[name].append(Call(
-                    max(e for e, _ in errs), all(ok for _, ok in errs),
-                    max(rel_l2(g, w) for g, w in pairs), max(rms)))
+                    err, ok, max((d / max(w2, 1e-60)) ** 0.5
+                                 for d, w2 in zip(diff2, want2)),
+                    max((w2 / g.numel()) ** 0.5
+                        for w2, g in zip(want2, gots))))
             return got
         return call
 
@@ -2146,8 +2207,11 @@ def layernorm_bwd_phase(ops, timer):
 
     cases, worst = 0, collections.defaultdict(float)
     for dtype in DTYPES:
+        # rows of 2048 in every dtype: f32's take the 16-vector instance
+        # (rwkv6-1.6b's d_model; its training shape, 4096 rows, in f32)
         for shape in ((64, 128), (33, 256), (256, 1024), (2, 17, 256),
-                      (7, 512), (20, 2048 if dtype != torch.float32 else 1024)):
+                      (7, 512), (20, 2048)) + (
+                          ((4096, 2048),) if dtype == torch.float32 else ()):
             for pdtype in {torch.float32, dtype}:
                 dy, x, sc, _, mean, rstd = inputs(shape, dtype, pdtype)
                 got = ops.layernorm_bwd(dy, x, sc, mean, rstd)
@@ -2407,7 +2471,7 @@ def train_parity(ops, api, ts, TrainConfig, ShardedLoader, make_policy,
     record = {name: [] for name in HELD}
     got = {}
     for impl in (None, "torch"):
-        state = ts.init_train_state(params, pol, tcfg)
+        state = ts.init_train_state(params, pol, tcfg, cfg=cfg)
         old = {p: t.clone() for p, t in state.opt.master.items()}
         with (held_against_plain(ops, record, {k: (None, False)
                                                for k in HELD})
@@ -2456,7 +2520,7 @@ def bwd_hold_inputs(api, ts, TrainConfig, InputShape, make_policy, cfg):
     pol = make_policy("bf16")
     tcfg = TrainConfig(precision="bf16", accum_steps=1, optimizer="lamb")
     state = ts.init_train_state(
-        api.init_params(cfg, seed=SEED, device=DEVICE), pol, tcfg)
+        api.init_params(cfg, seed=SEED, device=DEVICE), pol, tcfg, cfg=cfg)
     batch = api.to_device(api.make_synth_batch(
         SEED, cfg, InputShape("phase2", 512, 8, "train")), DEVICE)
     return state, batch, tcfg, pol
@@ -2527,8 +2591,9 @@ def check_calls(tag, res: dict) -> None:
                                  f"version (rel L2 {res['call_max_rel'][k]:.3e})")
 
 
-def check_train_parity(res: dict, bounds=TRAIN_BOUND) -> None:
-    tag, bd = f"train parity {res['dtype']}", bounds[res["dtype"]]
+def check_train_parity(res: dict, bounds=TRAIN_BOUND,
+                       name: str = "train") -> None:
+    tag, bd = f"{name} parity {res['dtype']}", bounds[res["dtype"]]
     if not res["finite"]:
         raise AssertionError(f"{tag}: non-finite kernel-path gradients")
     if not res["same_step"]:
@@ -2699,16 +2764,23 @@ def resume_phase(latest_step) -> dict:
 # one dp_check run (each serial case before its overlapped twin)
 DP_CASES = ("psum", "ring", "hierarchical", "bucketed", "hierarchical+fp16",
             "psum+int8", "bucketed+overlap", "psum+int8+overlap")
-DP_CHECK_ARGS = ["--full-width", "--world", "4", "--pods", "2", "--backend",
-                 "gloo", "--share-device", "--cases", *DP_CASES]
+
 # a phase-1 step (one 128-key tile) launches no flash backward post-pass
 DP_KERNELS = tuple(k for k in TRAIN_KERNELS if k != "flash_bwd_post")
+# (b)-(d) at DP_LAYERS of bert-large's 24 layers, full width: at full
+# depth (c)'s three runs wrote checkpoints of 5.4 GB (~231 s of the phase)
+# and dp_check's four ranks each exchanged 2.0 GB a case (~180 s)
+DP_LAYERS = 4
 # (c): int8 + overlap + the timing breakdown at world 1 on NCCL, step 8's
-# arguments; a checkpoint at phase-1 step 3 (holding 3 steps' residual)
-# and the phase's end, 4; the crash after step 4 leaves step 3's
+# arguments at DP_LAYERS; a checkpoint at phase-1 step 3 (holding 3
+# steps' residual) and the phase's end, 4; the crash after step 4 leaves
+# step 3's
 DP_COMP_FLAGS = ["--dp", "--strategy", "psum", "--grad-compression", "int8",
                  "--overlap", "--timing-breakdown", "--ckpt-every", "3",
-                 "--precision", "bf16"]
+                 "--precision", "bf16", "--layers", str(DP_LAYERS)]
+DP_CHECK_ARGS = ["--full-width", "--layers", str(DP_LAYERS), "--world", "4",
+                 "--pods", "2", "--backend", "gloo", "--share-device",
+                 "--cases", *DP_CASES]
 DP_CRASH, DP_FROM = 4, 3
 # (a) the serial exchange and (a') the uncompressed overlapped drain at
 # world 1 on NCCL, each held to the in-process run's bits
@@ -2775,12 +2847,16 @@ def dp_compressed_cli(tmp: Path) -> dict:
         return run
 
     runs = {}
-    runs["whole"] = ran("whole", 0, dp_torchrun(
-        tmp / "whole", tmp / "whole.jsonl", DP_COMP_FLAGS))
+    # the uninterrupted and the crashed run at the same time (two
+    # processes on the card): nothing of theirs is judged by its time
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        whole = pool.submit(dp_torchrun, tmp / "whole", tmp / "whole.jsonl",
+                            DP_COMP_FLAGS)
+        crash = pool.submit(dp_torchrun, tmp / "run", tmp / "run.jsonl",
+                            DP_COMP_FLAGS, faults=f"crash_at={DP_CRASH}")
+        runs["whole"] = ran("whole", 0, whole.result())
+        runs["crash"] = ran("crash", 43, crash.result())
     shutil.rmtree(tmp / "whole" / "ckpt", ignore_errors=True)
-    runs["crash"] = ran("crash", 43, dp_torchrun(
-        tmp / "run", tmp / "run.jsonl", DP_COMP_FLAGS,
-        faults=f"crash_at={DP_CRASH}"))
     man = json.loads((tmp / "run" / "ckpt" / "phase1" /
                       f"ckpt_{DP_FROM:08d}.json").read_text())
     npz = tmp / "run" / "ckpt" / "phase1" / f"ckpt_{DP_FROM:08d}.npz"
@@ -2866,9 +2942,10 @@ def dp_phase(ref_losses: list) -> dict:
     compressed exchange, the overlapped drain and the timing breakdown
     through the CLI, crash and resume included; (b) and (d) ``dp_check.py``
     with four gloo ranks sharing the card, the four strategies and then
-    the compressed and overlapped cases.  (a) and (a') run at the same
-    time (two processes on the card; nothing of theirs is timed but their
-    seconds)."""
+    the compressed and overlapped cases.  (a), (a') and (c) run at the
+    same time (up to four processes on the card: (c)'s uninterrupted and
+    crashed runs start together): nothing of theirs is judged by its
+    time, and (c)'s timing breakdown is read with the others running."""
     t_phase = time.perf_counter()
     cli_s = {}
 
@@ -2878,10 +2955,15 @@ def dp_phase(ref_losses: list) -> dict:
             run = dp_torchrun(tmp / "w", tmp / "loss.jsonl", extra)
             got = read_losses(tmp / "loss.jsonl") if run["rc"] == 0 else []
         return run, got
-    with concurrent.futures.ThreadPoolExecutor(len(DP_WORLD1)) as pool:
+    def compressed():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dpc_") as tmp:
+            return dp_compressed_cli(Path(tmp))
+    with concurrent.futures.ThreadPoolExecutor(len(DP_WORLD1) + 1) as pool:
+        started_c = pool.submit(compressed)
         started = [(tag, extra, pool.submit(world1, extra))
                    for tag, extra in DP_WORLD1]
         done = [(tag, extra, *f.result()) for tag, extra, f in started]
+        part_c = started_c.result()
     for tag, extra, run, got in done:
         cli_s[tag] = run["s"]
         out = run["out"]
@@ -2920,8 +3002,6 @@ def dp_phase(ref_losses: list) -> dict:
         log(f"dp {tag}: NCCL world 1 through torchrun ({' '.join(extra)}): "
             f"{len(got)} losses equal in bits, training-loop launches "
             f"{run['launches']}{drained}, {run['s']:.1f} s")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dpc_") as tmp:
-        part_c = dp_compressed_cli(Path(tmp))
     log(f"dp (c) on {nvidia_smi()}: {part_c['part_s']:.1f} s (runs "
         + ", ".join(f"{k} {v:.1f}" for k, v in part_c["runs_s"].items())
         + " s)")
@@ -2940,7 +3020,7 @@ def dp_phase(ref_losses: list) -> dict:
             log(f"dp: {line}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     if not (res["world"] == 4 and res["pods"] == 2 and res["staged"]
-            and res["layers"] == 24 and res["d_model"] == 1024):
+            and res["layers"] == DP_LAYERS and res["d_model"] == 1024):
         raise AssertionError(f"dp: dp_check ran {res}")
     if list(res["strategies"]) != list(DP_CASES):
         raise AssertionError(f"dp: dp_check ran {list(res['strategies'])}")
@@ -2996,9 +3076,10 @@ def dp_phase(ref_losses: list) -> dict:
 # ---------------------------------------------------------------------------
 
 # the LM path: deepseek-7b at full width and 4 layers, global batches of 8 x
-# 1024 tokens in 2 micro-batches, 4 steps in bf16; its attention calls are
-# (micro-batch, heads, S, Dh) = LM_ATTN, causal
-LM_LAYERS, LM_BATCH, LM_SEQ, LM_ACCUM, LM_STEPS = 4, 8, 1024, 2, 4
+# 1024 tokens in 2 micro-batches (LM_PATHS), 4 steps in bf16; its
+# attention calls are (micro-batch, heads, S, Dh) = LM_ATTN, causal
+LM_LAYERS, LM_BATCH, LM_SEQ, LM_ACCUM = LM_PATHS["deepseek-7b"]
+LM_STEPS = 4
 LM_ATTN = (LM_BATCH // LM_ACCUM, 32, LM_SEQ, 128)
 LM_ARGS = ["--arch", "deepseek-7b", "--full", "--layers", str(LM_LAYERS),
            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--accum",
@@ -3011,6 +3092,9 @@ LM_ARGS = ["--arch", "deepseek-7b", "--full", "--layers", str(LM_LAYERS),
 LM_FWD_PER_STEP = 2 * LM_LAYERS * LM_ACCUM
 LM_BWD_PER_STEP = LM_LAYERS * LM_ACCUM
 LM_HELD = ("flash_attention", "flash_attention_bwd", "lamb_moments")
+# a held LAMB call over more elements than this runs its plain version a
+# slice at a time (``held_against_plain``)
+HOLD_SLICE = 2 ** 27
 # kernel path vs plain path of one LM training step (LAMB) from the same
 # state on the same batch, per dtype, as TRAIN_BOUND holds BERT's: |loss
 # difference| / |loss|, the largest relative L2 difference of a gradient
@@ -3023,6 +3107,17 @@ LM_HELD = ("flash_attention", "flash_attention_bwd", "lamb_moments")
 # bounds sit 3-12x above the readings.
 LM_BOUND = {torch.float32: {"loss": 1e-6, "grad": 1e-4, "update": 5e-4},
             torch.bfloat16: {"loss": 5e-5, "grad": 5e-2, "update": 0.15}}
+# rwkv6-1.6b's time mix normalises each head's output (its group norm),
+# so the gradients of u and of r's and k's weights are what the norm's
+# projection leaves of larger terms, and bf16 rounding of those terms
+# moves them far: at full width one time mix's u gradient in bf16 lies
+# 0.43 from f32, in the reference as in the port, and 7e-3 with the norm's
+# scale a constant (``tests/torch_rwkv_bf16_gap.py --time-mix``).  Each
+# layer multiplies it: at 24 layers the plain bf16 gradients lay 17-25x
+# their norm from plain f32 and kernels vs plain ~1 apart.  So rwkv's
+# bf16 step is held to LM_BOUND at one layer, the plain f32 path's
+# distance logged beside it (``lm_train_parity(floor=True)``); the
+# 24-layer CLI run holds launches and finite, taken steps.
 # the crash -> resume and data-parallel runs of the CLI: the smoke
 # deepseek-7b (Dh 32) at S 1024, so attention takes the flash pair; 7 steps
 # of 4 x 1024 tokens with checkpoints at 3 and 6 (and 7, the end); the
@@ -3172,57 +3267,119 @@ def lm_train_run(ops, train, optimizer) -> dict:
 
 
 def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
-                    cfg, precision) -> dict:
+                    cfg, precision, *, geometry=(LM_BATCH, LM_SEQ, LM_ACCUM),
+                    held=None, prepare=None, tag="lm",
+                    floor: bool = False) -> dict:
     """One LAMB step of the LM path from a fresh state on the stream's
-    first batch, through the kernels (every call of LM_HELD held against
-    its plain version on its inputs) and through the plain versions.  The
-    card holds one training state at a time: each path's gradients (as
-    the clip takes them) and master update go to host memory."""
-    pol = make_policy(precision)
-    tcfg = TrainConfig(precision=precision, accum_steps=LM_ACCUM,
-                       optimizer="lamb", total_steps=LM_STEPS,
-                       warmup_steps=2)
-    batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, LM_BATCH,
-                                          LM_SEQ)), DEVICE)
-    record = {name: [] for name in LM_HELD}
-    got = {}
-    for impl in (None, "torch"):
-        state = ts.init_train_state(
-            api.init_params(cfg, seed=SEED + 1, device=DEVICE), pol, tcfg)
-        old = {p: t.to("cpu") for p, t in state.opt.master.items()}
-        grads = {}
+    first batch of ``geometry`` (batch, seq, accumulation), through the
+    plain versions and through the kernels (every call of ``held``, by
+    default LM_HELD, held against its plain version on its inputs:
+    ``{name: (dtype, rms)}`` as ``held_against_plain`` takes it);
+    ``prepare(params)`` may redraw weights first.  The card holds one
+    training state at a time: the plain path's gradients (as the clip
+    takes them) and master update wait in host memory, and each later
+    path is compared with them a group at a time on the card.
 
-        def keep(g):
-            grads.update({p: t.to("cpu") for p, t in g.items()})
-        with (held_against_plain(ops, record, {k: (None, False)
-                                               for k in LM_HELD})
+    With ``floor`` (a 16-bit step) the plain path also runs in f32, and
+    each group's floor, how far the plain 16-bit gradient and update lie
+    from the plain f32 ones, is logged beside the group's reading: what
+    16-bit arithmetic itself makes of the step, a yardstick for the
+    kernels-vs-plain distance, which LM_BOUND judges all the same.  The
+    largest group reading of each kind is returned (``grad_rel``,
+    ``update_rel``), and with ``floor`` the largest floor of each kind
+    (``grad_floor``, ``update_floor``)."""
+    pol = make_policy(precision)
+    batch_n, seq, accum = geometry
+    held = held or {k: (None, False) for k in LM_HELD}
+    batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, batch_n,
+                                          seq)), DEVICE)
+    record = {name: [] for name in held}
+    # the plain path first: its gradients and updates on the host; each
+    # later path's (kernel, and with ``floor`` plain f32) as
+    # {kind: {group: (||later - plain||, ||later||)}}
+    ref = {"grad": {}, "update": {}}
+    dist = {}
+    runs = {}
+    paths = [("torch", precision), (None, precision)]
+    if floor:
+        paths.append(("torch", "f32"))
+
+    def params():
+        p = api.init_params(cfg, seed=SEED + 1, device=DEVICE)
+        if prepare is not None:
+            prepare(p)
+        return p
+
+    def against_ref(kind, vals, out):
+        for g, t in vals.items():
+            r = ref[kind][g].to(DEVICE)
+            out[g] = (float((t - r).norm()), float(t.norm()),
+                      float(r.norm()))
+            del r
+
+    for impl, prec in paths:
+        key = (impl, prec)
+        tcfg = TrainConfig(precision=prec, accum_steps=accum,
+                           optimizer="lamb", total_steps=LM_STEPS,
+                           warmup_steps=2)
+        state = ts.init_train_state(params(), make_policy(prec), tcfg,
+                                    cfg=cfg)
+        dist[key] = {"grad": {}, "update": {}}
+        finite = []
+
+        def keep(g, key=key):
+            finite.append(all(bool(torch.isfinite(t).all())
+                              for t in g.values()))
+            if key == paths[0]:
+                ref["grad"].update({p: t.to("cpu", copy=True)
+                                    for p, t in g.items()})
+            else:
+                against_ref("grad", g, dist[key]["grad"])
+        with (held_against_plain(ops, record, held)
               if impl is None else contextlib.nullcontext()):
-            state, metrics = ts.train_step_fn(state, batch, cfg=cfg,
-                                              tcfg=tcfg, policy=pol,
-                                              impl=impl, on_grads=keep)
+            state, metrics = ts.train_step_fn(
+                state, batch, cfg=cfg, tcfg=tcfg, policy=make_policy(prec),
+                impl=impl, on_grads=keep)
             torch.cuda.synchronize()
-        got[impl] = (float(metrics["loss"]), grads,
-                     {p: state.opt.master[p].to("cpu") - old[p] for p in old},
+        old = state.opt.groups.flatten(params())
+        upd = {p: state.opt.master[p] - old.pop(p)
+               for p in list(state.opt.master)}
+        if key == paths[0]:
+            ref["update"].update({p: t.to("cpu") for p, t in upd.items()})
+        else:
+            against_ref("update", upd, dist[key]["update"])
+        runs[key] = (float(metrics["loss"]), finite[0],
                      {k: metrics[k] for k in ("skipped", "loss_scale")})
-        del state, old, grads
+        del state, old, upd
         torch.cuda.empty_cache()
-    (lk, gk, uk, mk), (lp, gp, up, mp) = got[None], got["torch"]
-    rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))
-    grad_rel = {p: rel(gk[p], gp[p]) for p in gp}
-    upd_rel = {p: rel(uk[p], up[p]) for p in up}
-    worst = max(grad_rel, key=grad_rel.get)
-    worst_u = max(upd_rel, key=upd_rel.get)
+    (lp, _, mp), (lk, fin, mk) = runs[paths[0]], runs[paths[1]]
+    bd = LM_BOUND[pol.compute_dtype]
     res = {"dtype": pol.compute_dtype, "loss_rel": abs(lk - lp) / abs(lp),
-           "loss": (lk, lp), "grad_rel": grad_rel[worst],
-           "grad_worst": ".".join(worst), "update_rel": upd_rel[worst_u],
-           "update_worst": ".".join(worst_u),
-           "finite": all(bool(torch.isfinite(g).all()) for g in gk.values()),
-           "same_step": mk == mp, "step": mk, **call_summary(record)}
-    log(f"lm train parity {precision}: loss {lk:.6f} (kernels) vs {lp:.6f} "
-        f"(plain), rel {res['loss_rel']:.3e}; worst gradient group "
-        f"{res['grad_worst']} rel L2 {res['grad_rel']:.3e}; worst master "
-        f"update {res['update_worst']} rel L2 {res['update_rel']:.3e} "
-        f"(bounds {LM_BOUND[pol.compute_dtype]}); step {mk} (kernels) vs "
+           "loss": (lk, lp), "finite": fin, "same_step": mk == mp,
+           "step": mk, **call_summary(record)}
+    notes = []
+    for kind in ("grad", "update"):
+        # kernels vs plain: ||k - p|| / ||p||; the floor: ||f - p|| / ||f||
+        rels = {p: d / max(n_ref, 1e-30) for p, (d, _, n_ref) in
+                dist[paths[1]][kind].items()}
+        floors = ({p: d / max(n, 1e-30) for p, (d, n, _) in
+                   dist[paths[2]][kind].items()} if floor
+                  else {p: 0.0 for p in rels})
+        res[f"{kind}_rel"] = max(rels.values())
+        res[f"{kind}_floor"] = max(floors.values())
+        top = sorted(rels, key=rels.get, reverse=True)[:3]
+        notes.append(f"{kind}: largest " + ", ".join(
+                         f"{'.'.join(p)} {rels[p]:.3e}"
+                         + (f" (floor {floors[p]:.3e})" if floor else "")
+                         for p in top))
+    log(f"{tag} train parity {precision} ({cfg.n_layers} layers, "
+        f"{batch_n} x {seq} tokens in {accum} micro-batches): loss "
+        f"{lk:.6f} (kernels) vs {lp:.6f} (plain)"
+        + (f" vs {runs[paths[2]][0]:.6f} (plain f32)" if floor else "")
+        + f", rel {res['loss_rel']:.3e}; " + "; ".join(notes)
+        + (f"; largest floors {res['grad_floor']:.3e} (gradients), "
+           f"{res['update_floor']:.3e} (updates)" if floor else "")
+        + f" (LM_BOUND {bd}); step {mk} (kernels) vs "
         f"{mp} (plain); each kernel call vs plain on its inputs: " + ", ".join(
             f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
             f"err {res['call_max_err'][k]:.3e}, max rel L2 "
@@ -3484,21 +3641,26 @@ QKV_BIAS_STD = 1.0
 CODER_HEADS = (56, 8)
 
 
+def draw_biases(params) -> None:
+    """Draw every layer's QKV biases from a seed at ``QKV_BIAS_STD``, in
+    place (init leaves zeros)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    for layer in params["blocks"]:
+        for name in ("bq", "bk", "bv"):
+            b = layer["mixer"][name]
+            b.copy_(L.trunc_normal(tuple(b.shape), gen, stddev=QKV_BIAS_STD,
+                                   dtype=b.dtype, device=DEVICE))
+
+
 def decoder_model(T, get_config, arch, layers, pol):
     """(config at ``layers`` layers, seeded weights on the card); QKV
     biases drawn from a seed at ``QKV_BIAS_STD``."""
-    from repro_torch.models import layers as L
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
                           device=DEVICE)
     if cfg.qkv_bias:
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
-        for layer in params["blocks"]:
-            for name in ("bq", "bk", "bv"):
-                b = layer["mixer"][name]
-                b.copy_(L.trunc_normal(tuple(b.shape), gen,
-                                       stddev=QKV_BIAS_STD, dtype=b.dtype,
-                                       device=DEVICE))
+        draw_biases(params)
     torch.cuda.synchronize()
     return cfg, params
 
@@ -3818,6 +3980,396 @@ def decoders_phase(T, ops, serve, serve_step, sched_mod, get_config,
         f"on {nvidia_smi()}: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "yardsticks": yard}
 
+# ---------------------------------------------------------------------------
+# training the dense decoder variants and RWKV-6
+# ---------------------------------------------------------------------------
+
+# each model's training path at full width, depth cut to what one card
+# holds (PERF.md §4; LM_PATHS): gemma2's first (local) layer alone at 2 x
+# 8192 tokens, twice its 4096-token window, so the window masks keys in
+# the backward; qwen's first layer and the coder's first two (56 query
+# heads over 8 on both) at the LM path's 8 x 1024; rwkv6-1.6b whole (24
+# layers) at the same geometry.  LM_STEPS steps of bf16 under LAMB each.
+VARIANTS = ("gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b")
+# the kernels-vs-plain step in f32 at the smallest depth, one layer;
+# gemma2's at S 4224 (> its window, a multiple of 128): at S 8192 its f32
+# logits (8 x 2.1 G elements a micro-batch, 8.4 GB each) and their
+# softcap and loss would not fit beside the f32 training state
+F32_LAYERS, GEMMA_F32_SEQ = 1, 4224
+# rwkv's held calls: wkv6 at the fp32 tolerance with the absolute part
+# scaled by the output's RMS (it computes in fp32, as the serve path holds
+# it), LayerNorm forward and backward and LAMB at the call's dtype
+RWKV_HELD = {"layernorm_fwd": (None, False), "layernorm_bwd": (None, False),
+             "wkv6": (torch.float32, True), "lamb_moments": (None, False)}
+# the flash pair's new training shapes, (B, H, KV heads, S, Dh, window,
+# softcap): gemma2's micro-batch with its window and softcap, 16 KV heads
+# expanded to 32; the coder's, 8 KV heads expanded to 56
+GEMMA_ATTN = (1, 32, 16, 8192, 128, 4096, 50.0)
+CODER_ATTN = (4, 56, 8, 1024, 128, 0, 0.0)
+
+
+def train_args(arch: str, optimizer: str = "lamb") -> list:
+    layers, batch, seq, accum = LM_PATHS[arch]
+    return ["--arch", arch, "--full", "--layers", str(layers), "--batch",
+            str(batch), "--seq", str(seq), "--accum", str(accum), "--steps",
+            str(LM_STEPS), "--precision", "bf16", "--optimizer", optimizer,
+            "--device", DEVICE, "--seed", str(SEED), "--log-every", "1"]
+
+
+def path_cfg(train, arch: str, layers: int):
+    """The CLI's model of ``arch`` at full width and ``layers`` layers."""
+    return train.model_config(train.parse_args(
+        ["--arch", arch, "--full", "--layers", str(layers)]))
+
+
+def train_launches(arch: str, n_groups: int) -> dict:
+    """The launches of LM_STEPS steps of ``arch``'s CLI run under LAMB,
+    derived: per micro-batch, an attention layer's flash forward runs
+    twice (once more in the backward: the layer's recompute under the
+    checkpoint) and its backward once (pre-pass, main pass and, over
+    S / 128 > 1 KV tiles, the post-pass); an rwkv layer's wkv6 forward
+    twice (the recompute; its backward is the chunked form's VJP, no
+    kernel) and its two LayerNorms twice forward and once backward, the
+    final norm once each (outside the checkpoint); LAMB's kernel once a
+    leaf group a step.  Nothing else launches."""
+    layers, _, seq, accum = LM_PATHS[arch]
+    mb = accum * LM_STEPS
+    if arch == "rwkv6-1.6b":
+        want = {"wkv6": 2 * layers * mb, "layernorm": (4 * layers + 1) * mb,
+                "layernorm_bwd": (2 * layers + 1) * mb}
+    else:
+        want = {"flash_fwd": 2 * layers * mb,
+                f"flash_fwd_s{seq}": 2 * layers * mb}
+        for k in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post",
+                  f"flash_bwd_s{seq}"):
+            want[k] = layers * mb
+    want["lamb_moments"] = n_groups * LM_STEPS
+    return want
+
+
+def model_train_run(ops, train, arch: str) -> dict:
+    """``launch/train.py`` on ``arch``'s training path under LAMB, launch
+    counts zeroed just before and read just after: every step finite and
+    taken, the launches exactly ``train_launches``.  Returns the counts,
+    the history, the peak memory, the seconds and the config."""
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, state, history = train.run(train_args(arch))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_groups = len(state.opt.groups.paths)
+    n_params = sum(t.numel() for t in state.opt.master.values())
+    del state
+    torch.cuda.empty_cache()
+    for r in history:
+        log(f"{arch} train step {r['step']:.0f}: loss {r['loss']:.4f} "
+            f"({r['loss'].hex()}), grad norm {r['grad_norm']:.4f}, lr "
+            f"{r['lr']:.3g}, skipped {bool(r['skipped'])}, {r['ms']:.1f} ms")
+    if [r["step"] for r in history] != list(range(1, LM_STEPS + 1)) or any(
+            r["skipped"] or not np.isfinite(r["loss"]) for r in history):
+        raise AssertionError(f"{arch} train: expected {LM_STEPS} finite "
+                             f"steps, got {history}")
+    want = train_launches(arch, n_groups)
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"{arch} train: launches {got}, expected "
+                             f"{want}")
+    layers, batch, seq, accum = LM_PATHS[arch]
+    steps_ms = [r["ms"] for r in history]
+    log(f"{arch} train full width: {cfg.n_layers} layers "
+        f"{[m for m, _ in cfg.layer_kinds()]}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads, "
+        f"{n_params / 1e9:.4f} B parameters in {n_groups} leaf groups; "
+        f"{batch} x {seq} tokens a step in {accum} micro-batches; step ms "
+        f"{[round(m, 1) for m in steps_ms]} (the first with the first "
+        f"calls' set-up); launches {got}; peak device memory {peak:.2f} "
+        f"GiB; {run_s:.1f} s (init included) on {nvidia_smi()}")
+    return {"counts": counts, "history": history, "peak_gib": peak,
+            "s": run_s, "cfg": cfg, "params": n_params}
+
+
+def window_pairs(b, h, s, window):
+    """The unmasked (query, key) pairs of causal attention with a window:
+    query i sees min(i + 1, window) keys (every key without a window)."""
+    w = min(window or s, s)
+    return b * h * (w * (w + 1) // 2 + (s - w) * w)
+
+
+def flash_fwd_window_bound(b, h, s, dh, window, item=2):
+    """(bound ms, by) of the causal windowed flash forward: as
+    ``flash_fwd_bound``, over ``window_pairs``."""
+    return bound(4 * b * h * s * dh * item + b * h * s * 4,
+                 4 * window_pairs(b, h, s, window) * dh)
+
+
+def flash_bwd_window_bound(b, h, s, dh, window, item=2):
+    """(bound ms, by) of the causal windowed flash backward: 8 activations
+    of B H S Dh read or written once plus lse (fp32), against 10
+    operations per unmasked (query, key) pair and channel."""
+    return bound(8 * b * h * s * dh * item + b * h * s * 4,
+                 10 * window_pairs(b, h, s, window) * dh)
+
+
+def train_flash(ops, fa, timer) -> dict:
+    """(c) and (d): the flash forward and backward at gemma2's and the
+    coder's training shapes (GEMMA_ATTN, CODER_ATTN) in bf16, K and V
+    expanded over the group as ``layers.chunked_attention`` expands them,
+    in the model's (B, S, H, Dh) layout: each held against its plain
+    version, launched twice for the same bits, then timed beside its
+    bound, the plain version and, for the coder, SDPA's forward and
+    backward over the same expanded heads (gemma2's softcap SDPA has
+    not).  Also timed: the expansion's copy of K and V and the group sum
+    of dK and dV that autograd adds, the cost a backward reading each KV
+    head once would save.  Returns the entries ``flash_fwd_<model>`` and
+    ``flash_bwd_<model>``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = torch.bfloat16
+    entries = {}
+    for model, (b, h, kvh, s, dh, window, softcap) in (
+            ("gemma2", GEMMA_ATTN), ("coder", CODER_ATTN)):
+        name = f"flash_bwd_{model}"
+        g = h // kvh
+        kw = dict(causal=True, window=window, softcap=softcap)
+        t = lambda x: x.transpose(1, 2)
+        q, do = (torch.randn((b, s, h, dh), generator=gen, device=DEVICE)
+                 .to(dtype) for _ in range(2))
+        kx, vx = (torch.randn((b, s, kvh, dh), generator=gen, device=DEVICE)
+                  .to(dtype) for _ in range(2))
+
+        def expand(x):
+            return x[:, :, :, None].expand(b, s, kvh, g, dh).reshape(
+                b, s, h, dh)
+        q, do = t(q), t(do)
+        k, v = t(expand(kx)), t(expand(vx))
+        tag = f"{(b, h, s, dh)} ({kvh} KV heads expanded) {kw}"
+        out, lse = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q, k, v, impl="torch", **kw)
+        torch.cuda.synchronize()
+        fwd = [check_grad(f"flash_fwd_{model} {tag} {n}", x, y, dtype)
+               for x, y, n in zip((out, lse), want, ("out", "lse"))]
+        check_same_bits(f"flash_fwd_{model} {tag}", (out, lse),
+                        ops.flash_attention(q, k, v, **kw))
+        del want
+        fwd_t = timer.times(lambda: ops.flash_attention(q, k, v, **kw))
+        fwd_plain_t = timer.times(lambda: ops.flash_attention(
+            q, k, v, impl="torch", **kw), iters=3)
+        fwd_lib, fwd_lib_log = None, "none (SDPA has no softcap)"
+        if not softcap and not window:
+            lib_t = timer.times(lambda: sdpa(q, k, v, is_causal=True))
+            fwd_lib = float(np.mean(lib_t))
+            fwd_lib_log = f"SDPA forward {fwd_lib:.4f} ({spread(lib_t)})"
+        fb = flash_fwd_window_bound(b, h, s, dh, window)
+        fwd_ms = float(np.mean(fwd_t))
+        entries[f"flash_fwd_{model}"] = entry(
+            f"flash_fwd_{model}", "flash_fwd.cu", "flash_attention.py:132",
+            max(e for e, _ in fwd), fwd_ms, median(fwd_plain_t), *fb,
+            fwd_lib)
+        log(f"flash_fwd_{model} {tag}: max err "
+            f"{max(e for e, _ in fwd):.3e} (rel L2 "
+            f"{max(r for _, r in fwd):.3e}), two launches the same bits; "
+            f"kernel {fwd_ms:.4f} ms ({spread(fwd_t)}), bound {fb[0]:.4f} "
+            f"ms ({fb[1]}), plain median {median(fwd_plain_t):.4f} ms, "
+            f"library {fwd_lib_log} on {nvidia_smi()}")
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = ops.flash_attention_bwd(q, k, v, out, lse, do, impl="torch",
+                                       **kw)
+        torch.cuda.synchronize()
+        tag = f"{name} {tag}"
+        held = [check_grad(f"{tag} d{n}", x, y, dtype)
+                for x, y, n in zip(got, want, "qkv")]
+        check_same_bits(tag, got, fa.flash_attention_bwd(q, k, v, out, lse,
+                                                         do, **kw))
+        del want
+        bwd_t = timer.times(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw))
+        plain_t = timer.times(lambda: ops.flash_attention_bwd(
+            q, k, v, out, lse, do, impl="torch", **kw), iters=3)
+        expand_t = timer.times(lambda: (expand(kx), expand(vx)))
+        dk_model = t(got[1])
+        sum_t = timer.times(lambda: (
+            dk_model.reshape(b, s, kvh, g, dh).sum(3),
+            dk_model.reshape(b, s, kvh, g, dh).sum(3)))
+        lib_ms, lib_log = None, "none (SDPA has no softcap)"
+        if not softcap and not window:
+            qg, kg, vg = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            sdpa_out = sdpa(qg, kg, vg, is_causal=True)
+            lib_t = timer.times(lambda: torch.autograd.grad(
+                sdpa_out, (qg, kg, vg), do, retain_graph=True))
+            lib_ms = float(np.mean(lib_t))
+            lib_log = f"SDPA backward {lib_ms:.4f} ({spread(lib_t)})"
+            del sdpa_out, qg, kg, vg
+        bd = flash_bwd_window_bound(b, h, s, dh, window)
+        ms = float(np.mean(bwd_t))
+        entries[name] = entry(name, "flash_bwd.cu", "flash_attention.py:272",
+                              max(e for e, _ in held), ms,
+                              median(plain_t), *bd, lib_ms)
+        log(f"{tag}: max err {max(e for e, _ in held):.3e} (rel L2 "
+            f"{max(r for _, r in held):.3e}), two launches the same bits; "
+            f"kernel {ms:.4f} ms ({spread(bwd_t)}), bound {bd[0]:.4f} ms "
+            f"({bd[1]}), plain median {median(plain_t):.4f} ms, library "
+            f"{lib_log}; the GQA expansion's copy of K and V "
+            f"{median(expand_t):.4f} ms and the group sum of dK and dV "
+            f"{median(sum_t):.4f} ms (medians) on {nvidia_smi()}")
+        del q, k, v, do, kx, vx, out, lse, got, dk_model
+        torch.cuda.empty_cache()
+    return entries
+
+
+def coder_step_bits(api, ts, TrainConfig, make_policy, lm_batches,
+                    cfg) -> None:
+    """(c): two gradient steps of the coder (bf16, its training path's
+    first batch) from one state: every gradient group the same bits, the
+    attention's K and V groups (the group sum of the expansion) among
+    them."""
+    pol = make_policy("bf16")
+    _, batch_n, seq, accum = LM_PATHS["deepseek-coder-33b"]
+    tcfg = TrainConfig(precision="bf16", accum_steps=accum,
+                       optimizer="lamb")
+    state = ts.init_train_state(
+        api.init_params(cfg, seed=SEED + 2, device=DEVICE), pol, tcfg,
+        cfg=cfg)
+    batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, batch_n,
+                                          seq)), DEVICE)
+    grads = []
+    for _ in range(2):
+        grads.append(ts.step_gradients(state, batch, cfg=cfg, tcfg=tcfg,
+                                       policy=pol)[1])
+        torch.cuda.synchronize()
+    differ = [".".join(p) for p in grads[0]
+              if not same_bits(grads[0][p], grads[1][p])]
+    log(f"deepseek-coder-33b ({cfg.n_layers} layers): two gradient steps "
+        f"from one state, {len(grads[0])} groups, {len(differ)} differ in "
+        f"any bit ({differ})")
+    del grads, state
+    torch.cuda.empty_cache()
+    if differ:
+        raise AssertionError(f"coder: gradient groups {differ} differ "
+                             "between two steps from one state")
+
+
+def variants_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
+                         lm_batches) -> dict:
+    """The dense variants' training at full width, depth cut (LM_PATHS):
+    for each model (a) the CLI under LAMB (``model_train_run``), (b) one
+    LAMB step kernels vs plain in bf16 at its path and in f32 at one layer,
+    every flash and LAMB call held, within LM_BOUND (qwen's QKV biases
+    drawn at QKV_BIAS_STD); the coder's (c) two gradient steps in the same
+    bits; then (c) and (d) the flash forward and backward at the two new
+    shapes.
+    Returns the kernel entries and the runs."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for arch in VARIANTS:
+        t0 = time.perf_counter()
+        runs[arch] = model_train_run(ops, train, arch)
+        _, batch_n, seq, accum = LM_PATHS[arch]
+        cfg = runs[arch]["cfg"]
+        prepare = draw_biases if cfg.qkv_bias else None
+        check_train_parity(lm_train_parity(
+            ops, api, ts, TrainConfig, make_policy, lm_batches, cfg, "bf16",
+            geometry=(batch_n, seq, accum), prepare=prepare, tag=arch),
+            LM_BOUND, arch)
+        torch.cuda.empty_cache()
+        seq32 = GEMMA_F32_SEQ if arch == "gemma2-27b" else seq
+        check_train_parity(lm_train_parity(
+            ops, api, ts, TrainConfig, make_policy, lm_batches,
+            path_cfg(train, arch, F32_LAYERS), "f32",
+            geometry=(batch_n, seq32, accum), prepare=prepare, tag=arch),
+            LM_BOUND, arch)
+        torch.cuda.empty_cache()
+        if arch == "deepseek-coder-33b":
+            coder_step_bits(api, ts, TrainConfig, make_policy, lm_batches,
+                            cfg)
+        log(f"{arch} training: {time.perf_counter() - t0:.1f} s")
+    timer = Timer()
+    entries = train_flash(ops, fa, timer)
+    del timer
+    torch.cuda.empty_cache()
+    log(f"variants training phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"entries": entries, "runs": runs}
+
+
+def wkv6_train_times(ops, timer) -> dict:
+    """(e): the wkv6 forward at rwkv's training shape (LM_BATCH / LM_ACCUM
+    x LM_SEQ, 32 heads of 64; bf16 r, k, v as the bf16 step gives them),
+    held against its plain version, timed beside its bound and the plain
+    version; and the VJP of the chunked form (``kops.wkv6_vjp``'s
+    backward: the chunked form run again under autograd and
+    differentiated) at the same shape, the time a backward kernel would
+    replace."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50)
+    shape = (LM_BATCH // LM_ACCUM, LM_SEQ, 32, 64)
+    args = wkv6_inputs(gen, *shape, dtype=torch.bfloat16)
+    err = wkv6_check(ops, f"wkv6 training shape {shape}", args, WKV_CHUNK,
+                     relaunch=True)
+    times = timer.times(lambda: ops.wkv6(*args, chunk=WKV_CHUNK))
+    plain = timer.times(lambda: ops.wkv6(*args, chunk=WKV_CHUNK,
+                                         impl="torch"), iters=5)
+    bd = wkv6_bound(args[0], args[4], WKV_CHUNK)[:2]
+    ins = [t.detach().clone().requires_grad_(i < 5)
+           for i, t in enumerate(args)]
+    o, _ = ops.wkv6_vjp(*ins, chunk=WKV_CHUNK)
+    do = torch.randn(o.shape, generator=gen, device=DEVICE)
+    vjp_t = timer.times(lambda: torch.autograd.grad(
+        o, ins[:5], do, retain_graph=True), iters=5)
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(o, ins[:5], do, retain_graph=True)
+    vjp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.mean(times))
+    log(f"wkv6 training shape {shape} bf16 r/k/v: max err {err:.3e}, the "
+        f"same bits on relaunch; kernel {ms:.4f} ms ({spread(times)}), "
+        f"bound {bd[0]:.4f} ms ({bd[1]}), plain median {median(plain):.4f} "
+        f"ms; its backward, the chunked form's VJP (plain PyTorch, no "
+        f"kernel): median {median(vjp_t):.4f} ms ({spread(vjp_t)}), peak "
+        f"device memory {vjp_peak:.2f} GiB during it")
+    del ins, o, do, args
+    torch.cuda.empty_cache()
+    return {"entry": entry("wkv6_train", "wkv6.cu", "wkv6.py:98", err, ms,
+                           median(plain), *bd, None),
+            "vjp_ms": median(vjp_t)}
+
+
+def rwkv_train_phase(ops, train, api, ts, TrainConfig, make_policy,
+                     lm_batches) -> dict:
+    """rwkv6-1.6b's training at full width and depth (LM_PATHS): (a)
+    the CLI under LAMB (``model_train_run``: wkv6 forward, LayerNorm and
+    its backward, LAMB); (b) one LAMB step kernels vs plain in bf16 and in
+    f32 at one layer (the bf16 step beside plain f32: the note below
+    LM_BOUND), every wkv6, LayerNorm and LAMB call
+    held (wkv6's also within WKV_TOL relative L2), within LM_BOUND; (e) the
+    wkv6 forward and its VJP timed at the training shape.  Returns the
+    kernel entry and the run."""
+    t_phase = time.perf_counter()
+    arch = "rwkv6-1.6b"
+    run = model_train_run(ops, train, arch)
+    _, batch_n, seq, accum = LM_PATHS[arch]
+    cfg = path_cfg(train, arch, F32_LAYERS)
+    for precision in ("bf16", "f32"):
+        res = lm_train_parity(ops, api, ts, TrainConfig, make_policy,
+                              lm_batches, cfg, precision,
+                              geometry=(batch_n, seq, accum), held=RWKV_HELD,
+                              tag=arch, floor=precision != "f32")
+        check_train_parity(res, LM_BOUND, arch)
+        if not res["call_max_rel"]["wkv6"] <= WKV_TOL:
+            raise AssertionError(f"{arch} parity {precision}: a wkv6 call "
+                                 f"departs from the plain version (rel L2 "
+                                 f"{res['call_max_rel']['wkv6']:.3e})")
+        torch.cuda.empty_cache()
+    timer = Timer()
+    wkv = wkv6_train_times(ops, timer)
+    del timer
+    torch.cuda.empty_cache()
+    log(f"rwkv training phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"entry": wkv["entry"], "run": run}
+
 
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
@@ -3825,15 +4377,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.core.amp import make_policy
-    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.data.pipeline import ShardedLoader, lm_batches
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import pretrain_bert
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
     from repro_torch.models import api
     from repro_torch.models import transformer as T
     from repro_torch.serve import scheduler as sched_mod
@@ -3900,6 +4452,17 @@ def main(argv=None) -> int:
                        make_policy)
         log("dense decoder variants phase only: no other phase, no result")
         return 2
+    train_mods = (train_cli, api, ts, TrainConfig, make_policy, lm_batches)
+    if only == "variants_train":
+        del timer
+        variants_train_phase(ops, fa, *train_mods)
+        log("variants training phase only: no other phase, no result")
+        return 2
+    if only == "rwkv_train":
+        del timer
+        rwkv_train_phase(ops, *train_mods)
+        log("rwkv training phase only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -3958,6 +4521,15 @@ def main(argv=None) -> int:
     lm = lm_phase(ops, fa)
     entries += [lm["entries"][k] for k in ("flash_fwd_lm", "flash_bwd_lm",
                                            "lamb_moments_lm")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vtrain = variants_train_phase(ops, fa, *train_mods)
+    entries += [vtrain["entries"][f"flash_{kind}_{model}"]
+                for model in ("gemma2", "coder") for kind in ("fwd", "bwd")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rtrain = rwkv_train_phase(ops, *train_mods)
+    entries.append(rtrain["entry"])
 
     serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
                   "prefix_unshared", "cohort")
@@ -3988,6 +4560,23 @@ def main(argv=None) -> int:
     by_name["flash_fwd_lm"] = sum(c[f"flash_fwd_s{LM_SEQ}"] for c in lm_runs)
     by_name["flash_bwd_lm"] = sum(c[f"flash_bwd_s{LM_SEQ}"] for c in lm_runs)
     by_name["lamb_moments_lm"] = lm["runs"]["lamb"]["counts"]["lamb_moments"]
+    # the training runs of steps 12 and 13: qwen's flash forward and
+    # backward at S 1024, Dh 128 (MHA, 40 heads) beside the LM's, gemma2's
+    # (S 8192, windowed, softcapped) and the coder's (56 expanded heads)
+    # on the rows timed at their shapes, rwkv's LayerNorms with the rest,
+    # every decoder LAMB launch on the LM's row
+    vt_runs = {a: r["counts"] for a, r in vtrain["runs"].items()}
+    rt_run = rtrain["run"]["counts"]
+    for kind in ("fwd", "bwd"):
+        by_name[f"flash_{kind}_lm"] += vt_runs["qwen1.5-32b"][f"flash_{kind}"]
+        for model, arch in (("gemma2", "gemma2-27b"),
+                            ("coder", "deepseek-coder-33b")):
+            by_name[f"flash_{kind}_{model}"] = vt_runs[arch][f"flash_{kind}"]
+    by_name["lamb_moments_lm"] += sum(
+        c["lamb_moments"] for c in [*vt_runs.values(), rt_run])
+    for k in ("layernorm", "layernorm_bwd"):
+        by_name[k] += rt_run[k]
+    by_name["wkv6_train"] = rt_run["wkv6"]
     log("flash_fwd launches: serve " + " + ".join(
         f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
         + f", train {launches['train']['flash_fwd']}, dense decoder "

@@ -394,8 +394,14 @@ int launch_bwd_t(int nv, const void* x, const void* dy, const void* scale,
     case 2: kern = layernorm_bwd_kernel<T, P, 2>; break;
     case 4: kern = layernorm_bwd_kernel<T, P, 4>; break;
     case 8: kern = layernorm_bwd_kernel<T, P, 8>; break;
-    default: return (int)cudaErrorInvalidValue;
+    // f32 rows of 2048 (rwkv's d_model): 128 fp32 sums a lane; a 16-bit
+    // instance would hold 256, past a thread's registers
+    case 16:
+      if constexpr (sizeof(T) == 4) kern = layernorm_bwd_kernel<T, P, 16>;
+      break;
+    default: break;
   }
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
@@ -456,7 +462,8 @@ extern "C" int layernorm_fwd(int dtype, int param_dtype, int nv,
 // The backward: dx (x's dtype and layout), dscale and dbias (scale's dtype,
 // (d,)) from x and dy (contiguous (rows, d) of one dtype, 16-byte aligned),
 // scale (d,) and the forward's mean and rstd ((rows,) float32).  Codes and
-// nv as layernorm_fwd, nv in [1, 8].  tile: rows a block, a multiple of 8
+// nv as layernorm_fwd, nv in [1, 8], or 16 for float32 (rows of at most
+// 2048 values in every dtype).  tile: rows a block, a multiple of 8
 // (the block's warps); part: float32 scratch of (ceil(rows / tile), 2 d).
 // Two launches; returns the first failing one's error.
 extern "C" int layernorm_bwd(int dtype, int param_dtype, int nv,

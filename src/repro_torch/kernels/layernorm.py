@@ -20,9 +20,9 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_VECTORS_PER_LANE = 32
-# the backward keeps a lane's dscale and dbias sums in registers: at most 8
-# vectors a lane (d <= 1024 in f32, 2048 in 16 bits)
-_MAX_VECTORS_PER_LANE_BWD = 8
+# the backward keeps a lane's dscale and dbias sums in registers: rows of
+# at most 2048 values, 16 vectors a lane in f32, 8 in 16 bits
+_MAX_BWD_ROW = 2048
 # The grids are sized for the 132 SMs of an H100 from the row count alone
 # (no device query: the backward's order of sums, and with it its bits,
 # must not depend on the card).  The forward: blocks of FWD_WARPS warps,
@@ -155,7 +155,7 @@ def layernorm_bwd(dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"layernorm_bwd: {name} must be the forward's "
                              f"contiguous ({rows},) float32 tensor")
     rows, d, nv = _check("layernorm_bwd", x, (("scale", scale),),
-                         _MAX_VECTORS_PER_LANE_BWD)
+                         _MAX_BWD_ROW * x.element_size() // 16 // 32)
     build.check_cuda("layernorm_bwd", dy=dy, mean=mean, rstd=rstd)
     tiles, tile = bwd_tiles(rows)
     dx = torch.empty_like(x)

@@ -14,7 +14,8 @@ Two layers:
   ``bias_gelu_bwd``, ``lamb_moments``, ``paged_decode_attention``,
   ``wkv6``): kernel or plain version, nothing else.
 * the differentiable ops the models call (``flash_attention_vjp``,
-  ``layernorm``, ``bias_gelu``) and the optimizer's ``lamb_leaf_update``.
+  ``layernorm``, ``bias_gelu``, ``wkv6_vjp``) and the optimizer's
+  ``lamb_leaf_update``.
   They call the dispatchers by name at call time, forward and backward,
   so a wrapper set on this module in their place (``chip_smoke.py`` does,
   to hold every call against the plain version) sees every launch.  The
@@ -22,7 +23,8 @@ Two layers:
   LayerNorm or bias-GELU backward kernel (XLA differentiates and fuses the
   forward); the port's are hand-written kernels too, from the saved inputs
   and statistics.  Every backward kernel gives the same bits from run to
-  run.
+  run.  ``wkv6``'s backward is the VJP of its chunked form, as the
+  reference's (``_WKV6``).
 """
 from __future__ import annotations
 
@@ -140,8 +142,8 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 64,
          impl: Optional[str] = None):
     """RWKV-6 chunk recurrence.  r, k, v, logw: (B, S, H, hs); u: (H, hs);
     s0: (B, H, hs, hs); ``min(chunk, S)`` must divide S.  Returns (o
-    (B, S, H, hs), s_final (B, H, hs, hs)), both float32.  Inference only:
-    the JAX package has no backward for it either."""
+    (B, S, H, hs), s_final (B, H, hs, hs)), both float32.  Not
+    differentiable: training calls ``wkv6_vjp``."""
     if _use_kernel(r, impl):
         return _wkv.wkv6(r, k, v, logw, u, s0, chunk=chunk)
     return ref.wkv6_ref(r, k, v, logw, u, s0, chunk=chunk)
@@ -246,6 +248,52 @@ class _BiasGelu(torch.autograd.Function):
 def bias_gelu(x, b, *, impl: Optional[str] = None):
     """Differentiable GELU-tanh(x + b)."""
     return _BiasGelu.apply(x.contiguous(), b, impl)
+
+
+class _WKV6(torch.autograd.Function):
+    """The ``wkv6`` kernel forward with the VJP of the chunked form.
+
+    The JAX package has no backward kernel to port here: it trains through
+    ``jax.grad`` of its jnp ``wkv6_chunked``, which XLA differentiates
+    outside any Pallas kernel.  The counterpart is the backward below:
+    ``kernels.ref.wkv6_ref`` (the port's copy of ``wkv6_chunked``) run
+    again from the saved inputs under autograd and differentiated with
+    ``torch.autograd.grad``.  It is the reference's own gradient, not a
+    plain version standing in for a kernel: the forward on the card is
+    always the kernel, and a backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0, chunk, impl):
+        o, s_final = wkv6(r, k, v, logw, u, s0, chunk=chunk, impl=impl)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)    # an unused output: None
+        return o, s_final
+
+    @staticmethod
+    def backward(ctx, do, ds_final):
+        ins = tuple(t.detach().requires_grad_(need) for t, need in zip(
+            ctx.saved_tensors, ctx.needs_input_grad))
+        with torch.enable_grad():
+            outs = ref.wkv6_ref(*ins, chunk=ctx.chunk)
+        pairs = [(o, g) for o, g in zip(outs, (do, ds_final))
+                 if g is not None]
+        wanted = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       wanted, [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and wanted else ())
+        grads = [next(got) if t.requires_grad else None for t in ins]
+        return (*grads, None, None)
+
+
+def wkv6_vjp(r, k, v, logw, u, s0, *, chunk: int = 64,
+             impl: Optional[str] = None):
+    """Differentiable ``wkv6`` (training): the same arguments and results;
+    the gradients of r, k, v, logw, u and s0 come from the VJP of the
+    chunked form (``_WKV6``).  An output that takes no part in the loss
+    (the final state in training) gives no gradient term."""
+    return _WKV6.apply(r, k, v, logw, u, s0, int(chunk), impl)
 
 
 def lamb_leaf_update(w, g, m, v, *, lr, step: int, b1=0.9, b2=0.999,

@@ -176,8 +176,11 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
         dS = P * (dP - delta) * (1 - (capped / softcap)^2 if softcap)
         dQ = dS K * scale           dK = dS^T Q * scale
 
-    A GQA group's dK and dV are summed over its query heads.  Returns
-    (dq, dk, dv) in the dtypes of q, k, v.
+    A GQA group's dK and dV are summed over its query heads.  Query rows
+    are taken in blocks of at most ``QUERY_BLOCK_SCORES`` scores, as the
+    forward takes them (gemma2's 8192-token training shape), dK and dV
+    summed over the blocks in order.  Returns (dq, dk, dv) in the dtypes
+    of q, k, v.
     """
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -187,27 +190,40 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
     dof = dout.float().reshape(b, kvh, g, sq, dh)
     kf, vf = k.float(), v.float()
     delta = (dout.float() * out.float()).sum(-1).reshape(b, kvh, g, sq)
-    raw = torch.einsum("bvgqd,bvkd->bvgqk", qf, kf) * scale
-    capped = softcap * torch.tanh(raw / softcap) if softcap else raw
-    qi = torch.arange(sq, device=q.device)[:, None]
-    ki = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window:
-        mask &= ki > qi - window
-    capped = torch.where(mask, capped, torch.full_like(capped, NEG_INF))
     lsef = lse.float().reshape(b, kvh, g, sq)
-    p = torch.exp(capped - lsef[..., None])
-    p = torch.where(mask, p, torch.zeros_like(p))
-    dv = torch.einsum("bvgqk,bvgqd->bvkd", p, dof)
-    dp = torch.einsum("bvgqd,bvkd->bvgqk", dof, vf)
-    ds = p * (dp - delta[..., None])
-    if softcap:
-        t = torch.where(mask, capped / softcap, torch.zeros_like(capped))
-        ds = ds * (1.0 - t * t)
-    dq = torch.einsum("bvgqk,bvkd->bvgqd", ds, kf) * scale
-    dk = torch.einsum("bvgqk,bvgqd->bvkd", ds, qf) * scale
+    ki = torch.arange(skv, device=q.device)[None, :]
+    rows = max(1, QUERY_BLOCK_SCORES // max(1, b * h * skv))
+    dqs, dk, dv = [], None, None
+    for q0 in range(0, sq, rows):
+        blk = slice(q0, q0 + rows)
+        qb, dob = qf[:, :, :, blk], dof[:, :, :, blk]
+        raw = torch.einsum("bvgqd,bvkd->bvgqk", qb, kf) * scale
+        capped = softcap * torch.tanh(raw / softcap) if softcap else raw
+        del raw
+        qi = torch.arange(q0, min(q0 + rows, sq), device=q.device)[:, None]
+        mask = torch.ones((qi.shape[0], skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= ki <= qi
+        if window:
+            mask &= ki > qi - window
+        capped = torch.where(mask, capped, torch.full_like(capped, NEG_INF))
+        p = torch.exp(capped - lsef[:, :, :, blk, None])
+        p = torch.where(mask, p, torch.zeros_like(p))
+        dvb = torch.einsum("bvgqk,bvgqd->bvkd", p, dob)
+        dp = torch.einsum("bvgqd,bvkd->bvgqk", dob, vf)
+        ds = p * (dp - delta[:, :, :, blk, None])
+        del p, dp
+        if softcap:
+            t = torch.where(mask, capped / softcap, torch.zeros_like(capped))
+            ds = ds * (1.0 - t * t)
+            del t
+        del capped
+        dqs.append(torch.einsum("bvgqk,bvkd->bvgqd", ds, kf) * scale)
+        dkb = torch.einsum("bvgqk,bvgqd->bvkd", ds, qb) * scale
+        dk = dkb if dk is None else dk + dkb
+        dv = dvb if dv is None else dv + dvb
+    dq = torch.cat(dqs, dim=3) if len(dqs) > 1 else dqs[0]
     return (dq.reshape(b, h, sq, dh).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 

@@ -135,6 +135,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--probe-embedding", type=int, default=0, metavar="N",
                     help="only time and compare N embedding backwards")
+    ap.set_defaults(layers=None)     # read by model_config
     args = ap.parse_args(argv)
     if args.deterministic_algorithms:
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -181,7 +182,7 @@ def main(argv=None):
         for run in range(1, args.runs + 1):
             params = api.init_params(cfg, seed=args.seed,
                                      device=args.device)
-            state = ts.init_train_state(params, pol, tcfg)
+            state = ts.init_train_state(params, pol, tcfg, cfg=cfg)
             del params
             groups = state.opt.groups
             losses, sums, report = [], [], None

@@ -4,7 +4,8 @@ BERT step under each of the gradient exchange's cases.
 
   PYTHONPATH=src python -m repro_torch.launch.dp_check \
       [--world 4] [--pods 2] [--backend nccl|gloo] [--share-device] \
-      [--full-width | --d-model 128] [--device cuda|cpu] [--batch 128] \
+      [--full-width [--layers N] | --d-model 128] [--device cuda|cpu] \
+      [--batch 128] \
       [--cases psum ring hierarchical bucketed hierarchical+fp16 \
                psum+int8 bucketed+overlap psum+int8+overlap] \
       [--timeout 300]
@@ -106,6 +107,8 @@ def parse_args(argv=None):
                     help="let ranks share cards (gloo only)")
     ap.add_argument("--full-width", action="store_true",
                     help="bert-large as published (else 2 layers)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="with --full-width: bert-large at this depth")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=128)
@@ -184,7 +187,7 @@ def check_rank(mesh, args, data_dir, out_path):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         state = init_train_state(api.init_params(cfg, seed=SEED, device=dev),
-                                 policy, tcfg, world=mesh.world,
+                                 policy, tcfg, cfg=cfg, world=mesh.world,
                                  rank=mesh.rank)
         step = make_train_step_dp(cfg, tcfg, mesh,
                                   keep_grads=case == "psum" or comp != "none")

@@ -2,7 +2,8 @@
 ``examples/pretrain_bert.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.pretrain_bert \
-      [--steps 120] [--d-model 128] [--full-depth] [--full-width] \
+      [--steps 120] [--d-model 128] [--full-depth] \
+      [--full-width [--layers N]] \
       [--batch 16] [--accum 4] [--precision bf16|f32|f16] \
       [--device cuda|cpu] [--workdir DIR] [--seed 0] [--resume] \
       [--loss-log FILE] [--ckpt-every N] [--dp] \
@@ -42,8 +43,9 @@ crashed run's file.
 The model is ``smoke_variant(bert-large, d_model=--d-model)`` with 2
 layers, or 24 with ``--full-depth``; ``--full-width`` takes bert-large as
 published (24 layers, d_model 1024, 16 heads x 64, d_ff 4096, vocab
-30522).  Weights are random, drawn from ``--seed``, as are the corpus and
-the loader's shuffles.
+30522), or at ``--layers N`` of its layers (the port's own depth cut, as
+``launch/train.py`` has it).  Weights are random, drawn from ``--seed``,
+as are the corpus and the loader's shuffles.
 
 ``--dp`` is the reference example's pure data parallelism
 (``train_step.make_train_step_dp``) with the gradient exchange
@@ -118,6 +120,8 @@ def parse_args(argv=None):
                     help="24 layers (BERT-large depth) instead of 2")
     ap.add_argument("--full-width", action="store_true",
                     help="bert-large as published (implies full depth)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="with --full-width: bert-large at this depth")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--accum", type=int, default=4)
     ap.add_argument("--precision", default="bf16")
@@ -163,6 +167,7 @@ def parse_args(argv=None):
     if args.timing_breakdown and not args.dp:
         raise SystemExit("--timing-breakdown requires --dp (the twin it "
                          "times against swaps the explicit collective out)")
+    model_config(args)    # refuses a --layers it cannot take
     return args
 
 
@@ -183,8 +188,8 @@ def timing_calibration(cfg, tcfg, mesh, policy, state, batch, device,
 
     def median_step_s(twin):
         step = make_train_step_dp(cfg, twin, mesh)
-        st = init_train_state(params, policy, twin, world=mesh.world,
-                              rank=mesh.rank)
+        st = init_train_state(params, policy, twin, cfg=cfg,
+                              world=mesh.world, rank=mesh.rank)
         ts = []
         for i in range(iters + 1):
             _sync(device)
@@ -212,7 +217,14 @@ def dp_mesh(args):
 
 
 def model_config(args):
+    """bert-large as published with ``--full-width`` (at ``--layers N`` of
+    its layers, where given), else the smoke variant."""
     cfg = get_config("bert-large")
+    if args.layers is not None:
+        if not args.full_width or args.layers <= 0:
+            raise SystemExit("--layers takes a positive depth with "
+                             "--full-width")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if not args.full_width:
         cfg = smoke_variant(cfg, d_model=args.d_model, n_blocks=2)
         if args.full_depth:
@@ -282,7 +294,8 @@ def _train(args, mesh):
                               {"bucket_bytes": args.bucket_bytes}))
         if state is None:
             state = init_train_state(
-                params, policy, tcfg, world=1 if mesh is None else mesh.world,
+                params, policy, tcfg, cfg=cfg,
+                world=1 if mesh is None else mesh.world,
                 rank=0 if mesh is None else mesh.rank)
             del params
         timing_calib = None

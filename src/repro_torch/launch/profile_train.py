@@ -22,15 +22,18 @@ backward's time splits: under non-reentrant checkpoint the first
 LayerNorm backward of a block recomputes the block's forward, so
 ``_LayerNormBackward`` holds that recompute, and the span
 ``kernels.ops.LAYERNORM_BWD_SPAN`` inside it holds the LayerNorm backward
-alone.  ``--arch deepseek-7b`` profiles the decoder trainer's step
-instead, at the geometry of ``chip_smoke.py``'s LM phase: full width
-(with ``--full-width``) at ``LM_LAYERS`` layers, one phase of 8 x 1024
-tokens with accumulation 2 (``LM_PHASES``).  Needs a CUDA device.
+alone.  ``--arch`` with a decoder profiles the decoder trainer's step
+instead, at its training path on one card (``LM_PATHS``, the table
+``chip_smoke.py``'s training phases read too): full width (with
+``--full-width``; the CLI's model of ``launch/train.py --full --layers
+N``) at N layers, one phase of B x S tokens with accumulation 2:
+deepseek-7b at 4 layers, 8 x 1024; gemma2-27b at its first (local) layer,
+2 x 8192; qwen1.5-32b at 1 layer and deepseek-coder-33b at 2, 8 x 1024;
+rwkv6-1.6b whole (24 layers), 8 x 1024.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 
 import torch
@@ -40,13 +43,19 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core.amp import make_policy
 from repro_torch.kernels import ops
 from repro_torch.launch.profile_serve import _phase
+from repro_torch.launch.train import model_config as train_model
+from repro_torch.launch.train import parse_args as train_args
 from repro_torch.models import api
 from repro_torch.train.train_step import init_train_state, train_step_fn
 
 SEED = 0
 PHASES = (("phase1", 128, 128), ("phase2", 512, 64))   # name, seq, batch
-LM_PHASES = (("lm", 1024, 8),)
-LM_LAYERS = 4     # the depth of the decoder at full width (one card)
+# a decoder's training path on one card: (depth at full width, global
+# batch, seq, accumulation steps)
+LM_PATHS = {"deepseek-7b": (4, 8, 1024, 2), "gemma2-27b": (1, 2, 8192, 2),
+            "qwen1.5-32b": (1, 8, 1024, 2),
+            "deepseek-coder-33b": (2, 8, 1024, 2),
+            "rwkv6-1.6b": (24, 8, 1024, 2)}
 
 
 def main(argv=None):
@@ -55,34 +64,38 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--precision", default="bf16")
     ap.add_argument("--arch", default="bert-large",
-                    choices=("bert-large", "deepseek-7b"))
+                    choices=("bert-large", *LM_PATHS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card: no CUDA device")
     cfg = get_config(args.arch)
+    accum = 2
     if cfg.is_encoder_only:
         phases = PHASES
         if not args.full_width:
             cfg = smoke_variant(cfg, d_model=128, n_blocks=2)
     else:
-        phases = LM_PHASES
-        cfg = (dataclasses.replace(cfg, n_layers=LM_LAYERS)
-               if args.full_width else smoke_variant(cfg))
+        layers, batch, seq, accum = LM_PATHS[args.arch]
+        phases = (("lm", seq, batch),)
+        cfg = train_model(train_args(
+            ["--arch", args.arch, "--full", "--layers", str(layers)]
+            if args.full_width else ["--arch", args.arch]))
     pol = make_policy(args.precision)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": cfg.arch_id, "full_width": args.full_width,
                       "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                      "precision": args.precision, "accum_steps": 2}),
+                      "precision": args.precision, "accum_steps": accum}),
           flush=True)
     state = None
     for name, seq, batch in phases:
         # a long warmup keeps the learning rate off zero through the run
-        tcfg = TrainConfig(precision=args.precision, accum_steps=2,
+        tcfg = TrainConfig(precision=args.precision, accum_steps=accum,
                            learning_rate=2e-3, warmup_steps=1000,
                            total_steps=10000)
         if state is None:
             state = init_train_state(
-                api.init_params(cfg, seed=SEED, device="cuda"), pol, tcfg)
+                api.init_params(cfg, seed=SEED, device="cuda"), pol, tcfg,
+                cfg=cfg)
         data = api.to_device(api.make_synth_batch(
             SEED, cfg, InputShape(name, seq, batch, "train")), "cuda")
 

@@ -29,19 +29,27 @@ valid one with the stream's cursor (a run crashed by
 uninterrupted one, bit for bit: give both the same ``--steps``), and
 ``--loss-log`` appends ``{"step", "loss"}`` a logged step.
 
-``--smoke`` (the default) takes ``smoke_variant`` of ``--arch``; ``--full``
-takes it as published.  ``--device cuda`` (the default) runs the kernels
-of ``csrc/`` (the flash forward and backward at S^2 > 512^2, LAMB's
-moment kernel); ``--device cpu`` their plain versions.  Weights are
-random, drawn from ``--seed``.
+``--arch`` takes every decoder the port runs: deepseek-7b, the dense
+variants gemma2-27b (sliding-window local and global layers, softcaps,
+post-norms, GeGLU, tied scaled embeddings), qwen1.5-32b (QKV biases) and
+deepseek-coder-33b (56 query heads over 8 KV heads), and rwkv6-1.6b,
+whose ``--seq`` must be at most 64 or a multiple of 64 (``min(64, S)``
+divides S: wkv6's chunk).  ``--smoke`` (the default) takes
+``smoke_variant`` of ``--arch``; ``--full`` takes it as published.
+``--device cuda`` (the default) runs the kernels of ``csrc/`` (the flash
+forward and backward at S^2 > 512^2, LayerNorm and its backward, the
+wkv6 forward, LAMB's moment kernel); ``--device cpu`` their plain
+versions.  Weights are random, drawn from ``--seed``.
 
 One option the reference lacks, ``--layers N``: the model at depth N (full
-width with ``--full``).  deepseek-7b at its 30 layers is ~6.9 B
-parameters, and a training state on one card needs ~18 bytes a parameter
-(fp32 master, m, v and gradient buffer, a bf16 compute copy), ~124 GB
-against the H100's 80 GB; the reference reaches that depth only with its
-optimizer state sharded over a mesh, which the port has not ported.  At
-``--full --layers 4`` (1.65 B parameters) a bf16 step fits one card.
+width with ``--full``), a multiple of the block pattern's length or fewer
+layers than it (gemma2's ``--layers 1`` is its first, local layer alone).
+deepseek-7b at its 30 layers is ~6.9 B parameters, and a training state
+on one card needs ~18 bytes a parameter (fp32 master, m, v and gradient
+buffer, a bf16 compute copy), ~124 GB against the H100's 80 GB; the
+reference reaches that depth only with its optimizer state sharded over a
+mesh, which the port has not ported.  At ``--full --layers 4`` (1.65 B
+parameters) a bf16 step fits one card.
 
 ``--dp`` is the reference's pure data parallelism
 (``train_step.make_train_step_dp``) with the gradient exchange
@@ -89,8 +97,11 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--layers", type=int, default=None,
-                    help="depth of the model (full width with --full); "
-                    "default: the config's")
+                    help="depth of the model (full width with --full): a "
+                    "multiple of the block pattern (gemma2-27b's 2: local, "
+                    "global) or fewer layers than it; deepseek-7b, "
+                    "qwen1.5-32b, deepseek-coder-33b and rwkv6-1.6b take "
+                    "any depth; default: the config's")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -157,15 +168,24 @@ def model_config(args):
     if cfg.is_encoder_only:
         raise SystemExit("use launch/pretrain_bert.py for BERT")
     if args.layers is not None:
-        if args.layers <= 0 or args.layers % len(cfg.block_pattern):
-            raise SystemExit(f"--layers {args.layers} must be a positive "
-                             f"multiple of the block pattern's "
-                             f"{len(cfg.block_pattern)} layers")
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        pattern = cfg.block_pattern
+        if args.layers <= 0 or (args.layers > len(pattern)
+                                and args.layers % len(pattern)):
+            raise SystemExit(f"--layers {args.layers} must be fewer than "
+                             f"the block pattern's {len(pattern)} layers or "
+                             "a positive multiple of them")
+        cfg = dataclasses.replace(
+            cfg, n_layers=args.layers,
+            block_pattern=tuple(pattern[:args.layers]))
     try:
         api.check_trainable(cfg)
     except NotImplementedError as e:
         raise SystemExit(f"{cfg.arch_id}: {e}") from None
+    if any(mixer == "rwkv" for mixer, _ in cfg.layer_kinds()) and \
+            args.seq % min(64, args.seq):
+        raise SystemExit(f"{cfg.arch_id}: --seq {args.seq} must be a "
+                         "multiple of wkv6's 64-token chunk (or at most 64: "
+                         "min(64, S) divides S)")
     return cfg
 
 
@@ -207,7 +227,7 @@ def _train(args, cfg, mesh):
                 device, args.optimizer,
                 f"; data parallel, {args.strategy}, {mesh.describe()}"
                 if mesh else "")
-    state = init_train_state(params, policy, tcfg,
+    state = init_train_state(params, policy, tcfg, cfg=cfg,
                              world=1 if mesh is None else mesh.world,
                              rank=0 if mesh is None else mesh.rank)
     del params

@@ -4,8 +4,10 @@ batches, for BERT (the encoder) and the dense decoder LMs.
 
 The reference's ``ShapeDtypeStruct`` schema becomes ``BatchField`` (shape
 and numpy dtype); synthetic batches are drawn with numpy from a seed and
-moved to the device by ``to_device``.  Decoder training covers the
-attention layers the port runs (``transformer.check_supported``); RWKV,
+moved to the device by ``to_device``.  Decoder training covers every
+layer the port runs (``transformer.check_supported``): dense attention
+(full, sliding-window local and global; grouped-query heads, QKV biases,
+post-block norms, softcaps, tied and scaled embeddings, GeGLU) and RWKV-6.
 MoE, mamba, encoder-decoder and vision models are refused, each naming
 its slice.  The serving and sharding structs belong to later slices.
 """
@@ -38,39 +40,49 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder must be one ``transformer.check_supported`` runs, without an
-    rwkv layer, and without the features of the dense variants, which
-    the port serves but does not train yet."""
-    if cfg.is_encoder_only:
-        return
-    T.check_supported(cfg)
-    if any(mixer == "rwkv" for mixer, _ in cfg.layer_kinds()):
-        raise NotImplementedError(
-            "RWKV training is a later slice: the reference differentiates "
-            "wkv6's jnp form, and the port's wkv6 kernel has no backward")
-    if cfg.n_heads != cfg.n_kv_heads or cfg.sliding_window or \
-            cfg.qkv_bias or cfg.post_block_norm or cfg.tie_embeddings or \
-            cfg.scale_embeddings or cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(
-            "training the dense decoder variants (grouped-query attention, "
-            "sliding windows, QKV biases, post-norms, tied or scaled "
-            "embeddings, GeGLU) is a later slice: gemma2-27b and "
-            "deepseek-coder-33b wait for the GQA flash backward")
+    decoder must be one ``transformer.check_supported`` runs."""
+    if not cfg.is_encoder_only:
+        T.check_supported(cfg)
+
+
+class _MeanNLL(torch.autograd.Function):
+    """The mean NLL of ``labels`` under fp32 ``logits`` (..., V): the
+    forward is ``log_softmax``, the gather and the mean; the backward
+    writes (softmax(logits) - one-hot(labels)) x g / N into one new
+    tensor.  Autograd through those three ops would hold the
+    log-probabilities and, in the backward, the gather's dense gradient,
+    an exponent and the result at once: four logits-sized tensors, 8.4 GB
+    each for gemma2's 256000-wide vocabulary at S 8192.  Here the saved
+    logits and the gradient are two."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        ctx.save_for_backward(logits, labels)
+        return nll.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels = ctx.saved_tensors
+        grad = torch.softmax(logits, dim=-1)
+        grad.scatter_add_(-1, labels[..., None], torch.full(
+            labels[..., None].shape, -1.0, dtype=grad.dtype,
+            device=grad.device))
+        return grad.mul_(g / labels.numel()), None
 
 
 def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
                   remat: bool = False, impl=None):
     """Next-token cross-entropy of a decoder (the reference's
     ``lm_train_loss``): inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``,
-    ``log_softmax`` of the logits in fp32, the mean NLL.  Returns (loss,
-    {"lm_loss", "router_aux"}), 0-d float32 tensors; ``router_aux`` is 0 for
-    a dense model (no MoE layer the port runs)."""
+    ``log_softmax`` of the logits in fp32, the mean NLL (``_MeanNLL``).
+    Returns (loss, {"lm_loss", "router_aux"}), 0-d float32 tensors;
+    ``router_aux`` is 0 for a dense model (no MoE layer the port runs)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
     logits = T.apply_lm(params, inputs, cfg, policy, remat=remat, impl=impl)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    loss = nll.mean()
+    loss = _MeanNLL.apply(logits.float(), labels)
     return loss, {"lm_loss": loss.detach(),
                   "router_aux": torch.zeros((), dtype=torch.float32,
                                             device=loss.device)}

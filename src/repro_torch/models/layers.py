@@ -188,21 +188,25 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     layout, so no transpose is copied.  A call that autograd records
     (training) goes through ``kops.flash_attention_vjp``: the same forward
     kernel, paired with the flash backward kernels, as the reference's
-    custom VJP pairs its own; the backward takes equal query and KV head
-    counts only.  A call autograd does not record (serving) writes into
-    ``out=`` and saves nothing.  Otherwise the reference runs its jnp chunk
-    scan, which is the same math as ``naive_attention``; the port has no
-    counterpart of that scan and takes ``naive_attention``.
+    custom VJP pairs its own.  The backward kernels take equal query and
+    KV head counts, so a grouped-query call first expands K and V over the
+    group (query head h reads KV head h // g, as ``jnp.repeat`` does before
+    the reference's pair): autograd then sums dK and dV over the group, a
+    fixed-order sum.  A call autograd does not record (serving) reads GQA
+    in the forward kernel natively, writes into ``out=`` and saves nothing.
+    Otherwise the reference runs its jnp chunk scan, which is the same math
+    as ``naive_attention``; the port has no counterpart of that scan and
+    takes ``naive_attention``.
     """
     sq, skv = q.shape[1], k.shape[1]
     t = lambda x: x.transpose(1, 2)  # (B,S,H,D) <-> (B,H,S,D) views
     if sq == skv and sq % 128 == 0 and torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
-        if q.shape[2] != k.shape[2]:
-            raise NotImplementedError(
-                "training through grouped-query attention needs the GQA "
-                "flash backward, a later slice (the flash backward takes "
-                "equal query and KV head counts)")
+        b, _, h, dh = q.shape
+        kvh = k.shape[2]
+        if h != kvh:
+            k, v = (x[:, :, :, None].expand(b, skv, kvh, h // kvh, dh)
+                    .reshape(b, skv, h, dh) for x in (k, v))
         return t(kops.flash_attention_vjp(t(q), t(k), t(v), causal=causal,
                                           window=window, softcap=softcap,
                                           impl=impl))

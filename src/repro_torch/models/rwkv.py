@@ -10,7 +10,10 @@ with a per-channel, per-token decay w_t = exp(-exp(decay(x_t))) in (0, 1).
 
 An unmasked prefill runs the chunk-parallel form through ``kops.wkv6``:
 the hand-written kernel for a CUDA tensor, ``kernels.ref.wkv6_ref`` (the
-reference's ``wkv6_chunked``) for a CPU tensor.  A decode step (S = 1) and
+reference's ``wkv6_chunked``) for a CPU tensor.  A call autograd records
+(training) takes ``kops.wkv6_vjp``: the same forward, with the VJP of the
+chunked form as its backward, the gradient the reference takes through
+``jax.grad`` of ``wkv6_chunked``.  A decode step (S = 1) and
 a masked prefill (``valid_len`` given, as the slot prefill always passes)
 run ``wkv6_sequential``, the reference's step-by-step oracle: pad steps are
 the exact identity (w = 1, k = 0), so the carried state does not depend on
@@ -182,6 +185,11 @@ def apply_time_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
         torch.zeros((b, h, hs, hs), dtype=f32, device=x.device)
     if s == 1 or valid_len is not None:
         o, s_final = wkv6_sequential(r, k, v, logw, params["u"], s0)
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, params["u"], s0)):
+        # training: the kernel forward with the chunked form's VJP
+        o, s_final = kops.wkv6_vjp(r, k, v, logw, params["u"], s0,
+                                   impl=impl)
     else:
         o, s_final = kops.wkv6(r, k, v, logw, params["u"], s0, impl=impl)
 

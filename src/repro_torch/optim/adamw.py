@@ -17,10 +17,10 @@ from repro_torch.optim.lamb import LambState, lamb_init
 from repro_torch.utils import Path
 
 
-def adamw_init(params: dict) -> LambState:
+def adamw_init(params: dict, cfg=None) -> LambState:
     """``lamb_init``: the same state, so checkpoints keep the reference's
     layout whichever optimizer wrote them."""
-    return lamb_init(params)
+    return lamb_init(params, cfg)
 
 
 def adamw_update(grads: Dict[Path, torch.Tensor], state: LambState, *,

@@ -35,9 +35,10 @@ class LambState:
     v: Dict[Path, torch.Tensor]          # fp32 second moment
 
 
-def lamb_init(params: dict) -> LambState:
-    """fp32 master copy of a parameter tree and zero moments."""
-    groups = LeafGroups(params)
+def lamb_init(params: dict, cfg=None) -> LambState:
+    """fp32 master copy of a parameter tree and zero moments, grouped as
+    the reference stacks model ``cfg``'s (``LeafGroups``)."""
+    groups = LeafGroups(params, cfg)
     master = groups.flatten(params, torch.float32)
     zeros = lambda: {p: torch.zeros_like(t) for p, t in master.items()}
     return LambState(0, groups, master, zeros(), zeros())

@@ -214,13 +214,16 @@ class ResidualRows:
         return self.state.checkpoint_leaves(self.rows)
 
 
-def init_train_state(params: dict, policy: Policy, tcfg: TrainConfig,
-                     world: int = 1, rank: int = 0) -> TrainState:
-    """fp32 master weights and zero moments from a parameter tree (any
-    dtype; copied), the policy's initial loss scale and, with compression
-    on, a zero residual for rank ``rank`` of ``world``."""
+def init_train_state(params: dict, policy: Policy, tcfg: TrainConfig, *,
+                     cfg: Optional[ModelConfig], world: int = 1,
+                     rank: int = 0) -> TrainState:
+    """fp32 master weights and zero moments from model ``cfg``'s parameter
+    tree (any dtype; copied; ``cfg`` None for a tree that is no model),
+    grouped as the reference stacks it (``LeafGroups``), the policy's
+    initial loss scale and, with compression on, a zero residual for rank
+    ``rank`` of ``world``."""
     tcfg.check_supported()
-    opt = lamb_init(params)
+    opt = lamb_init(params, cfg)
     err = None
     if tcfg.grad_compression != "none":
         err = {p: torch.zeros_like(t) for p, t in opt.master.items()}

@@ -7,9 +7,10 @@ run in the reference's order.
 
 ``LeafGroups`` lays a parameter tree out as the reference stacks it.  The
 reference keeps each leaf of ``params["blocks"]`` stacked over the layers
-(one (L, ...) array per leaf name); the port keeps a list of per-layer
-dicts.  A group is one leaf name: the leaf of every layer for a block leaf,
-the one leaf otherwise.  Each group lives in one flat buffer, and the
+(one (L, ...) array per leaf name and block-pattern position); the port
+keeps a list of per-layer dicts.  A group is one leaf name: the leaf of
+every layer at one pattern position for a block leaf, the one leaf
+otherwise.  Each group lives in one flat buffer, and the
 per-layer tensors are views of it, so a whole group is one tensor for the
 optimizer (the LAMB trust ratio is taken over it, as over a stacked leaf)
 and one launch for a kernel.
@@ -72,17 +73,26 @@ def all_finite(tree) -> torch.Tensor:
 
 class LeafGroups:
     """The grouping of a parameter tree's leaves by name (see the module
-    docstring).  ``paths`` are in the reference's flatten order; a block
-    leaf's path starts with "blocks" and names no layer."""
+    docstring).  ``paths`` are in the reference's flatten order.  A block
+    leaf's path starts with "blocks" and names no layer; for a decoder
+    ``cfg`` whose block pattern has P > 1 positions (gemma2's local and
+    global layers: 2) it names the position, ``("blocks", "1", "mixer",
+    "wq")``, since the reference stacks each position's layers apart:
+    layer i is block i // P at position i % P.  (Positions sort as the
+    reference's tuple while there are at most 10: jamba's 8 are the
+    most.)  Without ``cfg`` (BERT, or a tree that is no model) the blocks
+    are one position."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, cfg=None):
         # a decoder's tree (transformer.init_model: ... "final_norm",
         # "lm_head") is stacked by the reference per block_pattern position
-        # (a tuple of dicts), BERT's in one dict; the port trains decoders
-        # of one position, whose block leaves the reference names under
-        # position 0 ("blocks/0/mixer/wq")
+        # (a tuple of dicts), BERT's in one dict; a decoder of one position
+        # has its block leaves named under position 0 ("blocks/0/mixer/wq")
         self._block_name = ("blocks", "0") if "final_norm" in tree \
             else ("blocks",)
+        self.positions = positions = (
+            1 if cfg is None or cfg.is_encoder_only
+            else len(cfg.block_pattern))
         self.shapes: Dict[Path, torch.Size] = {}
         self.layers: Dict[Path, int] = {}     # 0 for a leaf outside blocks
         for path, leaf in _walk(tree, ()):
@@ -91,19 +101,31 @@ class LeafGroups:
             self.shapes[path] = leaf.shape
             self.layers[path] = 0
         blocks = tree.get("blocks", [])
-        for layer in blocks:
-            for path, leaf in _walk(layer, ("blocks",)):
+        if len(blocks) % positions:
+            raise ValueError(f"{len(blocks)} layers do not tile a "
+                             f"{positions}-position block pattern")
+        for i, layer in enumerate(blocks):
+            for path, leaf in _walk(layer, self._prefix(i % positions)):
                 if self.shapes.setdefault(path, leaf.shape) != leaf.shape:
                     raise ValueError(f"{path}: layers differ in shape")
-                self.layers[path] = len(blocks)
+                self.layers[path] = len(blocks) // positions
         self.paths: List[Path] = sorted(self.shapes)
+
+    def _prefix(self, pos: int) -> Path:
+        return ("blocks",) if self.positions == 1 else ("blocks", str(pos))
+
+    def _split(self, path: Path) -> Tuple[int, Path]:
+        """(position, the leaf's path inside its layer) of a block path."""
+        if self.positions == 1:
+            return 0, path[1:]
+        return int(path[1]), path[2:]
 
     def name(self, path: Path) -> str:
         """The reference's key path of a group's (stacked) leaf, as its
         checkpoints name it: ``blocks/mixer/wq`` for BERT,
-        ``blocks/0/mixer/wq`` for a decoder, ``embed/tok`` outside the
-        blocks."""
-        if self.layers[path]:
+        ``blocks/<position>/mixer/wq`` for a decoder, ``embed/tok``
+        outside the blocks."""
+        if self.layers[path] and self.positions == 1:
             path = self._block_name + path[1:]
         return "/".join(path)
 
@@ -122,15 +144,17 @@ class LeafGroups:
     def tree(self, flats: Dict[Path, torch.Tensor]) -> dict:
         """The parameter tree whose leaves are views of ``flats``."""
         out: dict = {}
-        n_layers = max(self.layers.values(), default=0)
+        n_layers = max(self.layers.values(), default=0) * self.positions
         if n_layers:
             out["blocks"] = [{} for _ in range(n_layers)]
         for path in self.paths:
             flat, shape = flats[path], self.shapes[path]
             if self.layers[path]:
+                pos, leaf = self._split(path)
                 per = flat.view(self.layers[path], -1)
-                for i, layer in enumerate(out["blocks"]):
-                    _set(layer, path[1:], per[i].view(shape))
+                for i in range(self.layers[path]):
+                    _set(out["blocks"][i * self.positions + pos], leaf,
+                         per[i].view(shape))
             else:
                 _set(out, path, flat.view(shape))
         return out
@@ -145,7 +169,9 @@ class LeafGroups:
 
     def _leaves(self, tree: dict, path: Path) -> List[torch.Tensor]:
         if self.layers[path]:
-            return [_get(layer, path[1:]) for layer in tree["blocks"]]
+            pos, leaf = self._split(path)
+            return [_get(layer, leaf)
+                    for layer in tree["blocks"][pos::self.positions]]
         return [_get(tree, path)]
 
 

@@ -82,7 +82,8 @@ def test_three_steps_match_the_reference_train_step(optimizer, accum):
     jpol, pol = jamp.make_policy("f32"), amp.make_policy("f32")
     jstate = jts.init_train_state(jparams, jpol, jtcfg)
     state = ts.init_train_state(
-        bridge.params_from_jax(np_params, CFG, device="cpu"), pol, tcfg)
+        bridge.params_from_jax(np_params, CFG, device="cpu"), pol, tcfg,
+        cfg=CFG)
     jstep = jax.jit(partial(jts.train_step_fn, cfg=JCFG, tcfg=jtcfg,
                             policy=jpol))
     start = {p: t.clone() for p, t in
@@ -219,7 +220,7 @@ def ref_state():
 def _bridged(jstate, tcfg):
     state = ts.init_train_state(
         bridge.params_from_jax(jstate.opt.master, CFG, device="cpu"),
-        amp.make_policy("f32"), tcfg)
+        amp.make_policy("f32"), tcfg, cfg=CFG)
     groups = state.opt.groups
     state.opt.m = _flat(groups, jstate.opt.m)
     state.opt.v = _flat(groups, jstate.opt.v)
@@ -233,7 +234,8 @@ def _bridged(jstate, tcfg):
 
 def _other_state(tcfg):
     params = api.init_params(CFG, seed=5, device="cpu")
-    return ts.init_train_state(params, amp.make_policy("f32"), tcfg)
+    return ts.init_train_state(params, amp.make_policy("f32"), tcfg,
+                               cfg=CFG)
 
 
 def _step(state, tcfg, seed=9):

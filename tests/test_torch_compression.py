@@ -105,7 +105,8 @@ def test_single_card_step_refuses_compression_and_overlap(kw, name):
     tcfg = TrainConfig(precision="f32", accum_steps=1, **kw)
     pol = make_policy("f32")
     state = ts.init_train_state(api.init_params(W.DP_CFG, seed=0,
-                                                device="cpu"), pol, tcfg)
+                                                device="cpu"), pol, tcfg,
+                                cfg=W.DP_CFG)
     batch = api.to_device(W.dp_batch(0), "cpu")
     with pytest.raises(ValueError, match=name) as got:
         ts.train_step_fn(state, batch, cfg=W.DP_CFG, tcfg=tcfg, policy=pol)

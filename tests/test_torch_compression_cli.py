@@ -47,6 +47,18 @@ def test_the_flags_are_refused_without_dp(flag):
     pretrain_bert.parse_args(["--device", "cpu", "--dp", *flag])
 
 
+@pytest.mark.parametrize("argv", [["--layers", "4"],
+                                  ["--full-width", "--layers", "0"]])
+def test_the_depth_cut_takes_full_width_only(argv):
+    """``--layers N`` (the compressed data-parallel check's depth cut) is
+    bert-large's width at N layers: refused without ``--full-width`` or
+    below one layer."""
+    with pytest.raises(SystemExit, match="--layers takes a positive depth"):
+        pretrain_bert.parse_args(["--device", "cpu", *argv])
+    assert pretrain_bert.parse_args(
+        ["--device", "cpu", "--full-width", "--layers", "4"]).layers == 4
+
+
 def _cli(tmp, tag, faults="", resume=False):
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     env.pop("REPRO_FAULTS", None)

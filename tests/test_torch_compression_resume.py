@@ -112,8 +112,8 @@ def _port_state(params, rank, world=2, case=REF_CASE):
     tcfg = W.step_case(**CASES[case])
     return ts.init_train_state(W.bridge.params_from_jax(params, W.DP_CFG,
                                                         device="cpu"),
-                               make_policy("f32"), tcfg, world=world,
-                               rank=rank)
+                               make_policy("f32"), tcfg, cfg=W.DP_CFG,
+                               world=world, rank=rank)
 
 
 def test_the_references_checkpoint_restores_into_each_rank(runs):

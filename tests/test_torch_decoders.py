@@ -26,7 +26,6 @@ from repro_torch.configs import ARCHS as PORT_ARCHS
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.kernels import ops as kops
-from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -389,15 +388,6 @@ def test_rings_refuse_a_paged_cache():
     with pytest.raises(ValueError, match="sliding-window"):
         T.init_decode_state(cfg, 2, 32, paged=T.PagedCacheConfig(
             page_size=4, num_pages=17), device="cpu")
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_training_the_variants_is_refused(arch):
-    """Serving only: training waits for a later slice (gemma2 and the
-    coder for the GQA flash backward)."""
-    cfg = smoke_variant(get_config(arch))
-    with pytest.raises(NotImplementedError, match="dense decoder variants"):
-        api.make_loss_fn(cfg, POL)
 
 
 @pytest.mark.parametrize("change,match", [

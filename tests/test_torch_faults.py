@@ -320,7 +320,7 @@ def _bert_state(precision, seed=0, optimizer="lamb"):
                        total_steps=10, optimizer=optimizer)
     pol = amp.make_policy(precision)
     params = api.init_params(CFG, seed=seed, device="cpu")
-    return ts.init_train_state(params, pol, tcfg), tcfg, pol
+    return ts.init_train_state(params, pol, tcfg, cfg=CFG), tcfg, pol
 
 
 def _bert_batches(n, seed=1):
@@ -485,7 +485,8 @@ def ref_state():
                        total_steps=20)
     pol = amp.make_policy("f32")
     state = ts.init_train_state(
-        bridge.params_from_jax(master, CFG, device="cpu"), pol, tcfg)
+        bridge.params_from_jax(master, CFG, device="cpu"), pol, tcfg,
+        cfg=CFG)
     groups = state.opt.groups
     state.opt.m = groups.flatten(bridge.params_from_jax(m, CFG, device="cpu"))
     state.opt.v = groups.flatten(bridge.params_from_jax(v, CFG, device="cpu"))
@@ -565,7 +566,8 @@ def test_restore_refuses_another_structure_and_writes_nothing(tmp_path,
     jckpt.save_checkpoint(str(tmp_path), 7, jstate)
     other = smoke_variant(get_config("bert-large"), d_model=32, n_blocks=2)
     state = ts.init_train_state(api.init_params(other, seed=0, device="cpu"),
-                                amp.make_policy("f32"), TrainConfig())
+                                amp.make_policy("f32"), TrainConfig(),
+                                cfg=other)
     snap = _snapshot(state)
     with pytest.raises(FileNotFoundError, match="restorable"):
         restore_checkpoint(str(tmp_path), state)

@@ -189,6 +189,18 @@ def test_every_width_taken_before_is_taken(no_device, library, dtype):
         assert 32 * nv >= lanes and (nv == 1 or 16 * nv < lanes)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_the_backward_takes_rows_of_2048_values(no_device, library, dtype):
+    """rwkv6-1.6b's LayerNorms (d_model 2048) train in every dtype: the
+    backward takes rows of up to 2048 values, 16 vectors a lane in f32 (an
+    instance of its own), 8 in 16 bits."""
+    x = torch.zeros((3, 2048), dtype=dtype)
+    tln.layernorm_bwd(x, x, torch.ones(2048, dtype=dtype), torch.zeros(3),
+                      torch.zeros(3))
+    assert library[-1][1][2] == {4: 16, 2: 8}[x.element_size()]
+
+
 def _refusals(dtype):
     """(name, call, error, message) of every input the wrappers refuse."""
     per = 16 // torch.empty((), dtype=dtype).element_size()
@@ -200,7 +212,7 @@ def _refusals(dtype):
     off = torch.zeros(4 * d + 1, dtype=dtype)[1:].view(4, d)
     fwd, bwd = tln.layernorm, tln.layernorm_bwd
     wide_f = torch.zeros((1, 32 * 32 * per + per), dtype=dtype)
-    wide_b = torch.zeros((1, 32 * 8 * per + per), dtype=dtype)
+    wide_b = torch.zeros((1, 2048 + per), dtype=dtype)
     return [
         ("float64 x", lambda: fwd(x.double(), sc.double(), sc.double()),
          TypeError, "dtype"),

@@ -8,6 +8,8 @@ FlashAttention-2 custom VJP, ``layers._flash_fn``).  Also the twin of
 ``tests/test_cli.py::test_model_with_pallas_attention_backend`` (a model
 forward and gradient at S 1024 through the flash route) and the
 refusals of what decoder training does not cover yet."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,6 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core import amp
 from repro_torch.kernels import ops
 from repro_torch.models import api
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -145,24 +146,17 @@ def test_model_forward_and_gradient_through_the_flash_route(monkeypatch):
 
 
 def test_decoder_training_refuses_what_later_slices_bring():
-    """RWKV training (no wkv6 backward), grouped-query attention through
-    the flash route (no GQA flash backward) and encoder-decoder models are
-    refused, each naming what it waits for."""
-    rwkv = smoke_variant(get_config("rwkv6-1.6b"))
+    """A model with MoE layers (the MoE family's slice comes next) and an
+    encoder-decoder model are refused, each naming what it waits for."""
     pol = amp.make_policy("f32")
-    for fn in (lambda: api.make_loss_fn(rwkv, pol),
-               lambda: api.init_params(rwkv, device="cpu"),
+    moe = smoke_variant(get_config("deepseek-7b"))
+    moe = dataclasses.replace(moe, block_pattern=(("attn", "moe"),))
+    for fn in (lambda: api.make_loss_fn(moe, pol),
+               lambda: api.init_params(moe, device="cpu"),
                lambda: api.train_batch_struct(
-                   rwkv, InputShape("t", 64, 2, "train"))):
-        with pytest.raises(NotImplementedError, match="RWKV training"):
+                   moe, InputShape("t", 64, 2, "train"))):
+        with pytest.raises(NotImplementedError, match="MoE"):
             fn()
-    import dataclasses
     whisper_like = dataclasses.replace(CFG, is_encoder_decoder=True)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         api.make_loss_fn(whisper_like, pol)
-    q = torch.randn(1, 128, 4, 32, requires_grad=True)
-    kv = torch.randn(1, 128, 2, 32)
-    with pytest.raises(NotImplementedError, match="GQA flash backward"):
-        L.chunked_attention(q, kv, kv, causal=True)
-    with torch.no_grad():   # serving: the forward alone takes GQA
-        assert L.chunked_attention(q, kv, kv, causal=True).shape == q.shape

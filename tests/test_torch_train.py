@@ -115,7 +115,8 @@ def test_three_steps_match_the_reference_train_step(accum, precision):
     jpol, pol = jamp.make_policy(precision), amp.make_policy(precision)
     jstate = jts.init_train_state(jparams, jpol, jtcfg)
     state = ts.init_train_state(
-        bridge.params_from_jax(np_params, CFG, device="cpu"), pol, tcfg)
+        bridge.params_from_jax(np_params, CFG, device="cpu"), pol, tcfg,
+        cfg=CFG)
     if precision == "f16":
         _f16_steps(jstate, state, jtcfg, tcfg, jpol, pol)
         return
@@ -210,7 +211,7 @@ def test_a_non_finite_step_is_skipped_and_backs_off_the_scale():
     tcfg = TrainConfig(precision="f16", accum_steps=1, warmup_steps=2,
                        total_steps=3)
     params = api.init_params(CFG, seed=3, device="cpu")
-    state = ts.init_train_state(params, pol, tcfg)
+    state = ts.init_train_state(params, pol, tcfg, cfg=CFG)
     assert state.loss_scale == amp.LossScaleState(2.0 ** 15, 0, 0)
     state.loss_scale = amp.LossScaleState(2.0 ** 24, 5, 0)
     before = {n: {p: t.clone() for p, t in getattr(state.opt, n).items()}

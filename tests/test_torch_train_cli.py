@@ -9,16 +9,17 @@
   newest checkpoint 3) or ``torn_at=6,crash_at=6`` (the torn checkpoint 6
   skipped), then ``--resume``: every logged loss has the uninterrupted
   run's float32 bits;
-* the twin of ``tests/test_cli.py::test_train_cli_dp_ring`` on four gloo
-  ranks through torchrun, on deepseek-7b where the reference runs
-  rwkv6-1.6b: the port does not train RWKV yet (no wkv6 backward, in the
-  reference's Pallas kernels either).  Every rank ends with the same state
-  digest and loss bits, and the ring's losses stay within 1e-5 of a
-  serial run's (the ring adds in another order than the one process);
+* the ring run of ``tests/test_cli.py::test_train_cli_dp_ring`` on four
+  gloo ranks through torchrun, on deepseek-7b (the twin on the
+  reference's rwkv6-1.6b is ``tests/test_torch_rwkv_train.py``).  Every
+  rank ends with the same state digest and loss bits, and the ring's
+  losses stay within 1e-5 of a serial run's (the ring adds in another
+  order than the one process);
 * ``--dp`` at world 1 with int8 compression, the overlapped drain and
   the timing breakdown, in process;
-* the refusals: ``--pure-dp``, an RWKV arch, an unknown optimizer, BERT,
-  the exchange flags without ``--dp``.
+* the refusals: ``--pure-dp``, an RWKV ``--seq`` that wkv6's chunk does
+  not divide, an unknown optimizer, BERT, the exchange flags without
+  ``--dp``.
 
 Every subprocess has a timeout; one that outlives it is killed with its
 process group."""
@@ -198,7 +199,7 @@ def test_dp_world_1_takes_the_exchange_options(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--pure-dp"], "sharding slice"),
-    (["--arch", "rwkv6-1.6b"], "RWKV training is a later slice"),
+    (["--arch", "rwkv6-1.6b", "--seq", "100"], "multiple of wkv6's"),
     (["--arch", "bert-large"], "pretrain_bert"),
     (["--grad-compression", "int8"], "requires --dp"),
     (["--overlap"], "requires --dp"),

@@ -84,7 +84,7 @@ def dp_state(params_path, precision="f32"):
     params = dict(np.load(params_path, allow_pickle=True))["params"].item()
     return ts.init_train_state(
         bridge.params_from_jax(params, DP_CFG, device="cpu"),
-        make_policy(precision), dp_tcfg("psum", precision))
+        make_policy(precision), dp_tcfg("psum", precision), cfg=DP_CFG)
 
 
 def state_arrays(state, m) -> dict:
@@ -491,7 +491,8 @@ def run_case(mesh, params, batches, tcfg, state=None):
     ``state``); returns (state, losses, bucket start orders)."""
     if state is None:
         state = ts.init_train_state(params, make_policy("f32"), tcfg,
-                                    world=mesh.world, rank=mesh.rank)
+                                    cfg=DP_CFG, world=mesh.world,
+                                    rank=mesh.rank)
     step = ts.make_train_step_dp(DP_CFG, tcfg, mesh)
     losses, orders = [], []
     for b in batches:
@@ -552,7 +553,8 @@ def resume_rank(mesh, params_path, batches_path, out_dir, cases):
             save_checkpoint(str(ckpt), 2, ts.ResidualRows(state, rows))
         mesh.barrier()
         fresh = ts.init_train_state(params, make_policy("f32"), tcfg,
-                                    world=mesh.world, rank=mesh.rank)
+                                    cfg=DP_CFG, world=mesh.world,
+                                    rank=mesh.rank)
         fresh, at = restore_checkpoint(str(ckpt), fresh)
         assert at == 2
         restored = {"digest": fresh.digest(),
@@ -669,7 +671,8 @@ def residual_loop_rank(mesh, case, out_dir):
     logging.getLogger("repro_torch.train").addHandler(Keep())
     tcfg = TrainConfig(precision="f32", grad_compression="int8")
     state = ts.init_train_state({"w": torch.zeros(4)}, make_policy("f32"),
-                                tcfg, world=mesh.world, rank=mesh.rank)
+                                tcfg, cfg=None, world=mesh.world,
+                                rank=mesh.rank)
 
     def step(state, batch):
         C.psum(torch.ones(1), mesh.group)
@@ -695,3 +698,18 @@ def residual_loop_rank(mesh, case, out_dir):
     result["warnings"] = records
     (Path(out_dir) / f"{case}_rank{mesh.rank}.json").write_text(
         json.dumps(result))
+
+
+# ---------------------------------------------------------------------------
+# the decoder trainer's CLI on gloo ranks (``tests/test_torch_rwkv_train.py``)
+# ---------------------------------------------------------------------------
+
+def train_cli_rank(mesh, argv, out_dir):
+    """``launch/train.py`` with ``argv`` (which holds ``--dp``) on this
+    rank of ``mesh``: writes the rank's state digest and loss bits."""
+    from repro_torch.launch import train as TR
+    args = TR.parse_args(list(argv))
+    _, state, history = TR._train(args, TR.model_config(args), mesh)
+    (Path(out_dir) / f"cli_rank{mesh.rank}.json").write_text(json.dumps(
+        {"digest": state.digest(),
+         "losses": [r["loss"].hex() for r in history]}))
