@@ -14,8 +14,8 @@
    GQA at every head dim, S 256, 200, 130 (across a 128-row q tile) and 17
    (under one), Dh 32, 64 and 128, and the model's (B, S, H, Dh) layout read
    through transposed views with ``out=`` into one; paged
-   decode with page_size 16 over f32, bf16 and int8 pages, H/KV 1, 2, 4,
-   7 and 8, at B = 5 and B = 8 with one empty slot and one slot whose table
+   decode with page_size 16 over f32, bf16 and int8 pages, H/KV 1, 2, 3,
+   4, 7 and 8 (3 and 8 at Dh 64 and 128), at B = 5 and B = 8 with one empty slot and one slot whose table
    points at the trash page, at tables the split kernel splits (one slot
    of 600-1040 tokens, two of 2000-4800 in 300-page tables), at short
    contexts (B = 4 slots of 16-64 tokens in the serve tables) and at the
@@ -86,6 +86,27 @@
    the output), and paged decode at group 7 (bf16 and int8 pages, the
    serve geometry, split kernel, the same bits on relaunch).  No single
    PyTorch call computes either (SDPA has no softcap).
+4c. MoE decoders phase, full width, bf16 weights seeded on the card:
+   granite-moe-3b-a800m whole (32 layers, 40 experts top-8, 24 query heads
+   over 8 KV heads at Dh 64) and qwen3-moe-30b-a3b at 8 of its 48 layers
+   (128 experts top-8, query/key norms, 32 over 4 at Dh 128), each served
+   as deepseek-7b is (``serve_run``: the 8-request trace, batch 4, bucket
+   1024, pages of 16) in "paged" and "paged_int8" with
+   ``moe_impl="dense"``: paged decode on the split kernel at G 3 and G 8
+   (counted by group), the flash forward at every slot prefill (granite's
+   causal at Dh 64); then ``path_parity`` in both modes: every flash and
+   paged call held, logits kernels vs plain within
+   ``LOGIT_REL_L2_BOUND``, and the share of identical (token, layer, slot)
+   routing choices of the two paths logged (and of choices found in the
+   other path's top-k set); the same in f32 at 2 layers of each.  granite's capacity path
+   (``moe_impl="a2a"``) on the same request: at capacity_factor = E no
+   drop and the logits within the bf16 bound of ``dense``'s; at the
+   config's 1.25 finite, its drops counted; and one "paged" scheduler run
+   under it.  Then paged decode at G 3 and G 8 (bf16 and int8 pages, the
+   serve geometry) and the causal Dh-64 flash forward at (1, 24, 1024, 64)
+   over 8 KV heads held and timed beside the plain version, the bound, a
+   ``torch.sum`` of the same bytes (paged) and SDPA over the expanded heads
+   (flash); those five rows join the kernel JSON line.
 5. Training kernel phase: the kernels of the BERT training path against
    their plain versions -- the flash backward (pre-pass, main pass and, in
    16 bits over more than one 128-key tile, the post-pass that adds the dQ
@@ -287,7 +308,8 @@ the build and the resume phase, ``--only dp`` after the build, step 8's
 bf16 run (the losses (a) is held to) and the data-parallel phase, ``--only
 lm`` after the build and the decoder-LM phase, ``--only serve`` after the
 build and the deepseek serve phase (step 4), ``--only decoders`` after the
-build and the dense decoder variants phase (step 4b), ``--only
+build and the dense decoder variants phase (step 4b), ``--only moe``
+after the build and the MoE decoders phase (step 4c), ``--only
 variants_train`` and ``--only rwkv_train`` after the build and step 12 or
 13 (exit 2, no result line in each case); without arguments everything
 runs.
@@ -716,14 +738,15 @@ def paged_phase(ops, timer):
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     mp = -(-MAX_LEN // PAGE_SIZE)
-    # small cases: GQA groups (H/KV 2, 4, 8, 7 and 1), f32 and bf16, float
-    # and int8 pages
+    # small cases: GQA groups (H/KV 2, 4, 8, 7, 3 and 1), f32 and bf16,
+    # float and int8 pages
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for quant in (False, True):
             for (h, kvh, dh) in ((8, 4, 64), (8, 2, 128), (16, 2, 64),
                                  (14, 2, 128), (7, 1, 64), (4, 4, 128),
-                                 (4, 4, 64)):
+                                 (4, 4, 64), (6, 2, 64), (6, 2, 128),
+                                 (16, 2, 128)):
                 for softcap in (0.0, 30.0):
                     q, kp, vp, bt, kvl, sc = paged_inputs(
                         gen, edge_lens(cases, 5, 6), h=h, kvh=kvh, dh=dh,
@@ -1073,12 +1096,12 @@ def wkv6_phase(ops, timer):
 # serve phase
 # ---------------------------------------------------------------------------
 
-def serve_run(T, ops, sched_mod, cfg, params, pol, mode):
+def serve_run(T, ops, sched_mod, cfg, params, pol, mode, moe_impl="dense"):
     rng = np.random.default_rng(SEED + 2)
     sched = sched_mod.ContinuousScheduler(
         params, cfg, pol, batch=BATCH, max_len=MAX_LEN,
         prefill_len=PREFILL_LEN, cache_mode=mode, page_size=PAGE_SIZE,
-        cache_dtype=torch.bfloat16, device=DEVICE)
+        cache_dtype=torch.bfloat16, moe_impl=moe_impl, device=DEVICE)
     for rid in range(N_REQUESTS):
         n = int(rng.integers(600, PREFILL_LEN + 1))
         sched.submit(sched_mod.Request(
@@ -1107,7 +1130,9 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode):
     if counts.get("paged_decode_split", 0) != counts["paged_decode"]:
         raise AssertionError(f"{mode}: paged decode off the split kernel")
     step_ms = 1e3 * st.decode_s / max(st.decode_steps - 1, 1)
-    log(f"serve {mode}: {len(done)} requests, {st.prefills} prefills, "
+    log(f"serve {cfg.arch_id} {mode}"
+        f"{f' moe_impl={moe_impl}' if cfg.has_moe else ''}: {len(done)} "
+        f"requests, {st.prefills} prefills, "
         f"{st.decode_steps} decode steps, {st.useful_tokens} tokens in "
         f"{st.wall_s:.3f} s ({st.tokens_per_s:.1f} tok/s), decode "
         f"{step_ms:.3f} ms/step ({st.decode_tokens_per_s:.1f} tok/s), "
@@ -1199,12 +1224,12 @@ def call_summary(record) -> dict:
                              for k, v in record.items()}}
 
 
-def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
-    """One request's prefill and 4 decode steps through the kernels and
-    through the plain versions, fed the same tokens.  Each kernel call of
-    the kernel path is also held against its plain version on that call's
-    inputs (tolerance TOL), so rounding does not compound over the layers.
-    Returns the readings; ``check_parity`` judges them."""
+def slot_run(T, serve_step, cfg, params, pol, mode, moe_impl, feed=None,
+             impl=None):
+    """A 777-token request prefilled into slot 0 of a one-slot paged state
+    (``mode``), then 4 decode steps fed ``feed`` (or, without it, each
+    step's argmax).  Returns (the 5 logits rows (5, V) in f32, the fed
+    tokens)."""
     rng = np.random.default_rng(SEED + 3)
     n = PREFILL_LEN * 3 // 4 + 9           # 777 tokens at the 1024 bucket
     prompt = np.zeros((1, PREFILL_LEN), np.int32)
@@ -1213,33 +1238,58 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
     mp = -(-MAX_LEN // PAGE_SIZE)
     paged = T.PagedCacheConfig(page_size=PAGE_SIZE, num_pages=1 + mp,
                                quantized=(mode == "paged_int8"))
+    state = T.init_decode_state(cfg, 1, MAX_LEN, pol.compute_dtype,
+                                paged=paged, device=DEVICE)
+    T.set_block_tables(state, np.arange(1, 1 + mp, dtype=np.int32))
+    lg, state = serve_step.prefill_into_slot(
+        params, toks, n, state, 0, cfg, pol, moe_impl=moe_impl, impl=impl)
+    seq = [lg[None]]
+    feed = list(feed) if feed is not None else [int(lg.argmax())]
+    for i in range(4):
+        tok = torch.tensor([[feed[i]]], device=DEVICE)
+        lg, state = T.decode_step(params, tok, state, cfg, pol,
+                                  moe_impl=moe_impl, impl=impl)
+        seq.append(lg)
+        if len(feed) < 4:
+            feed.append(int(lg.argmax()))
+    return torch.cat(seq).float(), feed
+
+
+def path_parity(T, serve_step, ops, cfg, params, pol, mode,
+                moe_impl="dense") -> dict:
+    """One request's prefill and 4 decode steps through the kernels and
+    through the plain versions, fed the same tokens.  Each kernel call of
+    the kernel path is also held against its plain version on that call's
+    inputs (tolerance TOL), so rounding does not compound over the layers.
+    An MoE model's layers run ``moe_impl``.  Returns the readings (an MoE
+    model's with ``routing_share``: the share of identical (token, layer,
+    slot) top-k choices of the two paths); ``check_parity`` judges
+    them."""
     record = {"flash_attention": [], "paged_decode_attention": []}
-    feed, logits = None, {}
+    feed, logits, routes = None, {}, {}
     with held_against_plain(ops, record, {k: (pol.compute_dtype, False)
                                           for k in record}):
         for impl in (None, "torch"):
-            state = T.init_decode_state(cfg, 1, MAX_LEN, pol.compute_dtype,
-                                        paged=paged, device=DEVICE)
-            T.set_block_tables(state, np.arange(1, 1 + mp, dtype=np.int32))
-            lg, state = serve_step.prefill_into_slot(
-                params, toks, n, state, 0, cfg, pol, impl=impl)
-            seq = [lg[None]]
-            if feed is None:
-                feed = [int(lg.argmax())]
-            for i in range(4):
-                tok = torch.tensor([[feed[i]]], device=DEVICE)
-                lg, state = T.decode_step(params, tok, state, cfg, pol,
-                                          impl=impl)
-                seq.append(lg)
-                if impl is None and len(feed) < 4:
-                    feed.append(int(lg.argmax()))
-            logits[impl] = torch.cat(seq).float()
+            with routing_recorded(routes.setdefault(impl, [])):
+                logits[impl], feed = slot_run(T, serve_step, cfg, params,
+                                              pol, mode, moe_impl, feed,
+                                              impl=impl)
     a, b = logits[None], logits["torch"]
     res = {"mode": mode, "dtype": pol.compute_dtype,
            "finite": bool(torch.isfinite(a).all()),
            "rel_l2": float((a - b).norm() / b.norm()),
            "max_abs": float((a - b).abs().max()), **call_summary(record)}
-    log(f"path parity {mode} {pol.compute_dtype}: prefill + 4 decode logits,"
+    routing = ""
+    if cfg.has_moe:
+        res["routing_share"], res["routing_set_share"] = routing_share(
+            routes[None], routes["torch"], cfg.n_layers)
+        routing = (f"; identical routing choices {res['routing_share']:.4f}"
+                   f" of {sum(r.numel() for r in routes[None])} (token, "
+                   f"layer, slot), {res['routing_set_share']:.4f} of them in "
+                   "the other path's top-k set")
+    log(f"path parity {cfg.arch_id} {mode} {pol.compute_dtype}"
+        f"{f' moe_impl={moe_impl}' if cfg.has_moe else ''}: prefill + 4 "
+        "decode logits,"
         f" kernels vs plain: rel L2 {res['rel_l2']:.3e} (bound "
         f"{LOGIT_REL_L2_BOUND[pol.compute_dtype]}), max abs "
         f"{res['max_abs']:.3e}, max |logit| {float(b.abs().max()):.3f}; "
@@ -1247,8 +1297,53 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode) -> dict:
         f"{TOL[pol.compute_dtype]}): " + ", ".join(
             f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
             f"err {res['call_max_err'][k]:.3e}, max rel L2 "
-            f"{res['call_max_rel'][k]:.3e}" for k in record))
+            f"{res['call_max_rel'][k]:.3e}" for k in record) + routing)
     return res
+
+
+@contextlib.contextmanager
+def moe_recorded(name: str, record: list, take):
+    """While active, every call of ``moe.<name>`` (the MoE functions look
+    each other up by name at call time) appends ``take(its result)`` to
+    ``record``, in call order (layer after layer)."""
+    from repro_torch.models import moe
+    real = getattr(moe, name)
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        record.append(take(out))
+        return out
+
+    setattr(moe, name, call)
+    try:
+        yield
+    finally:
+        setattr(moe, name, real)
+
+
+def routing_recorded(record: list):
+    """Every top-k choice of an MoE router (``moe._router``) appended to
+    ``record`` as the (T, k) tensor of expert ids."""
+    return moe_recorded("_router", record, lambda out: out[1])
+
+
+def routing_share(a: list, b: list, n_layers: int):
+    """(the share of identical (token, layer, slot) top-k choices, the
+    share of (token, layer) expert sets' members found in the other's set)
+    between two runs' ``routing_recorded`` records, which must hold the
+    same calls (a multiple of ``n_layers``, with the same shapes).  Two
+    experts swapped within a top-k differ in the first and not the
+    second; the output depends on the set (and the weights), not on the
+    order."""
+    if len(a) != len(b) or len(a) % n_layers or any(
+            x.shape != y.shape for x, y in zip(a, b)):
+        raise AssertionError(f"routing records differ in shape: {len(a)} "
+                             f"and {len(b)} router calls")
+    n = sum(x.numel() for x in a)
+    same = sum(int((x == y).sum()) for x, y in zip(a, b))
+    in_set = sum(int((x[:, :, None] == y[:, None, :]).any(-1).sum())
+                 for x, y in zip(a, b))
+    return same / n, in_set / n
 
 
 def check_parity(res: dict) -> None:
@@ -3981,6 +4076,213 @@ def decoders_phase(T, ops, serve, serve_step, sched_mod, get_config,
     return {"launches": launches, "yardsticks": yard}
 
 # ---------------------------------------------------------------------------
+# the MoE decoders: granite-moe-3b-a800m whole, qwen3-moe-30b-a3b cut
+# ---------------------------------------------------------------------------
+
+# full width; granite whole (32 layers: 3.30 B parameters, 6.6 GB in bf16),
+# qwen3 at 8 of its 48 layers (5.61 B, 11.2 GB; the whole model's 61 GB
+# would leave too little of the card and of this script's time)
+MOE_LAYERS = {"granite-moe-3b-a800m": 32, "qwen3-moe-30b-a3b": 8}
+# the kernels-vs-plain hold in f32, where only summation order separates
+# the paths, at 2 layers of each
+MOE_F32_LAYERS = 2
+# (query heads, KV heads, Dh) at full width: paged decode at G 3 and G 8
+MOE_HEADS = {"granite-moe-3b-a800m": (24, 8, 64),
+             "qwen3-moe-30b-a3b": (32, 4, 128)}
+
+
+def drops_recorded(record: list):
+    """Each capacity-path dispatch (``moe._dispatch_indices``) appends
+    (assignments, dropped) to ``record``."""
+    return moe_recorded("_dispatch_indices", record, lambda out: (
+        out[1].numel(), int((~out[1]).sum())))
+
+
+def moe_capacity_check(T, serve_step, cfg, params, pol) -> dict:
+    """granite's capacity path (``moe_impl="a2a"``: on one card the
+    reference's ``_moe_single``) through the kernels on ``slot_run``'s
+    request, against ``dense`` on the same fed tokens: at
+    ``capacity_factor`` = E no assignment drops and the logits must agree
+    within the bf16 bound; at the config's 1.25 they must be finite, and
+    the drops are counted and logged."""
+    dense, feed = slot_run(T, serve_step, cfg, params, pol, "paged", "dense")
+    out = {}
+    for cf in (float(cfg.n_experts), cfg.capacity_factor):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        drops = []
+        with drops_recorded(drops):
+            lg, _ = slot_run(T, serve_step, c, params, pol, "paged", "a2a",
+                             feed)
+        n, dropped = sum(a for a, _ in drops), sum(d for _, d in drops)
+        rel = float((lg - dense).norm() / dense.norm())
+        log(f"{cfg.arch_id} capacity path (a2a) at capacity_factor {cf}: "
+            f"{dropped} of {n} assignments dropped over {len(drops)} "
+            f"dispatches; logits vs dense rel L2 {rel:.3e}")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"capacity path at {cf}: non-finite logits")
+        if cf == cfg.n_experts and (dropped or not rel <=
+                                    LOGIT_REL_L2_BOUND[pol.compute_dtype]):
+            raise AssertionError(f"capacity path at capacity_factor = E: "
+                                 f"{dropped} drops, rel L2 {rel:.3e} from "
+                                 "dense")
+        out[cf] = {"dropped": dropped, "assignments": n, "rel_l2": rel}
+    return out
+
+
+def moe_yardsticks(ops) -> dict:
+    """The new path shapes timed: paged decode at granite's G 3 (24 heads
+    over 8 at Dh 64) and qwen3's G 8 (32 over 4 at Dh 128), bf16 and int8
+    pages at the serve geometry, each held against its plain version,
+    launched twice for the same bits and timed beside the plain version,
+    the bytes bound, a ``torch.sum`` of the same bytes and an empty kernel;
+    and granite's causal flash forward at Dh 64, (1, 24, 1024, 64) over 8
+    KV heads, held and timed beside SDPA over the heads expanded to 24
+    (the library call; the port never calls it), the plain version and
+    the bound."""
+    from repro_torch.kernels import paged_attention as pa
+    timer = Timer()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    dtype = torch.bfloat16
+    mp = -(-MAX_LEN // PAGE_SIZE)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for arch, (h, kvh, dh) in MOE_HEADS.items():
+        g = h // kvh
+        for quant in (False, True):
+            lens = np.random.default_rng(600 + g + quant).integers(
+                600, MAX_LEN + 1, size=BATCH)
+            qd, kp, vp, bt, kvl, sc = paged_inputs(
+                gen, lens, h=h, kvh=kvh, dh=dh, mp=mp, dtype=dtype,
+                quant=quant)
+            args = (qd, kp, vp, bt, kvl)
+            name = f"paged_decode_g{g}{'_int8' if quant else ''}"
+            tag = (f"{name} ({arch}: {h} heads over {kvh}, Dh {dh}) B={BATCH}"
+                   f" split {pa.split_plan(mp, BATCH * kvh, n_sm)}")
+            ops.reset_launch_counts()
+            err = paged_check(ops, tag, args, sc, dtype)
+            counts = ops.launch_counts()
+            if counts.get("paged_decode_split") != 1 or \
+                    counts.get(f"paged_decode_g{g}") != 1:
+                raise AssertionError(f"{tag}: not on the split kernel at "
+                                     f"G {g}: {counts}")
+            first = ops.paged_decode_attention(*args, **sc)
+            second = ops.paged_decode_attention(*args, **sc)
+            torch.cuda.synchronize()
+            check_same_bits(tag, (first,), (second,))
+            nbytes = paged_bytes(lens, kp, qd, quant)
+            same = torch.ones(nbytes // 4, device=DEVICE)
+            res = yardstick_times(
+                timer, lambda: ops.paged_decode_attention(*args, **sc),
+                lambda: same.sum())
+            plain = timer.times(lambda: ops.paged_decode_attention(
+                *args, impl="torch", **sc))
+            bd = bound(nbytes, 4 * int(lens.sum()) * h * dh, dtype)
+            out[name] = entry(name, "paged_decode.cu",
+                              "paged_attention.py:160", err,
+                              float(np.mean(res["times"])), median(plain),
+                              *bd, None)
+            log(f"{tag} (kv_len {lens.tolist()}): max err {err:.3e}, the "
+                f"same bits on relaunch; kernel {spread(res['times'])}, "
+                f"plain median {median(plain):.4f} ms, bound {bd[0]:.4f} ms "
+                f"({bd[1]}), library none; "
+                + yardstick_log(res, "torch.sum of the same bytes"))
+            del qd, kp, vp, same
+    b, (h, kvh, dh), s = 1, MOE_HEADS["granite-moe-3b-a800m"], PREFILL_LEN
+    q = torch.randn(b, h, s, dh, generator=gen, device=DEVICE).to(dtype)
+    k, v = (torch.randn(b, kvh, s, dh, generator=gen, device=DEVICE).to(
+        dtype) for _ in range(2))
+    o, lse = ops.flash_attention(q, k, v, causal=True)
+    ro, rlse = ops.flash_attention(q, k, v, causal=True, impl="torch")
+    torch.cuda.synchronize()
+    tag = f"flash {(b, h, s, dh)} over {kvh} KV heads, causal, bf16"
+    err = check_grad(tag + " out", o, ro, dtype)[0]
+    check_grad(tag + " lse", lse, rlse, dtype)
+    times = timer.times(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain = timer.times(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                     impl="torch"), iters=5)
+    ke, ve = (x.repeat_interleave(h // kvh, dim=1) for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timer.times(lambda: sdpa(q, ke, ve, is_causal=True))
+    bd = flash_window_bound(b, h, kvh, s, dh, s)
+    out["flash_fwd_dh64_causal"] = entry(
+        "flash_fwd_dh64_causal", "flash_fwd.cu", "flash_attention.py:132",
+        err, float(np.mean(times)), median(plain), *bd, float(np.mean(lib)))
+    log(f"{tag}: max err {err:.3e}; kernel {spread(times)}, plain median "
+        f"{median(plain):.4f} ms, SDPA over the expanded heads "
+        f"{spread(lib)}, bound {bd[0]:.4f} ms ({bd[1]})")
+    return out
+
+
+def moe_phase(T, ops, serve_step, sched_mod, get_config,
+              make_policy) -> dict:
+    """The MoE decoders at full width, bf16 weights seeded on the card:
+    granite-moe-3b-a800m whole and qwen3-moe-30b-a3b at 8 layers, each
+    served by ``ContinuousScheduler`` (``moe_impl="dense"``, the serving
+    default) in "paged" and "paged_int8" at the deepseek phase's geometry
+    and trace (``serve_run``: paged decode at G 3 and G 8 on the split
+    kernel, the flash forward at every slot prefill) and held kernels vs
+    plain (``path_parity``: every flash and paged call, the logits within
+    the bf16 bound, the routing agreement logged); granite's capacity path
+    (``moe_capacity_check``) and one "paged" run of it through the
+    scheduler; the kernels-vs-plain hold again in f32 at 2 layers of each;
+    then the yardsticks.  Returns each run's launch counts and
+    the yardsticks' entries."""
+    t_phase = time.perf_counter()
+    pol = make_policy("bf16")
+    launches, routing = {}, {}
+    for arch, layers in MOE_LAYERS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        g = cfg.n_heads // cfg.n_kv_heads
+        active = cfg.param_count(active_only=True)
+        log(f"{arch} full width, {cfg.n_layers} layers: "
+            f"{cfg.param_count() / 1e9:.3f} B params ({active / 1e9:.3f} B "
+            f"active a token; bf16) made in "
+            f"{time.perf_counter() - t0:.1f} s; {cfg.n_experts} experts "
+            f"top-{cfg.top_k}, {cfg.n_heads} query heads over "
+            f"{cfg.n_kv_heads} KV heads (G {g}) at Dh {cfg.head_dim}, "
+            f"query/key norms {cfg.qk_norm}")
+        for mode in ("paged", "paged_int8"):
+            c = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+            if c.get(f"paged_decode_g{g}") != c["paged_decode"]:
+                raise AssertionError(f"{arch} {mode}: paged decode off G "
+                                     f"{g}: {c}")
+            launches[f"{arch} {mode}"] = c
+            torch.cuda.empty_cache()
+        for mode in ("paged", "paged_int8"):
+            res = path_parity(T, serve_step, ops, cfg, params, pol, mode)
+            check_parity(res)
+            routing[f"{arch} {mode}"] = res["routing_share"]
+            routing[f"{arch} {mode} set"] = res["routing_set_share"]
+        if arch == "granite-moe-3b-a800m":
+            moe_capacity_check(T, serve_step, cfg, params, pol)
+            launches[f"{arch} paged a2a"] = serve_run(
+                T, ops, sched_mod, cfg, params, pol, "paged", moe_impl="a2a")
+        del params
+        torch.cuda.empty_cache()
+        # the same hold in f32 at 2 layers
+        pol32 = make_policy("f32")
+        c32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+        params = T.init_model(c32, seed=SEED, dtype=pol32.param_dtype,
+                              device=DEVICE)
+        for mode in ("paged", "paged_int8"):
+            res = path_parity(T, serve_step, ops, c32, params, pol32, mode)
+            check_parity(res)
+            routing[f"{arch} f32 {mode}"] = res["routing_share"]
+        del params
+        torch.cuda.empty_cache()
+        log(f"{arch}: {time.perf_counter() - t0:.1f} s")
+    yard = moe_yardsticks(ops)
+    torch.cuda.empty_cache()
+    log(f"peak device memory (MoE decoders) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; MoE phase on "
+        f"{nvidia_smi()}: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "routing": routing, "entries": yard}
+
+# ---------------------------------------------------------------------------
 # training the dense decoder variants and RWKV-6
 # ---------------------------------------------------------------------------
 
@@ -4404,7 +4706,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     report = build.build_all()
     for name, r in report.items():
         (build.BUILD_DIR / f"{name}.log").write_text(r["log"])
@@ -4452,6 +4754,11 @@ def main(argv=None) -> int:
                        make_policy)
         log("dense decoder variants phase only: no other phase, no result")
         return 2
+    if only == "moe":
+        del timer
+        moe_phase(T, ops, serve_step, sched_mod, get_config, make_policy)
+        log("MoE decoders phase only: no other phase, no result")
+        return 2
     train_mods = (train_cli, api, ts, TrainConfig, make_policy, lm_batches)
     if only == "variants_train":
         del timer
@@ -4486,6 +4793,11 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     decoders = decoders_phase(T, ops, serve_cli, serve_step, sched_mod,
                               get_config, make_policy)
+    torch.cuda.reset_peak_memory_stats()
+    moe = moe_phase(T, ops, serve_step, sched_mod, get_config, make_policy)
+    entries += [moe["entries"][k] for k in (
+        "paged_decode_g3", "paged_decode_g3_int8", "paged_decode_g8",
+        "paged_decode_g8_int8", "flash_fwd_dh64_causal")]
 
     torch.cuda.reset_peak_memory_stats()
     launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
@@ -4547,6 +4859,25 @@ def main(argv=None) -> int:
         + sum(c["paged_decode"] for r, c in dec.items()
               if r.endswith(" paged_int8")),
     }
+    # the MoE decoders: granite's flash forward (causal, Dh 64) on its own
+    # row, qwen3's (Dh 128, 32 heads over 4) on the serve path's; their
+    # paged decode by group and page type on the rows timed at G 3 and G 8
+    moe_runs = moe["launches"]
+    by_name["flash_fwd_dh64_causal"] = sum(
+        c["flash_fwd"] for r, c in moe_runs.items() if r.startswith("granite"))
+    by_name["flash_fwd"] += sum(
+        c["flash_fwd"] for r, c in moe_runs.items() if r.startswith("qwen3"))
+    for g, arch in ((3, "granite-moe-3b-a800m"), (8, "qwen3-moe-30b-a3b")):
+        by_name[f"paged_decode_g{g}"] = sum(
+            c["paged_decode"] for r, c in moe_runs.items()
+            if r.startswith(arch) and not r.endswith("paged_int8"))
+        by_name[f"paged_decode_g{g}_int8"] = \
+            moe_runs[f"{arch} paged_int8"]["paged_decode"]
+    log("MoE decoders' launches: " + ", ".join(
+        f"{r}: flash_fwd {c['flash_fwd']}, paged_decode {c['paged_decode']}"
+        for r, c in moe_runs.items()) + "; routing agreement kernels vs "
+        "plain: " + ", ".join(f"{r} {v:.4f}" for r, v in
+                              moe["routing"].items()))
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
     for phase, (_, _, s, _) in enumerate(TRAIN_ATTN, start=1):
         for kind in ("fwd", "bwd"):
@@ -4587,6 +4918,8 @@ def main(argv=None) -> int:
         if "paged" in r))
     for e in entries:
         e["launches"] = by_name[e["name"]]
+    log(f"chip_smoke.py whole run on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_start:.1f} s from the build's start")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -12,7 +12,9 @@ reference has two layouts:
   ``n_layers`` axis.
 
 Leaf layouts are kept as they are (``wq`` (d, H, Dh), ``wo`` (H, Dh, d),
-...), so the conversion is lossless.  Callers pass numpy arrays
+the query/key norms ``q_norm`` and ``k_norm`` (Dh,), an MoE layer's
+``router`` (d, E), ``wi`` and ``wg`` (E, d, f) and ``wo`` (E, f, d), ...),
+so the conversion is lossless.  Callers pass numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports JAX.
 """
 from __future__ import annotations

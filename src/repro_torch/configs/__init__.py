@@ -1,21 +1,25 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants
 (copy of ``repro/configs/__init__.py`` for the architectures the port
-runs: deepseek-7b, rwkv6-1.6b and the dense decoder variants gemma2-27b,
-qwen1.5-32b and deepseek-coder-33b for serving, bert-large and bert-base
-for pretraining)."""
+runs: deepseek-7b, rwkv6-1.6b, the dense decoder variants gemma2-27b,
+qwen1.5-32b and deepseek-coder-33b and the MoE decoders
+granite-moe-3b-a800m and qwen3-moe-30b-a3b for serving, bert-large and
+bert-base for pretraining)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import (bert_large, deepseek_7b,
                                  deepseek_coder_33b, gemma2_27b,
-                                 qwen1p5_32b, rwkv6_1p6b)
+                                 granite_moe_3b_a800m, qwen1p5_32b,
+                                 qwen3_moe_30b_a3b, rwkv6_1p6b)
 from repro_torch.configs.base import (DecodeCaps, InputShape, ModelConfig,
                                       TrainConfig)
 
 ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, rwkv6_1p6b.CONFIG,
                                 gemma2_27b.CONFIG, qwen1p5_32b.CONFIG,
                                 deepseek_coder_33b.CONFIG,
+                                granite_moe_3b_a800m.CONFIG,
+                                qwen3_moe_30b_a3b.CONFIG,
                                 bert_large.CONFIG, bert_large.BERT_BASE]}
 
 
@@ -28,9 +32,9 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def smoke_variant(cfg: ModelConfig, *, d_model: int = 256,
                   n_blocks: int = 1, vocab: int = 512) -> ModelConfig:
-    """Reduced same-family variant: <=2 layers, d_model<=512.  Same widths
-    as the reference's ``smoke_variant`` so parity tests compare like with
-    like."""
+    """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts
+    (top-2).  Same widths as the reference's ``smoke_variant`` so parity
+    tests compare like with like."""
     d_model = min(d_model, 512)
     pattern = cfg.block_pattern
     n_layers = n_blocks * len(pattern)
@@ -47,6 +51,8 @@ def smoke_variant(cfg: ModelConfig, *, d_model: int = 256,
         vocab_size=vocab,
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window
         else 0)
+    if cfg.n_experts:
+        upd.update(n_experts=4, top_k=2, moe_d_ff=d_model * 2)
     if cfg.max_position and not cfg.is_encoder_decoder:
         upd.update(max_position=512)   # learned positions (BERT)
     return dataclasses.replace(cfg, **upd)

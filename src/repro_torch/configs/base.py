@@ -136,15 +136,22 @@ class ModelConfig:
     def rwkv_n_heads(self) -> int:
         return self.d_model // self.rwkv_head_size
 
-    def param_count(self) -> int:
+    @property
+    def has_moe(self) -> bool:
+        return any(mlp == "moe" for _, mlp in self.block_pattern)
+
+    def param_count(self, active_only: bool = False) -> int:
         """Analytic parameter count, counted as the reference counts it:
         token embedding, learned positions, an untied LM head for decoders
         (not for encoder-only models), the final norm's scale, and per layer
         2 d for the two norms plus the mixer and the MLP.  A dense layer
-        counts attention and its MLP; an RWKV-6 layer counts the time mix
-        (r, k, v, g and output projections, the mix and decay LoRAs, the
-        bias and mix vectors) and the channel mix together, as the
-        reference's ``rwkv_params`` does."""
+        counts attention and its MLP; an MoE layer attention, the router
+        and every expert's three matrices (``active_only``: the ``top_k``
+        a token runs); an RWKV-6 layer counts the time mix (r, k, v, g and
+        output projections, the mix and decay LoRAs, the bias and mix
+        vectors) and the channel mix together, as the reference's
+        ``rwkv_params`` does.  Like the reference's, the count leaves out
+        the query/key norms' 2 Dh a layer."""
         d, v = self.d_model, self.vocab_size
         total = v * d + d
         if self.max_position:
@@ -167,6 +174,10 @@ class ModelConfig:
                 total += attn
             if mlp_kind == "dense":
                 total += mlp
+            elif mlp_kind == "moe":
+                e = self.top_k if active_only else self.n_experts
+                total += (e * 3 * d * self.moe_d_ff
+                          + d * self.n_experts)
         return total
 
 

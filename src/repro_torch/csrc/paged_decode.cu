@@ -62,13 +62,18 @@
 //   with no live token does not contribute, kv_len 0 still gives exact
 //   zeros, and the output is the same bits every launch.
 //
-// Query heads a KV head (G): 1, 2, 4, 7 and 8, each its own instance of
+// Query heads a KV head (G): 1, 2, 3, 4, 7 and 8, each its own instance of
 // both kernels.  Nothing in either assumes a power of two: a lane holds the
-// G query rows of its KV head in registers, the warps' and the splits'
-// partials are G * (D + 2) floats laid out row after row (3,640 bytes at
-// G 7 and Dh 128, within the smallest ring a warp has there: 6,144 bytes
-// for int8 pages of 8), and the combines loop over G * D outputs.
-// deepseek-coder-33b decodes at G 7 (56 query heads over 8 KV heads).
+// G query rows of its KV head in registers (qr, m, l, acc: G rows each, the
+// same G for every lane of every warp), the per-G loops touch no lane or
+// shuffle index that depends on G, the warps' and the splits' partials are
+// G * (D + 2) floats laid out row after row (3,640 bytes at G 7 and Dh
+// 128, within the smallest ring a warp has there: 6,144 bytes for int8
+// pages of 8; 792 bytes at G 3 and Dh 64, against 3,072), and the combines
+// loop over G * D outputs with a stride of the block's 128 threads.
+// deepseek-coder-33b decodes at G 7 (56 query heads over 8 KV heads),
+// granite-moe-3b-a800m at G 3 and Dh 64 (24 over 8), qwen3-moe-30b-a3b at
+// G 8 and Dh 128 (32 over 4).
 //
 // The first port's kernel, `paged_decode_walk_kernel`, takes every other
 // page: f32 pages (tests and small cases), and 16-bit and int8 pages of any
@@ -466,6 +471,7 @@ int split_g(const Args& a, int G, int D, int B, cudaStream_t s) {
   switch (G) {
     case 1: return split_d<QT, PT, 1>(a, D, B, s);
     case 2: return split_d<QT, PT, 2>(a, D, B, s);
+    case 3: return split_d<QT, PT, 3>(a, D, B, s);
     case 4: return split_d<QT, PT, 4>(a, D, B, s);
     case 7: return split_d<QT, PT, 7>(a, D, B, s);
     case 8: return split_d<QT, PT, 8>(a, D, B, s);
@@ -670,6 +676,7 @@ int walk_g(const Args& a, int G, int D, int B, cudaStream_t s) {
   switch (G) {
     case 1: return walk_d<QT, PT, 1>(a, D, B, s);
     case 2: return walk_d<QT, PT, 2>(a, D, B, s);
+    case 3: return walk_d<QT, PT, 3>(a, D, B, s);
     case 4: return walk_d<QT, PT, 4>(a, D, B, s);
     case 7: return walk_d<QT, PT, 7>(a, D, B, s);
     case 8: return walk_d<QT, PT, 8>(a, D, B, s);

@@ -34,10 +34,11 @@ INCLUDE = CSRC      # the shared headers: always the package's own csrc/
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# paged_decode.cu instantiates 130 kernels (5 groups x 2 head dims x the
-# page and dtype cases): its optimizer passes run on every core, or its
-# build alone takes ~2 minutes on the H100 machine's 8 cores (105 s of a
-# 105 s build of all sources, 50 s with the split)
+# paged_decode.cu instantiates 156 kernels (6 groups x 2 head dims x the
+# page and dtype cases, 26 a group): its optimizer passes run on every
+# core, or its build alone takes ~2 minutes on the H100 machine's 8 cores
+# (105 s of a 105 s build of all sources at 130 instances, 50 s with the
+# split; 47.7 s at 156 with the split)
 SOURCE_FLAGS = {"paged_decode": ["--split-compile", "0"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

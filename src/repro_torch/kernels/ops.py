@@ -332,7 +332,10 @@ def launch_counts() -> Dict[str, int]:
             # the paged decode's launches by route, as "paged_decode_split"
             # and "paged_decode_walk", for the routes launched so far
             **{f"paged_decode_{r}": n
-               for r, n in sorted(_pa.launches_by_route.items())}}
+               for r, n in sorted(_pa.launches_by_route.items())},
+            # and by query heads a KV head G, as "paged_decode_g<G>"
+            **{f"paged_decode_g{g}": n
+               for g, n in sorted(_pa.launches_by_group.items())}}
 
 
 def reset_launch_counts() -> None:
@@ -341,5 +344,6 @@ def reset_launch_counts() -> None:
     _fa.launches_by_seq.clear()
     _fa.launches_bwd_by_seq.clear()
     _pa.launches_by_route.clear()
+    _pa.launches_by_group.clear()
     _pa.launches = _ln.launches = _bg.launches = _lu.launches = 0
     _ln.launches_bwd = _bg.launches_bwd = _wkv.launches = 0

@@ -32,15 +32,19 @@ from repro_torch.kernels import build
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_GROUPS = (1, 2, 4, 7, 8)   # query heads a KV head (7: deepseek-coder-33b)
+# query heads a KV head (3: granite-moe-3b-a800m; 7: deepseek-coder-33b;
+# 8: qwen3-moe-30b-a3b)
+_GROUPS = (1, 2, 3, 4, 7, 8)
 _HEAD_DIMS = (64, 128)
 SPLIT_PAGES = (8, 16, 32)    # page sizes the split kernel is built for
 WARPS = 4                    # warps a block of the split kernel (kWarps)
 MAX_PAGES_PER_SPLIT = 32 * WARPS   # a lane holds one page id of its warp
 
 launches = 0   # launches of the kernel in this process (see ops.launch_counts)
-# the same launches by route ("split" or "walk"), for the routes launched
+# the same launches by route ("split" or "walk"), for the routes launched,
+# and by query heads a KV head, for the groups launched
 launches_by_route: Dict[str, int] = {}
+launches_by_group: Dict[int, int] = {}
 
 
 def split_plan(mp: int, batch_heads: int, n_sm: int) -> Tuple[int, int]:
@@ -181,4 +185,5 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, kv_len, *,
     launches += 1
     route = "split" if split else "walk"
     launches_by_route[route] = launches_by_route.get(route, 0) + 1
+    launches_by_group[g] = launches_by_group.get(g, 0) + 1
     return out

@@ -2,36 +2,55 @@
 one prefill and of steady-state decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-      [--arch deepseek-7b|rwkv6-1.6b] [--cache-mode paged|paged_int8] \
-      [--steps 8] [--batch 4] [--full-width]
+      [--arch deepseek-7b|rwkv6-1.6b|granite-moe-3b-a800m|\
+              qwen3-moe-30b-a3b] [--cache-mode paged|paged_int8] \
+      [--moe-impl dense|a2a|replicated] [--steps 8] [--batch 4] \
+      [--full-width [--layers N]]
 
-Builds the model (full width and depth with ``--full-width``, else the
-smoke variant) in bf16 with seeded random weights and runs the geometry of
-``chip_smoke.py``'s serve phases at ``--batch`` slots (default 4).
-deepseek-7b: fills the slots with 1024-token prompts through
-``prefill_into_slot``, in ``--cache-mode``.  rwkv6-1.6b: the raw mode's
-unmasked prefill of batch x 1024 tokens (24 ``wkv6`` launches), all on one
-state.  Then ``--steps`` decode steps of the slots.  For each phase it prints one JSON line: wall
+Builds the model (full width and depth with ``--full-width``, at
+``--layers`` layers if given, else the smoke variant) in bf16 with seeded
+random weights and runs the geometry of ``chip_smoke.py``'s serve phases
+at ``--batch`` slots (default 4).  deepseek-7b and the MoE decoders: fills
+the slots with 1024-token prompts through ``prefill_into_slot``, in
+``--cache-mode``, the MoE layers under ``--moe-impl`` (default
+``dense``, the serving default).  rwkv6-1.6b: the raw mode's unmasked
+prefill of batch x 1024 tokens (24 ``wkv6`` launches), all on one state.
+Then ``--steps`` decode steps of the slots.  For each phase it prints one JSON line: wall
 time (host clock around an unprofiled loop that ends in a synchronize),
 device busy time (the union of the CUDA kernels' spans in the trace of a
 second, profiled loop; their summed durations beside it), the idle share (1 - busy / wall), the device time
 by kind of kernel (the port's own, GEMMs, elementwise and copies,
 reductions, other), each of the port's kernels' time and share of busy,
-and the kernels that took the most device time.
+and the kernels that took the most device time.  Then one more line
+splits a decode step's device time by the port's functions
+(``decode_step_split``): attention (``layers.apply_attention``, the paged
+decode kernel inside), and in an MoE layer the router (``moe._router``),
+the expert products (``moe._dense_experts``, ``moe._expert_ffn``) and
+the dispatch and combine (``moe._dense_combine``, ``moe._group_local``,
+``moe._combine_local``), each the device time of the kernels launched
+inside it, from a third loop profiled with those functions wrapped in
+``record_function`` spans; the rest of the busy time (norms, embedding,
+the LM head) beside them.  The spans' own trace events stay out of the
+busy time of the two lines before.
 Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import functools
 import json
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.serve.serve_step import prefill_into_slot
 
@@ -130,7 +149,68 @@ def _phase(name, fn, iters, extra=None):
     return out
 
 
-def _serve_deepseek(cfg, pol, params, args):
+# a decode step's device time split by the port's functions: span name ->
+# the (module, function) pairs it wraps; no span runs inside another
+SPANS = {"attention": ((L, "apply_attention"),),
+         "moe_router": ((MOE, "_router"),),
+         "moe_experts": ((MOE, "_dense_experts"), (MOE, "_expert_ffn")),
+         "moe_dispatch_combine": ((MOE, "_dense_combine"),
+                                  (MOE, "_group_local"),
+                                  (MOE, "_combine_local"))}
+SPAN_PREFIX = "profile_serve::"
+
+
+@contextlib.contextmanager
+def _spanned():
+    """While active, each function of ``SPANS`` runs inside a
+    ``record_function`` span of its name; the modules' callers look them
+    up at call time, so every call is wrapped."""
+    saved = []
+
+    def wrap(span, fn):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with record_function(SPAN_PREFIX + span):
+                return fn(*a, **k)
+        return call
+
+    for span, targets in SPANS.items():
+        for mod, name in targets:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, wrap(span, getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _split(name, fn, iters, busy_ms):
+    """Device ms per iteration of the kernels launched inside each span
+    (the CPU-side span's device total), from a loop profiled under
+    ``_spanned``; ``rest_ms`` is ``busy_ms`` (from ``_phase``'s trace)
+    less the spans."""
+    with _spanned(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = {span: 0.0 for span in SPANS}
+    for e in prof.key_averages():
+        if e.key.startswith(SPAN_PREFIX) and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            spans[e.key[len(SPAN_PREFIX):]] += us / 1e3 / iters
+    out = {"phase": name, "span_device_ms": spans,
+           "rest_ms": busy_ms - sum(spans.values()),
+           "device_busy_ms": busy_ms}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _serve_paged(cfg, pol, params, args):
     max_len = PROMPT_LEN + 2 * args.steps + 16  # timed + profiled steps
     mp = -(-max_len // PAGE_SIZE)
     paged = T.PagedCacheConfig(page_size=PAGE_SIZE,
@@ -143,12 +223,13 @@ def _serve_deepseek(cfg, pol, params, args):
     toks = _prompts(cfg, args.batch)
     for slot in range(1, args.batch) if args.batch > 1 else (0,):
         prefill_into_slot(params, toks[slot:slot + 1], PROMPT_LEN,
-                          state, slot, cfg, pol)
+                          state, slot, cfg, pol, moe_impl=args.moe_impl)
     # slot 0's prefill is the measured one (the others, or at batch 1 a
     # first prefill of slot 0, warmed up the path); prefilling it again
     # rewrites the same pages
     _phase("prefill", lambda: prefill_into_slot(
-        params, toks[:1], PROMPT_LEN, state, 0, cfg, pol), 3)
+        params, toks[:1], PROMPT_LEN, state, 0, cfg, pol,
+        moe_impl=args.moe_impl), 3)
     state["pos"].fill_(PROMPT_LEN)
     return state
 
@@ -174,11 +255,19 @@ def _prompts(cfg, batch):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="deepseek-7b",
-                    choices=["deepseek-7b", "rwkv6-1.6b"])
+                    choices=["deepseek-7b", "rwkv6-1.6b",
+                             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"])
     ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth of the full-width model (default: the "
+                         "config's; chip_smoke.py serves qwen3-moe-30b-a3b "
+                         "at 8 of its 48)")
     ap.add_argument("--cache-mode", default="paged",
                     choices=["paged", "paged_int8"],
-                    help="deepseek-7b's KV layout (rwkv6-1.6b has no KV)")
+                    help="the KV layout (rwkv6-1.6b has no KV)")
+    ap.add_argument("--moe-impl", default="dense",
+                    choices=["dense", "a2a", "replicated"],
+                    help="an MoE model's expert path")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--batch", type=int, default=BATCH)
     args = ap.parse_args(argv)
@@ -187,25 +276,30 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full_width:
         cfg = smoke_variant(cfg)
+    elif args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     pol = make_policy("bf16")
     params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
                           device="cuda")
     rwkv = args.arch == "rwkv6-1.6b"
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": cfg.arch_id, "full_width": args.full_width,
+                      "layers": cfg.n_layers,
                       "cache_mode": None if rwkv else args.cache_mode,
+                      "moe_impl": args.moe_impl if cfg.has_moe else None,
                       "batch": args.batch, "prompt_len": PROMPT_LEN}),
           flush=True)
-    state = (_serve_rwkv if rwkv else _serve_deepseek)(cfg, pol, params,
-                                                        args)
+    state = (_serve_rwkv if rwkv else _serve_paged)(cfg, pol, params, args)
     cur = torch.zeros((args.batch, 1), dtype=torch.int64, device="cuda")
 
     def step():
-        logits, _ = T.decode_step(params, cur, state, cfg, pol)
+        logits, _ = T.decode_step(params, cur, state, cfg, pol,
+                                  moe_impl=args.moe_impl)
         cur.copy_(logits.argmax(-1, keepdim=True))
 
     step()
-    _phase("decode_step", step, args.steps)
+    res = _phase("decode_step", step, args.steps)
+    _split("decode_step_split", step, args.steps, res["device_busy_ms"])
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch deepseek-7b|rwkv6-1.6b|gemma2-27b|qwen1.5-32b|\
-              deepseek-coder-33b] [--batch 4] [--prompt-len 32] \
+              deepseek-coder-33b|granite-moe-3b-a800m|qwen3-moe-30b-a3b] \
+      [--moe-impl dense|a2a|replicated] [--batch 4] [--prompt-len 32] \
       [--new-tokens 16] [--mode raw|cohort|continuous] \
       [--cache-mode contiguous|paged|paged_int8] \
       [--prefix-cache [--prefix-groups 2]] [--full-width] \
@@ -24,8 +25,14 @@ its continuous prefill bucket (``--prompt-len``) may not exceed its window
 (16 in the smoke variant, 4096 at full width); a raw or cohort prefill
 wider than the window keeps the ring's last positions.  qwen1.5-32b (QKV
 biases) and deepseek-coder-33b (56 query heads over 8 KV heads) serve in
-every mode.  MoE, mamba, cross-attention and vision architectures are not
-ported yet.  ``--prefix-cache``
+every mode, and so do the MoE decoders granite-moe-3b-a800m (40 experts,
+top-8; 24 query heads over 8 KV heads at Dh 64) and qwen3-moe-30b-a3b
+(128 experts, top-8; query/key norms; 32 over 4 at Dh 128), whose MoE
+layers run ``--moe-impl``: ``dense`` (the default, as the reference's
+schedulers: every expert on every token) or ``a2a`` / ``replicated``
+(on one device both are the capacity path, which drops a token's
+assignment past its expert's capacity).  Mamba, cross-attention and
+vision architectures are not ported yet.  ``--prefix-cache``
 (continuous, paged cache modes) shares cached prompt-prefix pages across
 slots: the workload's prompts then start with one of ``--prefix-groups``
 shared heads, and ``max_len`` gains ``--prompt-len`` of headroom so a
@@ -70,7 +77,7 @@ def run_scheduler(args, cfg, pol, params):
             prefill_len=args.prompt_len, cache_mode=args.cache_mode,
             page_size=args.page_size, num_pages=args.num_pages,
             cache_dtype=pol.compute_dtype, prefix_cache=args.prefix_cache,
-            device=args.device)
+            moe_impl=args.moe_impl, device=args.device)
     else:
         caps = cfg.decode_caps
         if caps.needs_exact_prefill or caps.cross_cache:
@@ -79,7 +86,8 @@ def run_scheduler(args, cfg, pol, params):
                 "and has no per-request encoder-frame plumbing -- serve "
                 f"{cfg.arch_id} with --mode continuous")
         sched = CohortScheduler(params, cfg, pol, batch=args.batch,
-                                max_len=max_len, device=args.device)
+                                max_len=max_len, moe_impl=args.moe_impl,
+                                device=args.device)
     rng = np.random.default_rng(SEED)
     # shared heads, so that --prefix-cache has hits
     groups = [rng.integers(0, cfg.vocab_size,
@@ -137,7 +145,8 @@ def run_raw(args, cfg, pol, params):
     state = T.init_decode_state(cfg, b, s + args.new_tokens,
                                 pol.compute_dtype, device=args.device)
     t0 = time.perf_counter()
-    logits, state = T.prefill(params, prompt, cfg, pol, state=state)
+    logits, state = T.prefill(params, prompt, cfg, pol, state=state,
+                              moe_impl=args.moe_impl)
     _sync(args.device)
     t_prefill = time.perf_counter() - t0
     logger.info("prefill: %d x %d tokens in %.3fs (%.0f tok/s)", b, s,
@@ -148,7 +157,8 @@ def run_raw(args, cfg, pol, params):
     out = [tok]
     t0 = time.perf_counter()
     for _ in range(args.new_tokens - 1):
-        logits, state = T.decode_step(params, tok, state, cfg, pol)
+        logits, state = T.decode_step(params, tok, state, cfg, pol,
+                                      moe_impl=args.moe_impl)
         nonfinite += (~torch.isfinite(logits).all(-1)).sum()
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
@@ -170,10 +180,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="deepseek-7b",
                     choices=["deepseek-7b", "rwkv6-1.6b", "gemma2-27b",
-                             "qwen1.5-32b", "deepseek-coder-33b"],
-                    help="the architectures the port serves (MoE, mamba, "
+                             "qwen1.5-32b", "deepseek-coder-33b",
+                             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"],
+                    help="the architectures the port serves (mamba, "
                          "cross-attention and vision ones are not ported "
                          "yet)")
+    ap.add_argument("--moe-impl", default="dense",
+                    choices=["dense", "a2a", "replicated"],
+                    help="an MoE model's expert path: every expert on "
+                         "every token, or the capacity path (a2a and "
+                         "replicated are the same on one device)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

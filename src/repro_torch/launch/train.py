@@ -62,7 +62,11 @@ last.  ``--timing-breakdown`` times a compute twin and a serial twin at the
 start (``pretrain_bert.timing_calibration``), and the loop then logs
 ``compute_s``, ``exchange_s`` and ``overlap_frac``.  ``--pure-dp`` (ZeRO-1:
 the optimizer state sharded) is refused: it comes with the sharding
-slice.  ``--moe-impl`` is accepted and changes nothing for a dense model.
+slice.  The MoE decoders (granite-moe-3b-a800m, qwen3-moe-30b-a3b) serve
+but do not train yet: ``--arch`` of either exits naming the roadmap item
+that brings MoE training (``api.check_trainable``'s
+``NotImplementedError``), so ``--moe-impl``, the reference's flag and kept
+with its default, reaches no layer of any model this trainer takes.
 """
 from __future__ import annotations
 

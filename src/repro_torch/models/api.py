@@ -5,11 +5,14 @@ batches, for BERT (the encoder) and the dense decoder LMs.
 The reference's ``ShapeDtypeStruct`` schema becomes ``BatchField`` (shape
 and numpy dtype); synthetic batches are drawn with numpy from a seed and
 moved to the device by ``to_device``.  Decoder training covers every
-layer the port runs (``transformer.check_supported``): dense attention
-(full, sliding-window local and global; grouped-query heads, QKV biases,
-post-block norms, softcaps, tied and scaled embeddings, GeGLU) and RWKV-6.
-MoE, mamba, encoder-decoder and vision models are refused, each naming
-its slice.  The serving and sharding structs belong to later slices.
+layer the port runs (``transformer.check_supported``) but MoE: dense
+attention (full, sliding-window local and global; grouped-query heads,
+QKV biases, post-block norms, softcaps, tied and scaled embeddings, GeGLU)
+and RWKV-6.  ``lm_train_loss`` computes an MoE model's loss as the
+reference does (the router's aux loss added); training one is refused
+(``check_trainable``) until the trainer carries it.  Mamba,
+encoder-decoder and vision models are refused, each naming its slice.
+The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
 
@@ -40,9 +43,16 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder must be one ``transformer.check_supported`` runs."""
-    if not cfg.is_encoder_only:
-        T.check_supported(cfg)
+    decoder must be one ``transformer.check_supported`` runs, without MoE
+    layers."""
+    if cfg.is_encoder_only:
+        return
+    T.check_supported(cfg)
+    if cfg.has_moe:
+        raise NotImplementedError(
+            "training MoE models (the router's aux loss in the train step, "
+            "--moe-impl, the expert leaves under LAMB) is the roadmap's "
+            "next MoE item (ROADMAP.md Queue 1 item 2b); they serve today")
 
 
 class _MeanNLL(torch.autograd.Function):
@@ -73,19 +83,25 @@ class _MeanNLL(torch.autograd.Function):
 
 
 def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
-                  remat: bool = False, impl=None):
+                  moe_impl: str = "a2a", remat: bool = False,
+                  aux_coef=None, impl=None):
     """Next-token cross-entropy of a decoder (the reference's
     ``lm_train_loss``): inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``,
-    ``log_softmax`` of the logits in fp32, the mean NLL (``_MeanNLL``).
-    Returns (loss, {"lm_loss", "router_aux"}), 0-d float32 tensors;
-    ``router_aux`` is 0 for a dense model (no MoE layer the port runs)."""
+    ``log_softmax`` of the logits in fp32, the mean NLL (``_MeanNLL``);
+    an MoE model adds ``aux_coef`` (default ``cfg.router_aux_coef``) times
+    the router's aux loss summed over the layers.  Returns (loss,
+    {"lm_loss", "router_aux"}), 0-d float32 tensors; ``router_aux`` is 0
+    for a model without MoE layers."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
-    logits = T.apply_lm(params, inputs, cfg, policy, remat=remat, impl=impl)
-    loss = _MeanNLL.apply(logits.float(), labels)
-    return loss, {"lm_loss": loss.detach(),
-                  "router_aux": torch.zeros((), dtype=torch.float32,
-                                            device=loss.device)}
+    logits, aux = T.apply_lm(params, inputs, cfg, policy, remat=remat,
+                             moe_impl=moe_impl, return_aux=True, impl=impl)
+    nll = _MeanNLL.apply(logits.float(), labels)
+    loss = nll
+    if cfg.has_moe:
+        coef = cfg.router_aux_coef if aux_coef is None else aux_coef
+        loss = nll + coef * aux
+    return loss, {"lm_loss": nll.detach(), "router_aux": aux.detach()}
 
 
 def make_loss_fn(cfg: ModelConfig, policy: Policy, *, remat: bool = False,

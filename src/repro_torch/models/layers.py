@@ -2,9 +2,9 @@
 ``repro/models/layers.py``): RMSNorm and LayerNorm, RoPE, causal,
 sliding-window and bidirectional attention (QKV biases and the logit
 softcap included) with the decoder's contiguous, ring and paged KV caches,
-the SwiGLU, GeGLU and GELU MLPs, and the token embedding with learned
-positions or the sqrt(d_model) scale.  Query/key norms and M-RoPE
-positions belong to later slices (qwen3-moe, qwen2-vl) and raise.
+query/key norms (qwen3-moe), the SwiGLU, GeGLU and GELU MLPs, and the
+token embedding with learned positions or the sqrt(d_model) scale.
+M-RoPE positions belong to a later slice (qwen2-vl) and raise.
 
 Dtype discipline as in the reference: matmuls run in
 ``policy.compute_dtype``; norms, softmax and logits run in
@@ -105,6 +105,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in fp32, returned in x's dtype (the
+    reference's ``rms_norm_simple``): qwen3's query/key norms over Dh."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -125,6 +134,9 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator, *,
             bq=torch.zeros((h, dh), dtype=dtype, device=device),
             bk=torch.zeros((kv, dh), dtype=dtype, device=device),
             bv=torch.zeros((kv, dh), dtype=dtype, device=device))
+    if cfg.qk_norm:    # ones at init, as the reference's
+        params.update(q_norm=torch.ones((dh,), dtype=dtype, device=device),
+                      k_norm=torch.ones((dh,), dtype=dtype, device=device))
     return params
 
 
@@ -252,13 +264,15 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
       ``block_table[slot, pos // page_size]`` in place (int8 pages
       requantise their page), and the query attends through the paged-decode
       kernel.  A write past the slot's capacity goes to the trash page 0.
-    ``cfg.qkv_bias`` adds ``bq``/``bk``/``bv`` after the projections, before
-    RoPE.  ``impl`` is passed to the kernels (see ``kernels/ops.py``).
+    ``cfg.qkv_bias`` adds ``bq``/``bk``/``bv`` after the projections, and
+    ``cfg.qk_norm`` then norms each query and key head (``q_norm``,
+    ``k_norm``: ``rms_norm_simple`` over Dh), both before RoPE, on every
+    path: the K a cache holds is normed and rotated.  ``impl`` is passed to
+    the kernels (see ``kernels/ops.py``).
     """
-    if cfg.qk_norm or cfg.pos_kind == "mrope":
-        raise NotImplementedError(
-            "query/key norms (qwen3-moe) and M-RoPE positions (qwen2-vl) "
-            "belong to later slices")
+    if cfg.pos_kind == "mrope":
+        raise NotImplementedError("M-RoPE positions (qwen2-vl) belong to a "
+                                  "later slice")
     if mixer_kind not in ("attn", "attn_local", "attn_global",
                           "attn_bidir"):
         raise NotImplementedError(f"{mixer_kind} mixers: the port runs "
@@ -278,6 +292,9 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
         q = q + params["bq"].to(cdt)
         k = k + params["bk"].to(cdt)
         v = v + params["bv"].to(cdt)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
     if cfg.pos_kind == "rope":
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)

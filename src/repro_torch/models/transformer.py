@@ -1,5 +1,6 @@
-"""Decoder-only LM (port of ``repro/models/transformer.py`` for dense
-attention layers -- full, sliding-window local and global -- and RWKV-6
+"""Decoder-only LM (port of ``repro/models/transformer.py`` for
+attention layers -- full, sliding-window local and global, with or without
+query/key norms -- under a dense or a Mixture-of-Experts MLP, and RWKV-6
 layers).
 
 The reference stacks the blocks' weights on a leading axis and runs them
@@ -12,15 +13,24 @@ Parameters are a plain dict::
     {"embed": {"tok": (V, d)}, "blocks": [layer, ...],
      "final_norm": {"scale"[, "bias"]}[, "lm_head": (d, V)]}
     attention layer = {"norm1", "mixer": {"wq" (d,H,Dh), "wk", "wv",
-                       "wo" (H,Dh,d)[, "bq" (H,Dh), "bk", "bv" (KV,Dh)]}
+                       "wo" (H,Dh,d)[, "bq" (H,Dh), "bk", "bv" (KV,Dh)]
+                       [, "q_norm" (Dh,), "k_norm"]}
                        [, "postnorm1"], "norm2", "mlp": {"wi", "wg", "wo"}
                        [, "postnorm2"]}
+    MoE layer's mlp = {"router" (d,E), "wi", "wg" (E,d,f), "wo" (E,f,d)}
+                      (``models/moe.py``)
     rwkv layer = {"norm1", "mixer": time mix, "norm2", "mlp": channel mix}
                  (``models/rwkv.py``; norms are LayerNorms with a bias)
 
 A tied model (``cfg.tie_embeddings``, gemma2) has no ``lm_head``: the
 logits are taken against ``embed.tok`` transposed.  ``cfg.post_block_norm``
-(gemma2) norms each sublayer's output before its residual add.
+(gemma2) norms each sublayer's output before its residual add.  An MoE
+layer's MLP is ``moe.moe_apply`` with the caller's ``moe_impl``: the
+defaults are the reference's (``apply_lm`` and ``prefill`` "a2a",
+``prefill_suffix`` "dense", ``decode_step`` "replicated"; on one device
+"a2a" and "replicated" are the capacity path), and the serving stack
+passes "dense".  The router's aux loss is summed over the layers, as the
+reference's scan sums it; ``apply_lm(return_aux=True)`` returns it.
 
 The decode state is ``{"pos": (B,) int32, "blocks": [layer state, ...]}``
 with ``{"cache": ...}`` for an attention layer and ``{"tm_shift", "wkv",
@@ -33,8 +43,8 @@ layer's cache holds the same ``block_table`` tensor: one logical
 allocation per slot serves all layers (the reference keeps one stacked
 copy per block).
 
-MoE, mamba, cross-attention, query/key-norm, M-RoPE and vision layers
-belong to later slices and raise ``NotImplementedError``.
+Mamba, cross-attention, M-RoPE and vision layers belong to later slices
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,10 +57,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amp import Policy
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
 
 LAYER_KINDS = (("attn", "dense"), ("attn_local", "dense"),
-               ("attn_global", "dense"), ("rwkv", "rwkv_cm"))
+               ("attn_global", "dense"), ("attn", "moe"),
+               ("rwkv", "rwkv_cm"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,15 +81,15 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if tuple(kind) not in LAYER_KINDS:
             raise NotImplementedError(
-                f"{kind} layers: the port runs {LAYER_KINDS}; MoE and "
-                "mamba layers come with later architecture-family slices")
+                f"{kind} layers: the port runs {LAYER_KINDS}; mamba "
+                "layers come with a later architecture-family slice")
     if cfg.is_encoder_decoder or cfg.is_encoder_only:
         raise NotImplementedError(
             "encoder-decoder models (cross-attention) come with a later "
             "family slice; encoder-only models are BERT (models/bert.py)")
-    if cfg.n_vision_tokens or cfg.qk_norm or cfg.pos_kind == "mrope":
-        raise NotImplementedError("vision stubs, query/key norms and M-RoPE "
-                                  "positions come with later family slices")
+    if cfg.n_vision_tokens or cfg.pos_kind == "mrope":
+        raise NotImplementedError("vision stubs and M-RoPE positions come "
+                                  "with a later family slice")
 
 
 # ---------------------------------------------------------------------------
@@ -96,10 +108,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=device)
     params = {"embed": L.init_embedding(cfg, gen, **kw), "blocks": []}
-    for mixer, _ in cfg.layer_kinds():
+    for mixer, mlp_kind in cfg.layer_kinds():
         if mixer == "rwkv":
             mix, mlp = (RW.init_time_mix(cfg, gen, **kw),
                         RW.init_channel_mix(cfg, gen, **kw))
+        elif mlp_kind == "moe":
+            mix, mlp = (L.init_attention(cfg, gen, **kw),
+                        MOE.init_moe(cfg, gen, **kw))
         else:
             mix, mlp = (L.init_attention(cfg, gen, **kw),
                         L.init_mlp(cfg, gen, **kw))
@@ -229,12 +244,13 @@ def _apply_rwkv_layer(p, x, cfg: ModelConfig, policy: Policy, *,
     return x + y2.to(x.dtype)
 
 
-def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
-                 state=None, decode_pos=None, valid_len=None,
-                 impl: Optional[str] = None):
+def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
+                 mlp: str, *, state=None, decode_pos=None, valid_len=None,
+                 moe_impl: str = "a2a", impl: Optional[str] = None):
+    """One layer; returns (x, the MoE router's aux loss or None)."""
     if mixer == "rwkv":
         return _apply_rwkv_layer(p, x, cfg, policy, state=state,
-                                 valid_len=valid_len, impl=impl)
+                                 valid_len=valid_len, impl=impl), None
     def post(y, which):   # gemma2's norm of a sublayer's output
         if cfg.post_block_norm:
             return L.apply_norm(p[which], y, cfg, policy)
@@ -266,8 +282,12 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str, *,
             _fit_cache(nc, state, valid_len)
     x = x + post(y, "postnorm1").to(x.dtype)
     h = L.apply_norm(p["norm2"], x, cfg, policy)
-    return x + post(L.apply_mlp(p["mlp"], h, cfg, policy),
-                    "postnorm2").to(x.dtype)
+    aux = None
+    if mlp == "moe":
+        y, aux = MOE.moe_apply(p["mlp"], h, cfg, policy, impl=moe_impl)
+    else:
+        y = L.apply_mlp(p["mlp"], h, cfg, policy)
+    return x + post(y, "postnorm2").to(x.dtype), aux
 
 
 def _lm_logits(params, x, cfg: ModelConfig, policy: Policy):
@@ -289,26 +309,35 @@ def _lm_logits(params, x, cfg: ModelConfig, policy: Policy):
 # ---------------------------------------------------------------------------
 
 def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
-             remat: bool = False, impl: Optional[str] = None):
+             remat: bool = False, moe_impl: str = "a2a",
+             return_aux: bool = False, impl: Optional[str] = None):
     """Full forward of (B, S) tokens -> logits (B, S, V), for training and
-    scoring.  (The reference also returns the MoE aux loss, which a dense
-    model does not have.)  ``remat=True`` recomputes each layer in the
-    backward pass (``torch.utils.checkpoint``, non-reentrant), as
-    ``jax.checkpoint`` wraps the reference's scan body (one block: one
+    scoring; with ``return_aux`` (logits, aux), aux the MoE router's loss
+    summed over the layers (0-d fp32; 0 for a model without MoE layers),
+    which the reference always returns.  ``remat=True`` recomputes each
+    layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
+    as ``jax.checkpoint`` wraps the reference's scan body (one block: one
     layer of a one-position ``block_pattern``)."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-    for p, (mixer, _) in zip(params["blocks"], cfg.layer_kinds()):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, (mixer, mlp) in zip(params["blocks"], cfg.layer_kinds()):
         if remat:
-            x = checkpoint(_apply_layer, p, x, cfg, policy, mixer, impl=impl,
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_layer, p, x, cfg, policy, mixer, mlp,
+                              moe_impl=moe_impl, impl=impl,
+                              use_reentrant=False)
         else:
-            x = _apply_layer(p, x, cfg, policy, mixer, impl=impl)
+            x, a = _apply_layer(p, x, cfg, policy, mixer, mlp,
+                                moe_impl=moe_impl, impl=impl)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
-    return _lm_logits(params, x, cfg, policy)
+    logits = _lm_logits(params, x, cfg, policy)
+    return (logits, aux) if return_aux else logits
 
 
 def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
-            lengths=None, impl: Optional[str] = None):
+            lengths=None, moe_impl: str = "a2a",
+            impl: Optional[str] = None):
     """Run the prompt (B, S) through the model, filling ``state`` in place.
     Returns (last-token logits (B, V), state).  ``lengths`` (B,) are the
     true lengths of right-padded prompts: logits are taken at
@@ -316,10 +345,10 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
     run the masked sequential scan, without ``lengths`` the chunked one
     (``kops.wkv6``)."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-    for p, st, (mixer, _) in zip(params["blocks"], state["blocks"],
-                                 cfg.layer_kinds()):
-        x = _apply_layer(p, x, cfg, policy, mixer, state=st,
-                         valid_len=lengths, impl=impl)
+    for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
+                                   cfg.layer_kinds()):
+        x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,
+                            valid_len=lengths, moe_impl=moe_impl, impl=impl)
     b, s = tokens.shape
     if lengths is None:
         x_last = x[:, -1:]
@@ -336,7 +365,8 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
 
 
 def prefill_suffix(params, tokens, start, length, cfg: ModelConfig,
-                   policy: Policy, *, state, impl: Optional[str] = None):
+                   policy: Policy, *, state, moe_impl: str = "dense",
+                   impl: Optional[str] = None):
     """Resume a prefill at position ``start``: run only the uncached suffix.
 
     ``tokens``: (B, P) right-padded suffix bucket; ``length``: its true
@@ -354,10 +384,10 @@ def prefill_suffix(params, tokens, start, length, cfg: ModelConfig,
     dev = tokens.device
     pos0 = torch.as_tensor(start, device=dev).to(torch.int32).reshape(())
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-    for p, st, (mixer, _) in zip(params["blocks"], state["blocks"],
-                                 cfg.layer_kinds()):
-        x = _apply_layer(p, x, cfg, policy, mixer, state=st, decode_pos=pos0,
-                         impl=impl)
+    for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
+                                   cfg.layer_kinds()):
+        x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,
+                            decode_pos=pos0, moe_impl=moe_impl, impl=impl)
     lengths = torch.as_tensor(length, device=dev).to(torch.int32)
     lengths = lengths.reshape(-1).expand(b)
     x_last = x[torch.arange(b, device=dev), lengths.long() - 1][:, None]
@@ -381,16 +411,16 @@ def copy_page(state: dict, src, dst, valid) -> dict:
 
 
 def decode_step(params, token, state, cfg: ModelConfig, policy: Policy, *,
-                impl: Optional[str] = None):
+                moe_impl: str = "replicated", impl: Optional[str] = None):
     """One decode step for every slot.  token: (B, 1).  Each slot writes at
     and advances from its own ``state["pos"]``.  Returns (logits (B, V),
     state) with the state updated in place."""
     pos = state["pos"]
     x = L.embed_tokens(params["embed"], token, cfg, policy)
-    for p, st, (mixer, _) in zip(params["blocks"], state["blocks"],
-                                 cfg.layer_kinds()):
-        x = _apply_layer(p, x, cfg, policy, mixer, state=st, decode_pos=pos,
-                         impl=impl)
+    for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
+                                   cfg.layer_kinds()):
+        x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,
+                            decode_pos=pos, moe_impl=moe_impl, impl=impl)
     x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
     logits = _lm_logits(params, x, cfg, policy)[:, 0]
     state["pos"] += 1

@@ -31,7 +31,9 @@ all (``cache_bytes`` 0); its per-slot state is the fixed-size recurrent
 rows (``state_bytes``), and every admission runs the masked sequential
 scan.  gemma2-27b's local layers keep sliding-window rings, which cannot
 be paged either: it serves in ``"contiguous"`` mode with a prefill bucket
-no wider than its window.
+no wider than its window.  An MoE model's layers run ``moe_impl``
+(default ``"dense"``, as the reference's schedulers: every expert on every
+token, so a token's output does not depend on what shares its batch).
 
 The host policy is numpy and Python, as in the reference.
 """
@@ -286,10 +288,11 @@ def kv_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
 class _SchedulerBase:
     def __init__(self, params, cfg: ModelConfig, policy: Policy, *,
                  batch: int, max_len: int, eos_id: int = -1,
-                 pad_id: int = 0, device="cuda"):
+                 pad_id: int = 0, moe_impl: str = "dense", device="cuda"):
         self.params, self.cfg, self.policy = params, cfg, policy
         self.batch, self.max_len = batch, max_len
         self.eos_id, self.pad_id = eos_id, pad_id
+        self.moe_impl = moe_impl
         self.device = device
         self.queue: List[Request] = []
         self.stats = ServeStats()
@@ -346,7 +349,7 @@ class CohortScheduler(_SchedulerBase):
         state = T.init_decode_state(self.cfg, self.batch, self.max_len,
                                     torch.bfloat16, device=self.device)
         logits, state = T.prefill(self.params, toks, self.cfg, self.policy,
-                                  state=state)
+                                  state=state, moe_impl=self.moe_impl)
         tok = logits.argmax(-1)[:, None]
         outs = [tok[:, 0].cpu().numpy()]
         t_first = time.perf_counter() - t0
@@ -368,7 +371,8 @@ class CohortScheduler(_SchedulerBase):
             n_active = int(alive.sum())
             t_step = time.perf_counter()
             logits, state = T.decode_step(self.params, tok, state, self.cfg,
-                                          self.policy)
+                                          self.policy,
+                                          moe_impl=self.moe_impl)
             tok = logits.argmax(-1)[:, None]
             col = tok[:, 0].cpu().numpy()
             self._count_nonfinite(logits, np.flatnonzero(alive))
@@ -409,12 +413,13 @@ class ContinuousScheduler(_SchedulerBase):
     def __init__(self, params, cfg: ModelConfig, policy: Policy, *,
                  batch: int, max_len: int, prefill_len: int = 32,
                  eos_id: int = -1, pad_id: int = 0,
-                 cache_mode: str = "contiguous", page_size: int = 16,
-                 num_pages: Optional[int] = None,
+                 moe_impl: str = "dense", cache_mode: str = "contiguous",
+                 page_size: int = 16, num_pages: Optional[int] = None,
                  cache_dtype=torch.bfloat16, prefix_cache: bool = False,
                  device="cuda"):
         super().__init__(params, cfg, policy, batch=batch, max_len=max_len,
-                         eos_id=eos_id, pad_id=pad_id, device=device)
+                         eos_id=eos_id, pad_id=pad_id, moe_impl=moe_impl,
+                         device=device)
         if prefill_len > max_len:
             raise ValueError(f"prefill_len {prefill_len} > max_len {max_len}")
         if cache_mode not in ("contiguous", "paged", "paged_int8"):
@@ -466,7 +471,7 @@ class ContinuousScheduler(_SchedulerBase):
         self.adapter = SlotStateAdapter(
             params, cfg, policy, batch=batch, max_len=max_len,
             cache_dtype=cache_dtype, paged_cfg=self.paged_cfg,
-            device=device)
+            moe_impl=moe_impl, device=device)
         self.stats.cache_bytes = self.adapter.cache_bytes()
         self.stats.state_bytes = self.adapter.state_bytes()
 
@@ -719,7 +724,7 @@ class ContinuousScheduler(_SchedulerBase):
             t_step = time.perf_counter()
             logits, state = T.decode_step(
                 self.params, torch.from_numpy(cur).to(self.device), state,
-                self.cfg, self.policy)
+                self.cfg, self.policy, moe_impl=self.moe_impl)
             col = logits.argmax(-1).cpu().numpy()
             self._count_nonfinite(
                 logits, [i for i in range(self.batch) if slots[i] is not None])

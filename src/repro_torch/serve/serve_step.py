@@ -21,6 +21,11 @@ fp32, as the reference's ``_cache_geometry`` chooses), runs
 cover [start, start + ceil(P / page_size) * page_size); pages below
 ``start`` -- shared, possibly read by sibling slots -- are never
 rewritten.
+
+An MoE model's layers run ``moe_impl``; the serving default is
+``"dense"``, as the reference's.  Under the capacity path (``"a2a"``)
+the slot prefill routes the bucket's P tokens, pads included, as the
+reference's one-row prefill does.
 """
 from __future__ import annotations
 
@@ -101,7 +106,8 @@ def _scatter_suffix_into_pages(cache: dict, row: dict, slot: int,
 
 def _prefill_suffix_into_slot(params, tokens, length: int, state: dict,
                               slot: int, start: int, cfg: ModelConfig,
-                              policy: Policy, impl: Optional[str]):
+                              policy: Policy, moe_impl: str,
+                              impl: Optional[str]):
     p = tokens.shape[1]
     caches = [st.get("cache") for st in state["blocks"]]
     if any(c is None or "k_pages" not in c for c in caches):
@@ -123,7 +129,7 @@ def _prefill_suffix_into_slot(params, tokens, length: int, state: dict,
     row = {"pos": torch.zeros((1,), dtype=torch.int32, device=dev),
            "blocks": blocks}
     logits, row = T.prefill_suffix(params, tokens, start, length, cfg, policy,
-                                   state=row, impl=impl)
+                                   state=row, moe_impl=moe_impl, impl=impl)
     for c, st in zip(caches, row["blocks"]):
         _scatter_suffix_into_pages(c, st["cache"], slot, start, length, p)
     state["pos"][slot] = row["pos"][0]
@@ -132,7 +138,7 @@ def _prefill_suffix_into_slot(params, tokens, length: int, state: dict,
 
 def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
                       cfg: ModelConfig, policy: Policy, *,
-                      start: Optional[int] = None,
+                      start: Optional[int] = None, moe_impl: str = "dense",
                       impl: Optional[str] = None):
     """Prefill ONE right-padded request (1, P) of true length ``length``
     into live slot ``slot``; neighbouring slots are untouched.  A paged
@@ -161,17 +167,18 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
                          f"ring of {ring} rows")
     if start is not None:
         return _prefill_suffix_into_slot(params, tokens, length, state, slot,
-                                         start, cfg, policy, impl)
+                                         start, cfg, policy, moe_impl, impl)
     row = slot_view(state, slot)
     lengths = torch.tensor([length], dtype=torch.int32,
                            device=state["pos"].device)
     logits, _ = T.prefill(params, tokens, cfg, policy, state=row,
-                          lengths=lengths, impl=impl)
+                          lengths=lengths, moe_impl=moe_impl, impl=impl)
     return logits[0], state
 
 
 def greedy_generate(params, prompt, cfg: ModelConfig, policy: Policy, *,
-                    max_new: int = 16, max_len: int = 256):
+                    max_new: int = 16, max_len: int = 256,
+                    moe_impl: str = "dense"):
     """Greedy generation of ``max_new`` tokens for a (B, S) prompt with a
     float32 contiguous cache.  Returns (B, max_new) token ids.  A recurrent
     architecture (``needs_exact_prefill``) prefills with full-width
@@ -184,11 +191,12 @@ def greedy_generate(params, prompt, cfg: ModelConfig, policy: Policy, *,
     lengths = (torch.full((b,), s, dtype=torch.int32, device=prompt.device)
                if cfg.decode_caps.needs_exact_prefill else None)
     logits, state = T.prefill(params, prompt, cfg, policy, state=state,
-                              lengths=lengths)
+                              lengths=lengths, moe_impl=moe_impl)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     for _ in range(max_new - 1):
-        logits, state = T.decode_step(params, tok, state, cfg, policy)
+        logits, state = T.decode_step(params, tok, state, cfg, policy,
+                                      moe_impl=moe_impl)
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1)

@@ -21,7 +21,9 @@ advanced by the pad tokens of the prefill bucket.  The slot prefill passes
 run the sequential scan, and a padded slot prefill leaves the same state,
 bit for bit, as an unpadded prefill of the true prompt.
 
-Cross-attention state comes with the architecture-family slice.
+An MoE model's slot prefills run ``moe_impl`` (default ``"dense"``, as
+the reference's adapter).  Cross-attention state comes with the
+architecture-family slice.
 """
 from __future__ import annotations
 
@@ -64,9 +66,10 @@ class SlotStateAdapter:
     def __init__(self, params, cfg: ModelConfig, policy: Policy, *,
                  batch: int, max_len: int, cache_dtype=torch.bfloat16,
                  paged_cfg: Optional[T.PagedCacheConfig] = None,
-                 device="cuda"):
+                 moe_impl: str = "dense", device="cuda"):
         T.check_supported(cfg)
         self.params, self.cfg, self.policy = params, cfg, policy
+        self.moe_impl = moe_impl
         self.batch, self.max_len = batch, max_len
         self.cache_dtype = cache_dtype
         self.paged_cfg = paged_cfg
@@ -88,7 +91,8 @@ class SlotStateAdapter:
         """Prefill one request into ``slot``; ``start`` resumes after a
         cached page-aligned prefix.  Returns (logits (V,), state)."""
         return prefill_into_slot(self.params, tokens, length, state, slot,
-                                 self.cfg, self.policy, start=start)
+                                 self.cfg, self.policy, start=start,
+                                 moe_impl=self.moe_impl)
 
     def reset_slot(self, state, slot: int):
         """Zero the slot's position and recurrent rows, in place.  Hygiene,

@@ -391,11 +391,14 @@ def test_rings_refuse_a_paged_cache():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(qk_norm=True), "query/key norms"),
+    (dict(n_vision_tokens=8), "vision"),
     (dict(pos_kind="mrope"), "M-RoPE"),
-    (dict(block_pattern=(("attn", "moe"),)), "MoE"),
+    (dict(block_pattern=(("mamba", "moe"),)), "mamba"),
     (dict(block_pattern=(("mamba", "dense"),)), "mamba")])
 def test_later_slices_stay_refused(change, match):
+    """What later family slices bring raises ``NotImplementedError``
+    naming it; query/key norms and MoE layers run since the MoE slice
+    (tests/test_torch_moe.py, tests/test_torch_moe_serve.py)."""
     cfg = dataclasses.replace(smoke_variant(get_config("deepseek-7b")),
                               **change)
     with pytest.raises(NotImplementedError, match=match):

@@ -69,13 +69,13 @@ def test_flash_ref_keeps_dtype():
     assert out.shape == q.shape and lse.shape == (1, 2, 64)
 
 
-def _paged_inputs(quantized, h=4):
+def _paged_inputs(quantized, h=4, dh=32):
     """The inputs of tests/test_paged.py::test_paged_kernel_matches_ref:
     disjoint tables, unallocated entries on the trash page, a kv_len 0
     slot, GQA with ``h`` query heads over 2 KV heads (2 a KV head by
-    default)."""
+    default) of ``dh``."""
     rng = np.random.default_rng(0)
-    b, kv, dh, pool, ps = 3, 2, 32, 9, 4
+    b, kv, pool, ps = 3, 2, 9, 4
     q = rng.normal(size=(b, h, dh)).astype(np.float32)
     if quantized:
         kp = rng.integers(-127, 128, (pool, ps, kv, dh)).astype(np.int8)
@@ -127,6 +127,27 @@ def test_paged_ref_matches_pallas_kernel_at_group_7(quantized, softcap):
         _t(q), _t(kp), _t(vp), _t(bt), _t(kvl), softcap=softcap,
         **{k: _t(v) for k, v in sc.items()})
     assert got.shape == (3, 14, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert np.all(got[2].numpy() == 0.0)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_ref_matches_pallas_kernel_at_group_3(quantized, softcap):
+    """granite-moe-3b-a800m's group, 3 query heads a KV head at Dh 64 (6
+    over 2 here, 24 over 8 at full width): the plain version groups query
+    head h on KV head h // 3 as the Pallas kernel does, f32 and int8
+    pages at 1e-5, the empty slot zeros."""
+    q, kp, vp, bt, kvl, sc = _paged_inputs(quantized, h=6, dh=64)
+    want = jops.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(kvl), softcap=softcap, impl="pallas_interpret",
+        **{k: jnp.asarray(v) for k, v in sc.items()})
+    got = ops.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(bt), _t(kvl), softcap=softcap,
+        **{k: _t(v) for k, v in sc.items()})
+    assert got.shape == (3, 6, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     assert np.all(got[2].numpy() == 0.0)
@@ -301,7 +322,7 @@ def test_nvcc_includes_the_package_csrc(monkeypatch, tmp_path):
 
 
 def test_only_paged_decode_splits_its_compile(monkeypatch):
-    """paged_decode.cu's 130 instances compile with ``--split-compile 0``
+    """paged_decode.cu's 156 instances compile with ``--split-compile 0``
     (the optimizer on every core); every other source with the common
     flags alone."""
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")

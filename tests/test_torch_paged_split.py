@@ -276,6 +276,39 @@ def test_wrapper_passes_group_7(monkeypatch, pdt, codes):
     assert a[12] is not None and a[13] is not None
 
 
+@pytest.mark.parametrize("h,kv,dh,g,plan", [
+    (24, 8, 64, 3, (4, 17)),     # granite-moe-3b-a800m
+    (32, 4, 128, 8, (8, 9))])    # qwen3-moe-30b-a3b
+@pytest.mark.parametrize("pdt,codes", [(torch.bfloat16, (1, 1)),
+                                       (torch.int8, (1, 2))])
+def test_wrapper_passes_the_moe_groups(monkeypatch, pdt, codes, h, kv, dh,
+                                       g, plan):
+    """The MoE decoders at full width: granite's 24 query heads over 8 KV
+    heads at Dh 64 go to the split kernel with G 3 (4 slots x 8 KV heads:
+    four splits of 17 pages), qwen3's 32 over 4 at Dh 128 with G 8 (4 x 4
+    pairs: eight splits of 9 pages), with a workspace and the tickets, and
+    each launch is counted under its group."""
+    b, mp, pool, ps = 4, 65, 300, 16
+    q = torch.zeros((b, h, dh), dtype=torch.bfloat16)
+    pages = torch.zeros((pool, ps, kv, dh), dtype=pdt)
+    sc = {}
+    if pdt == torch.int8:
+        sc = dict(k_scale=torch.ones((pool, kv)),
+                  v_scale=torch.ones((pool, kv)))
+    calls = _recording(monkeypatch)
+    tpa._tickets.cache_clear()
+    ops.reset_launch_counts()
+    out = tpa.paged_decode_attention(
+        q, pages, pages, torch.zeros((b, mp), dtype=torch.int32),
+        torch.zeros((b,), dtype=torch.int32), **sc)
+    assert (out.shape, out.dtype) == ((b, h, dh), torch.bfloat16)
+    a = calls[-1]
+    assert a[:4] == (*codes, g, dh)
+    assert a[15:22] == (b, kv, pool, ps, mp, plan[1], plan[0])
+    assert a[12] is not None and a[13] is not None
+    assert ops.launch_counts()[f"paged_decode_g{g}"] == 1
+
+
 def test_wrapper_sends_rows_16_byte_copies_cannot_read_to_the_walk(
         monkeypatch):
     """bf16 pages of 16 tokens whose rows start 8 bytes off a 16-byte
@@ -294,10 +327,11 @@ def test_wrapper_sends_rows_16_byte_copies_cannot_read_to_the_walk(
 def test_wrapper_refuses_what_the_split_kernel_cannot_read(monkeypatch,
                                                            case):
     """Page rows that neither kernel's loads can read, head dims other than
-    64/128 and H/KV outside 1, 2, 4, 7, 8 raise before any launch."""
+    64/128 and H/KV outside 1, 2, 3, 4, 7, 8 (here 5) raise before any
+    launch."""
     calls = _recording(monkeypatch)
     h, dh, pad = {"misaligned_rows": (4, 128, 1), "head_dim": (4, 96, 0),
-                  "group": (12, 128, 0)}[case]
+                  "group": (20, 128, 0)}[case]
     q = torch.zeros((2, h, dh), dtype=torch.bfloat16)
     pages = torch.zeros((9, 16, 4, dh + pad), dtype=torch.bfloat16)
     pages = pages[..., pad:]
