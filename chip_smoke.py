@@ -298,7 +298,27 @@
    LayerNorm and LAMB call held (wkv6 within WKV_TOL), within LM_BOUND;
    (e) the wkv6 forward and the VJP timed at the training shape
    (4, 1024, 32, 64).
-14. Prints one JSON line of kernel results, then, as the last line,
+14. Training the MoE decoders at full width, depth cut (``LM_PATHS``):
+   granite-moe-3b-a800m at 24 of its 32 layers and qwen3-moe-30b-a3b at 2
+   of its 48, 8 x 1024 tokens in 2 micro-batches, on the capacity path
+   (``--moe-impl a2a``, the trainer's default).  (a) ``launch/train.py``
+   of each, 4 steps of bf16, granite under LAMB and qwen3 under AdamW, in
+   process: every loss and router aux finite, no step skipped, the
+   launches exactly ``train_launches``; the peak and the step walls
+   logged.  (b) One LAMB step kernels vs plain in f32 at 2 layers (the
+   loss and every gradient and update group, router and experts
+   included, within LM_BOUND) and in bf16 (granite at 8 layers, qwen3 at
+   2): the loss and every group outside the MoE within LM_BOUND, the
+   router's and the experts' gaps logged beside the share of identical
+   routing choices, position-wise and as sets.  (c) Two gradient steps of
+   each CLI model from one state on its first batch: every group the same
+   bits, and (e) the share of dropped assignments at that batch.  (d) The
+   causal Dh-64 flash backward at granite's training shape (4, 24, 1024,
+   64), 8 KV heads expanded: held against its plain version, launched
+   twice for the same bits, timed beside its bound, the plain version and
+   SDPA's backward over the expanded heads (row
+   ``flash_bwd_dh64_causal``).
+15. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
@@ -310,9 +330,9 @@ lm`` after the build and the decoder-LM phase, ``--only serve`` after the
 build and the deepseek serve phase (step 4), ``--only decoders`` after the
 build and the dense decoder variants phase (step 4b), ``--only moe``
 after the build and the MoE decoders phase (step 4c), ``--only
-variants_train`` and ``--only rwkv_train`` after the build and step 12 or
-13 (exit 2, no result line in each case); without arguments everything
-runs.
+variants_train``, ``--only rwkv_train`` and ``--only moe_train`` after
+the build and step 12, 13 or 14 (exit 2, no result line in each case);
+without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
 exits non-zero before printing any result.
@@ -3382,10 +3402,20 @@ def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
     kernels-vs-plain distance, which LM_BOUND judges all the same.  The
     largest group reading of each kind is returned (``grad_rel``,
     ``update_rel``), and with ``floor`` the largest floor of each kind
-    (``grad_floor``, ``update_floor``)."""
+    (``grad_floor``, ``update_floor``).
+
+    An MoE model: the top-k choices of both paths are recorded
+    (``routing_recorded``) and ``res["routing"]`` is their agreement
+    (``routing_share``: position-wise, as sets); in a 16-bit step the
+    router's and experts' groups (``moe_leaf``) stay out of ``grad_rel``
+    and ``update_rel`` and are returned apart, ``res["free"][kind][path]``:
+    a routing flip moves such a gradient by far more than rounding does,
+    an expert's leaf summing the tokens routed to it."""
     pol = make_policy(precision)
     batch_n, seq, accum = geometry
     held = held or {k: (None, False) for k in LM_HELD}
+    routing = cfg.has_moe
+    free = moe_leaf if routing and precision != "f32" else (lambda p: False)
     batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, batch_n,
                                           seq)), DEVICE)
     record = {name: [] for name in held}
@@ -3395,6 +3425,7 @@ def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
     ref = {"grad": {}, "update": {}}
     dist = {}
     runs = {}
+    routes = {}
     paths = [("torch", precision), (None, precision)]
     if floor:
         paths.append(("torch", "f32"))
@@ -3430,8 +3461,11 @@ def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
                                     for p, t in g.items()})
             else:
                 against_ref("grad", g, dist[key]["grad"])
+        routes[key] = []
         with (held_against_plain(ops, record, held)
-              if impl is None else contextlib.nullcontext()):
+              if impl is None else contextlib.nullcontext()), \
+                (routing_recorded(routes[key]) if routing
+                 else contextlib.nullcontext()):
             state, metrics = ts.train_step_fn(
                 state, batch, cfg=cfg, tcfg=tcfg, policy=make_policy(prec),
                 impl=impl, on_grads=keep)
@@ -3453,10 +3487,15 @@ def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
            "loss": (lk, lp), "finite": fin, "same_step": mk == mp,
            "step": mk, **call_summary(record)}
     notes = []
+    res["free"] = {}
+    if routing:
+        res["routing"] = routing_share(routes[paths[0]], routes[paths[1]],
+                                       cfg.n_layers)
     for kind in ("grad", "update"):
         # kernels vs plain: ||k - p|| / ||p||; the floor: ||f - p|| / ||f||
         rels = {p: d / max(n_ref, 1e-30) for p, (d, _, n_ref) in
                 dist[paths[1]][kind].items()}
+        res["free"][kind] = {p: rels.pop(p) for p in list(rels) if free(p)}
         floors = ({p: d / max(n, 1e-30) for p, (d, n, _) in
                    dist[paths[2]][kind].items()} if floor
                   else {p: 0.0 for p in rels})
@@ -3474,6 +3513,12 @@ def lm_train_parity(ops, api, ts, TrainConfig, make_policy, lm_batches,
         + f", rel {res['loss_rel']:.3e}; " + "; ".join(notes)
         + (f"; largest floors {res['grad_floor']:.3e} (gradients), "
            f"{res['update_floor']:.3e} (updates)" if floor else "")
+        + (f"; not held (routing): " + ", ".join(
+            f"{kind} {'.'.join(p)} {r:.3e}" for kind, v in res["free"].items()
+            for p, r in v.items()) if any(res["free"].values()) else "")
+        + (f"; routing kernels vs plain: {res['routing'][0]:.4f} of the "
+           f"(token, layer, slot) choices the same, {res['routing'][1]:.4f} "
+           f"in the other path's top-k set" if routing else "")
         + f" (LM_BOUND {bd}); step {mk} (kernels) vs "
         f"{mp} (plain); each kernel call vs plain on its inputs: " + ", ".join(
             f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
@@ -4324,16 +4369,18 @@ def path_cfg(train, arch: str, layers: int):
         ["--arch", arch, "--full", "--layers", str(layers)]))
 
 
-def train_launches(arch: str, n_groups: int) -> dict:
-    """The launches of LM_STEPS steps of ``arch``'s CLI run under LAMB,
-    derived: per micro-batch, an attention layer's flash forward runs
+def train_launches(arch: str, n_groups: int, optimizer: str = "lamb"
+                   ) -> dict:
+    """The launches of LM_STEPS steps of ``arch``'s CLI run under
+    ``optimizer``, derived: per micro-batch, an attention layer's flash forward runs
     twice (once more in the backward: the layer's recompute under the
     checkpoint) and its backward once (pre-pass, main pass and, over
     S / 128 > 1 KV tiles, the post-pass); an rwkv layer's wkv6 forward
     twice (the recompute; its backward is the chunked form's VJP, no
     kernel) and its two LayerNorms twice forward and once backward, the
     final norm once each (outside the checkpoint); LAMB's kernel once a
-    leaf group a step.  Nothing else launches."""
+    leaf group a step (never under AdamW).  An MoE layer launches nothing
+    of its own.  Nothing else launches."""
     layers, _, seq, accum = LM_PATHS[arch]
     mb = accum * LM_STEPS
     if arch == "rwkv6-1.6b":
@@ -4345,20 +4392,22 @@ def train_launches(arch: str, n_groups: int) -> dict:
         for k in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post",
                   f"flash_bwd_s{seq}"):
             want[k] = layers * mb
-    want["lamb_moments"] = n_groups * LM_STEPS
+    if optimizer == "lamb":
+        want["lamb_moments"] = n_groups * LM_STEPS
     return want
 
 
-def model_train_run(ops, train, arch: str) -> dict:
-    """``launch/train.py`` on ``arch``'s training path under LAMB, launch
-    counts zeroed just before and read just after: every step finite and
-    taken, the launches exactly ``train_launches``.  Returns the counts,
-    the history, the peak memory, the seconds and the config."""
+def model_train_run(ops, train, arch: str, optimizer: str = "lamb") -> dict:
+    """``launch/train.py`` on ``arch``'s training path under
+    ``optimizer``, launch counts zeroed just before and read just after:
+    every step finite and taken (an MoE model's router aux finite too),
+    the launches exactly ``train_launches``.  Returns the counts, the
+    history, the peak memory, the seconds and the config."""
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cfg, state, history = train.run(train_args(arch))
+    cfg, state, history = train.run(train_args(arch, optimizer))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -4370,12 +4419,14 @@ def model_train_run(ops, train, arch: str) -> dict:
     for r in history:
         log(f"{arch} train step {r['step']:.0f}: loss {r['loss']:.4f} "
             f"({r['loss'].hex()}), grad norm {r['grad_norm']:.4f}, lr "
-            f"{r['lr']:.3g}, skipped {bool(r['skipped'])}, {r['ms']:.1f} ms")
+            f"{r['lr']:.3g}, skipped {bool(r['skipped'])}, {r['ms']:.1f} ms"
+            + (f", router aux {r['router_aux']:.4f}" if cfg.has_moe else ""))
     if [r["step"] for r in history] != list(range(1, LM_STEPS + 1)) or any(
-            r["skipped"] or not np.isfinite(r["loss"]) for r in history):
+            r["skipped"] or not np.isfinite(r["loss"])
+            or not np.isfinite(r["router_aux"]) for r in history):
         raise AssertionError(f"{arch} train: expected {LM_STEPS} finite "
                              f"steps, got {history}")
-    want = train_launches(arch, n_groups)
+    want = train_launches(arch, n_groups, optimizer)
     got = {k: n for k, n in counts.items() if n}
     if got != want:
         raise AssertionError(f"{arch} train: launches {got}, expected "
@@ -4386,7 +4437,8 @@ def model_train_run(ops, train, arch: str) -> dict:
         f"{[m for m, _ in cfg.layer_kinds()]}, d_model {cfg.d_model}, "
         f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads, "
         f"{n_params / 1e9:.4f} B parameters in {n_groups} leaf groups; "
-        f"{batch} x {seq} tokens a step in {accum} micro-batches; step ms "
+        f"{batch} x {seq} tokens a step in {accum} micro-batches, "
+        f"{optimizer}; step ms "
         f"{[round(m, 1) for m in steps_ms]} (the first with the first "
         f"calls' set-up); launches {got}; peak device memory {peak:.2f} "
         f"GiB; {run_s:.1f} s (init included) on {nvidia_smi()}")
@@ -4416,7 +4468,8 @@ def flash_bwd_window_bound(b, h, s, dh, window, item=2):
                  10 * window_pairs(b, h, s, window) * dh)
 
 
-def train_flash(ops, fa, timer) -> dict:
+def train_flash(ops, fa, timer, shapes=(("gemma2", GEMMA_ATTN),
+                                        ("coder", CODER_ATTN))) -> dict:
     """(c) and (d): the flash forward and backward at gemma2's and the
     coder's training shapes (GEMMA_ATTN, CODER_ATTN) in bf16, K and V
     expanded over the group as ``layers.chunked_attention`` expands them,
@@ -4426,14 +4479,13 @@ def train_flash(ops, fa, timer) -> dict:
     backward over the same expanded heads (gemma2's softcap SDPA has
     not).  Also timed: the expansion's copy of K and V and the group sum
     of dK and dV that autograd adds, the cost a backward reading each KV
-    head once would save.  Returns the entries ``flash_fwd_<model>`` and
-    ``flash_bwd_<model>``."""
+    head once would save.  ``shapes``: (model, shape) pairs.  Returns the
+    entries ``flash_fwd_<model>`` and ``flash_bwd_<model>``."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dtype = torch.bfloat16
     entries = {}
-    for model, (b, h, kvh, s, dh, window, softcap) in (
-            ("gemma2", GEMMA_ATTN), ("coder", CODER_ATTN)):
+    for model, (b, h, kvh, s, dh, window, softcap) in shapes:
         name = f"flash_bwd_{model}"
         g = h // kvh
         kw = dict(causal=True, window=window, softcap=softcap)
@@ -4523,14 +4575,16 @@ def train_flash(ops, fa, timer) -> dict:
     return entries
 
 
-def coder_step_bits(api, ts, TrainConfig, make_policy, lm_batches,
-                    cfg) -> None:
-    """(c): two gradient steps of the coder (bf16, its training path's
-    first batch) from one state: every gradient group the same bits, the
-    attention's K and V groups (the group sum of the expansion) among
-    them."""
+def step_bits(api, ts, TrainConfig, make_policy, lm_batches, cfg,
+              arch: str):
+    """(c): two gradient steps of ``cfg`` (bf16, ``arch``'s training
+    path's first batch, an MoE model on the capacity path) from one
+    state: every gradient group the same bits (the coder's attention K
+    and V groups, the group sum of the expansion, among them).  An MoE
+    model's dispatches count their dropped assignments in the first
+    (e), logged."""
     pol = make_policy("bf16")
-    _, batch_n, seq, accum = LM_PATHS["deepseek-coder-33b"]
+    _, batch_n, seq, accum = LM_PATHS[arch]
     tcfg = TrainConfig(precision="bf16", accum_steps=accum,
                        optimizer="lamb")
     state = ts.init_train_state(
@@ -4538,20 +4592,28 @@ def coder_step_bits(api, ts, TrainConfig, make_policy, lm_batches,
         cfg=cfg)
     batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, batch_n,
                                           seq)), DEVICE)
-    grads = []
-    for _ in range(2):
-        grads.append(ts.step_gradients(state, batch, cfg=cfg, tcfg=tcfg,
-                                       policy=pol)[1])
+    grads, drops = [], []
+    for i in range(2):
+        with (drops_recorded(drops) if i == 0
+              else contextlib.nullcontext()):
+            grads.append(ts.step_gradients(state, batch, cfg=cfg, tcfg=tcfg,
+                                           policy=pol)[1])
         torch.cuda.synchronize()
     differ = [".".join(p) for p in grads[0]
               if not same_bits(grads[0][p], grads[1][p])]
-    log(f"deepseek-coder-33b ({cfg.n_layers} layers): two gradient steps "
-        f"from one state, {len(grads[0])} groups, {len(differ)} differ in "
-        f"any bit ({differ})")
+    n, dropped = sum(a for a, _ in drops), sum(d for _, d in drops)
+    log(f"{arch} ({cfg.n_layers} layers): two gradient steps from one "
+        f"state, {len(grads[0])} groups, {len(differ)} differ in any bit "
+        f"({differ})" + (f"; {dropped} of {n} assignments dropped "
+                         f"({dropped / n:.4f}) over {len(drops)} capacity-"
+                         f"path dispatches (forward and recompute, {accum} "
+                         f"micro-batches of {batch_n // accum} x {seq} "
+                         f"tokens) at capacity_factor {cfg.capacity_factor}"
+                         if drops else ""))
     del grads, state
     torch.cuda.empty_cache()
     if differ:
-        raise AssertionError(f"coder: gradient groups {differ} differ "
+        raise AssertionError(f"{arch}: gradient groups {differ} differ "
                              "between two steps from one state")
 
 
@@ -4586,8 +4648,8 @@ def variants_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
             LM_BOUND, arch)
         torch.cuda.empty_cache()
         if arch == "deepseek-coder-33b":
-            coder_step_bits(api, ts, TrainConfig, make_policy, lm_batches,
-                            cfg)
+            step_bits(api, ts, TrainConfig, make_policy, lm_batches, cfg,
+                      arch)
         log(f"{arch} training: {time.perf_counter() - t0:.1f} s")
     timer = Timer()
     entries = train_flash(ops, fa, timer)
@@ -4671,6 +4733,132 @@ def rwkv_train_phase(ops, train, api, ts, TrainConfig, make_policy,
     log(f"rwkv training phase on {nvidia_smi()}: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"entry": wkv["entry"], "run": run}
+
+
+# ---------------------------------------------------------------------------
+# training the MoE decoders
+# ---------------------------------------------------------------------------
+
+# each MoE decoder's CLI run and its optimizer (LM_PATHS: granite at 24 of
+# its 32 layers, qwen3 at 2 of its 48, 8 x 1024 tokens in 2 micro-batches)
+MOE_OPTIMIZER = {"granite-moe-3b-a800m": "lamb", "qwen3-moe-30b-a3b": "adamw"}
+# the bf16 kernels-vs-plain step's depth (the f32 one runs at
+# MOE_F32_LAYERS)
+MOE_BF16_LAYERS = {"granite-moe-3b-a800m": 8, "qwen3-moe-30b-a3b": 2}
+# granite's attention in training: a micro-batch of 4 x 1024, 24 query
+# heads over 8 KV heads (expanded), Dh 64, causal
+GRANITE_ATTN = (LM_BATCH // LM_ACCUM, 24, 8, LM_SEQ, 64, 0, 0.0)
+MOE_LEAVES = ("router", "wi", "wg", "wo")
+# granite's largest leaf group at its whole depth: blocks.mlp.wi (and wg),
+# 32 x 40 x 1536 x 512 elements (24 layers' 755 M run in the CLI)
+GRANITE_WI = 32 * 40 * 1536 * 512
+
+
+def moe_leaf(path) -> bool:
+    """An MoE layer's router or expert leaf group, ``blocks.mlp.wi``."""
+    return len(path) >= 2 and path[-2] == "mlp" and path[-1] in MOE_LEAVES
+
+
+def moe_lamb_check(ops, timer) -> None:
+    """LAMB over granite's whole-depth ``wi`` group (GRANITE_WI, 1.0 G
+    elements, its count past 2^29 float4 vectors): the moment kernel held
+    against its plain version a slice of HOLD_SLICE at a time, launched
+    twice for the same bits and timed beside its bytes bound; the whole
+    leaf step (``lamb_leaf_update``: the kernel, the trust ratio's two
+    norms, the update) against the same step with float64 norms of the
+    slices."""
+    n = GRANITE_WI
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    w, g = (torch.randn(n, generator=gen, device=DEVICE) for _ in range(2))
+    m = 0.1 * torch.randn(n, generator=gen, device=DEVICE)
+    v = (0.1 * torch.randn(n, generator=gen, device=DEVICE)).abs()
+    kw = dict(step=3, b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    got = ops.lamb_moments(w, g, m, v, **kw)
+    err = 0.0
+    for i in range(0, n, HOLD_SLICE):
+        cut = slice(i, i + HOLD_SLICE)
+        want = ops.lamb_moments(w[cut], g[cut], m[cut], v[cut], impl="torch",
+                                **kw)
+        err = max(err, *(check_close(f"lamb n={n} {name}", x[cut], y,
+                                     torch.float32)
+                         for x, y, name in zip(got, want, ("m", "v", "u"))))
+        del want
+    check_same_bits(f"lamb n={n}", got, ops.lamb_moments(w, g, m, v, **kw))
+    upd = got[2]
+    del got
+    times = timer.times(lambda: ops.lamb_moments(w, g, m, v, **kw), iters=5)
+    bd = bound(28 * n, 15 * n, torch.float32)
+    norms = [float(torch.linalg.vector_norm(x)) for x in (w, upd)]
+    exact = [sum(float(x[i:i + HOLD_SLICE].double().square().sum())
+                 for i in range(0, n, HOLD_SLICE)) ** 0.5 for x in (w, upd)]
+    rel = max(abs(a - b) / b for a, b in zip(norms, exact))
+    del upd
+    w2, _, _ = ops.lamb_leaf_update(w, g, m, v, lr=1e-3, **kw)
+    trust = exact[0] / exact[1]
+    # the update against w - lr * trust * update from float64 norms
+    upd_err = 0.0
+    for i in range(0, n, HOLD_SLICE):
+        cut = slice(i, i + HOLD_SLICE)
+        u = ops.lamb_moments(w[cut], g[cut], m[cut], v[cut], impl="torch",
+                             **kw)[2]
+        want = w[cut] - u * (1e-3 * trust)
+        upd_err = max(upd_err, float((w2[cut] - want).abs().max()))
+        del u, want
+    del w, g, m, v, w2
+    torch.cuda.empty_cache()
+    log(f"lamb n={n} (granite's blocks.mlp.wi at 32 layers): max err "
+        f"{err:.3e}, two launches the same bits; kernel {spread(times)}, "
+        f"bound {bd[0]:.4f} ms ({bd[1]}); the norms ||w||, ||update|| vs "
+        f"float64 sums of slices rel {rel:.3e}; the leaf step vs float64 "
+        f"trust max err {upd_err:.3e}")
+    if not rel <= 1e-5 or not upd_err <= TOL[torch.float32]:
+        raise AssertionError(f"lamb over {n} elements: norms rel {rel:.3e}, "
+                             f"leaf step max err {upd_err:.3e}")
+
+
+def moe_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
+                    lm_batches) -> dict:
+    """The MoE decoders' training at full width, depth cut (LM_PATHS), on
+    the capacity path: for each model (a) the CLI under its optimizer
+    (``model_train_run``), (b) one LAMB step kernels vs plain in f32 at
+    MOE_F32_LAYERS (every group held, routing logged) and in bf16 at
+    MOE_BF16_LAYERS (the router's and experts' groups logged beside the
+    routing agreement, every other group held), every flash and LAMB call
+    held, within LM_BOUND; (c) and (e) ``step_bits`` at the CLI's depth;
+    then (d) the causal Dh-64 flash backward at granite's training shape
+    and LAMB over granite's whole-depth ``wi`` group (``moe_lamb_check``).
+    Returns the kernel entry and the runs."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for arch, optimizer in MOE_OPTIMIZER.items():
+        t0 = time.perf_counter()
+        runs[arch] = model_train_run(ops, train, arch, optimizer)
+        _, batch_n, seq, accum = LM_PATHS[arch]
+        geometry = (batch_n, seq, accum)
+        res = lm_train_parity(ops, api, ts, TrainConfig, make_policy,
+                              lm_batches, path_cfg(train, arch,
+                                                   MOE_F32_LAYERS),
+                              "f32", geometry=geometry, tag=arch)
+        check_train_parity(res, LM_BOUND, arch)
+        torch.cuda.empty_cache()
+        res = lm_train_parity(ops, api, ts, TrainConfig, make_policy,
+                              lm_batches, path_cfg(train, arch,
+                                                   MOE_BF16_LAYERS[arch]),
+                              "bf16", geometry=geometry, tag=arch)
+        check_train_parity(res, LM_BOUND, arch)
+        torch.cuda.empty_cache()
+        step_bits(api, ts, TrainConfig, make_policy, lm_batches,
+                  runs[arch]["cfg"], arch)
+        log(f"{arch} training: {time.perf_counter() - t0:.1f} s")
+    timer = Timer()
+    entry_ = train_flash(ops, fa, timer, (("dh64_causal", GRANITE_ATTN),))[
+        "flash_bwd_dh64_causal"]
+    moe_lamb_check(ops, timer)
+    del timer
+    torch.cuda.empty_cache()
+    log(f"MoE training phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"entry": entry_, "runs": runs}
 
 
 def main(argv=None) -> int:
@@ -4770,6 +4958,11 @@ def main(argv=None) -> int:
         rwkv_train_phase(ops, *train_mods)
         log("rwkv training phase only: no other phase, no result")
         return 2
+    if only == "moe_train":
+        del timer
+        moe_train_phase(ops, fa, *train_mods)
+        log("MoE training phase only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -4842,6 +5035,10 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     rtrain = rwkv_train_phase(ops, *train_mods)
     entries.append(rtrain["entry"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mtrain = moe_train_phase(ops, fa, *train_mods)
+    entries.append(mtrain["entry"])
 
     serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
                   "prefix_unshared", "cohort")
@@ -4908,6 +5105,17 @@ def main(argv=None) -> int:
     for k in ("layernorm", "layernorm_bwd"):
         by_name[k] += rt_run[k]
     by_name["wkv6_train"] = rt_run["wkv6"]
+    # the MoE decoders' training runs of step 14: granite's causal Dh-64
+    # flash pair on the rows of that shape, qwen3's (Dh 128, S 1024) on the
+    # LM path's, granite's LAMB launches (qwen3 ran AdamW) on the LM's
+    mt_runs = {a: r["counts"] for a, r in mtrain["runs"].items()}
+    granite, qwen3 = (mt_runs[a] for a in MOE_OPTIMIZER)
+    by_name["flash_fwd_dh64_causal"] += granite["flash_fwd"]
+    by_name["flash_bwd_dh64_causal"] = granite["flash_bwd"]
+    for kind in ("fwd", "bwd"):
+        by_name[f"flash_{kind}_lm"] += qwen3[f"flash_{kind}"]
+    by_name["lamb_moments_lm"] += sum(c["lamb_moments"]
+                                      for c in mt_runs.values())
     log("flash_fwd launches: serve " + " + ".join(
         f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
         + f", train {launches['train']['flash_fwd']}, dense decoder "

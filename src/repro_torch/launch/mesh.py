@@ -189,10 +189,10 @@ def init_mesh(device="cuda", *, pods: int = 1, backend: Optional[str] = None,
     return mesh
 
 
-def _rank_main(fn, rank, world, init_file, mesh_kw, args):
+def _rank_main(fn, rank, world, init_file, mesh_kw, args, threads):
     if torch.device(mesh_kw.get("device", "cuda")).type == "cpu":
-        # ranks on the host's cores share them
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # ranks on the host's cores share the caller's threads
+        torch.set_num_threads(threads)
     mesh = init_mesh(rank=rank, world=world,
                      init_method=f"file://{init_file}", **mesh_kw)
     try:
@@ -207,17 +207,20 @@ def spawn(fn: Callable, world: int, *, args: Sequence = (),
     start method), each a rank of one process group over a ``file://``
     store in a new temporary directory; ``mesh_kw`` go to ``init_mesh``
     (``device``, ``pods``, ``backend``, ``share_device``, ``timeout_s``).
-    ``fn`` must be importable by name.  Waits at most ``wait_s`` in all
+    ``fn`` must be importable by name.  CPU ranks share the caller's
+    PyTorch threads (``torch.get_num_threads() // world``, at least one
+    each).  Waits at most ``wait_s`` in all
     and kills every rank still running then, or as soon as one rank has
     failed (its peers would wait out their collectives' timeout); raises
     unless every rank exited 0."""
     ctx = torch.multiprocessing.get_context("spawn")
+    threads = max(1, torch.get_num_threads() // world)
     t_end = time.monotonic() + wait_s
     with tempfile.TemporaryDirectory(prefix="repro_dp_") as tmp:
         init_file = str(Path(tmp) / "store")
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, init_file, mesh_kw,
-                                   tuple(args)))
+                                   tuple(args), threads))
                  for r in range(world)]
         try:
             for p in procs:

@@ -3,7 +3,7 @@ full training steps of BERT or of the decoder LM.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \
       [--full-width] [--steps 3] [--precision bf16] \
-      [--arch bert-large|deepseek-7b]
+      [--arch bert-large|deepseek-7b|granite-moe-3b-a800m|...]
 
 Builds bert-large (as published with ``--full-width``, else the 2-layer
 smoke variant) with seeded random weights and LAMB state, and times
@@ -29,7 +29,16 @@ instead, at its training path on one card (``LM_PATHS``, the table
 N``) at N layers, one phase of B x S tokens with accumulation 2:
 deepseek-7b at 4 layers, 8 x 1024; gemma2-27b at its first (local) layer,
 2 x 8192; qwen1.5-32b at 1 layer and deepseek-coder-33b at 2, 8 x 1024;
-rwkv6-1.6b whole (24 layers), 8 x 1024.  Needs a CUDA device.
+rwkv6-1.6b whole (24 layers), 8 x 1024; the MoE decoders on the capacity
+path (``TrainConfig.moe_impl`` "a2a"), granite-moe-3b-a800m at 24 of its
+32 layers and qwen3-moe-30b-a3b at 2 of its 48, 8 x 1024.  An MoE model's
+step gets one more line, ``train_step_lm_split``: the device ms of
+attention, the router, the expert products and the dispatch and combine,
+as ``profile_serve.py``'s ``decode_step_split`` takes them (the kernels
+launched inside ``record_function`` spans around those functions, in a
+third profiled loop): the forward's and the recompute's kernels; the
+backward's run on autograd's device thread, outside the spans, and are
+in ``backward_by_fn``.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ from repro_torch.configs import TrainConfig, get_config, smoke_variant
 from repro_torch.configs.base import InputShape
 from repro_torch.core.amp import make_policy
 from repro_torch.kernels import ops
-from repro_torch.launch.profile_serve import _phase
+from repro_torch.launch.profile_serve import _phase, _split
 from repro_torch.launch.train import model_config as train_model
 from repro_torch.launch.train import parse_args as train_args
 from repro_torch.models import api
@@ -55,7 +64,9 @@ PHASES = (("phase1", 128, 128), ("phase2", 512, 64))   # name, seq, batch
 LM_PATHS = {"deepseek-7b": (4, 8, 1024, 2), "gemma2-27b": (1, 2, 8192, 2),
             "qwen1.5-32b": (1, 8, 1024, 2),
             "deepseek-coder-33b": (2, 8, 1024, 2),
-            "rwkv6-1.6b": (24, 8, 1024, 2)}
+            "rwkv6-1.6b": (24, 8, 1024, 2),
+            "granite-moe-3b-a800m": (24, 8, 1024, 2),
+            "qwen3-moe-30b-a3b": (2, 8, 1024, 2)}
 
 
 def main(argv=None):
@@ -103,7 +114,11 @@ def main(argv=None):
             train_step_fn(state, data, cfg=cfg, tcfg=tcfg, policy=pol)
 
         step()   # warm-up: cuBLAS plans, allocator
-        _phase(f"train_step_{name}", step, args.steps, extra=_backward_fns)
+        res = _phase(f"train_step_{name}", step, args.steps,
+                     extra=_backward_fns)
+        if cfg.has_moe:
+            _split(f"train_step_{name}_split", step, args.steps,
+                   res["device_busy_ms"])
 
 
 def _device_us(e):

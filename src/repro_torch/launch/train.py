@@ -32,10 +32,17 @@ uninterrupted one, bit for bit: give both the same ``--steps``), and
 ``--arch`` takes every decoder the port runs: deepseek-7b, the dense
 variants gemma2-27b (sliding-window local and global layers, softcaps,
 post-norms, GeGLU, tied scaled embeddings), qwen1.5-32b (QKV biases) and
-deepseek-coder-33b (56 query heads over 8 KV heads), and rwkv6-1.6b,
-whose ``--seq`` must be at most 64 or a multiple of 64 (``min(64, S)``
-divides S: wkv6's chunk).  ``--smoke`` (the default) takes
-``smoke_variant`` of ``--arch``; ``--full`` takes it as published.
+deepseek-coder-33b (56 query heads over 8 KV heads), rwkv6-1.6b, whose
+``--seq`` must be at most 64 or a multiple of 64 (``min(64, S)`` divides
+S: wkv6's chunk), and the MoE decoders granite-moe-3b-a800m (40 experts
+top-8, tied embeddings) and qwen3-moe-30b-a3b (128 experts top-8,
+query/key norms).  An MoE model's loss adds ``router_aux_coef`` times the
+router's aux loss, logged as ``router aux`` in each step line;
+``--moe-impl`` picks its expert path: ``dense`` (every expert on every
+token), or ``a2a`` (the default) and ``replicated``, which on one card
+are both the reference's capacity path without a mesh (``_moe_single``,
+tokens past an expert's capacity dropped).  ``--smoke`` (the default)
+takes ``smoke_variant`` of ``--arch``; ``--full`` takes it as published.
 ``--device cuda`` (the default) runs the kernels of ``csrc/`` (the flash
 forward and backward at S^2 > 512^2, LayerNorm and its backward, the
 wkv6 forward, LAMB's moment kernel); ``--device cpu`` their plain
@@ -62,11 +69,7 @@ last.  ``--timing-breakdown`` times a compute twin and a serial twin at the
 start (``pretrain_bert.timing_calibration``), and the loop then logs
 ``compute_s``, ``exchange_s`` and ``overlap_frac``.  ``--pure-dp`` (ZeRO-1:
 the optimizer state sharded) is refused: it comes with the sharding
-slice.  The MoE decoders (granite-moe-3b-a800m, qwen3-moe-30b-a3b) serve
-but do not train yet: ``--arch`` of either exits naming the roadmap item
-that brings MoE training (``api.check_trainable``'s
-``NotImplementedError``), so ``--moe-impl``, the reference's flag and kept
-with its default, reaches no layer of any model this trainer takes.
+slice.
 """
 from __future__ import annotations
 
@@ -87,6 +90,7 @@ from repro_torch.data.pipeline import lm_batches
 from repro_torch.kernels import ops
 from repro_torch.launch.pretrain_bert import dp_mesh, timing_calibration
 from repro_torch.models import api
+from repro_torch.models.moe import MOE_IMPLS
 from repro_torch.train.train_step import (init_train_state,
                                           make_train_step_dp, train_step_fn)
 from repro_torch.train.trainer import train_loop
@@ -103,9 +107,8 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the model (full width with --full): a "
                     "multiple of the block pattern (gemma2-27b's 2: local, "
-                    "global) or fewer layers than it; deepseek-7b, "
-                    "qwen1.5-32b, deepseek-coder-33b and rwkv6-1.6b take "
-                    "any depth; default: the config's")
+                    "global) or fewer layers than it; the other decoders "
+                    "take any depth; default: the config's")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -135,7 +138,9 @@ def parse_args(argv=None):
     ap.add_argument("--pure-dp", action="store_true",
                     help="ZeRO-1 pure data parallelism (refused: the "
                     "sharding slice)")
-    ap.add_argument("--moe-impl", default="a2a")
+    ap.add_argument("--moe-impl", default="a2a", choices=MOE_IMPLS,
+                    help="an MoE model's expert path: dense, or the "
+                    "capacity path (a2a and replicated on one card)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=500)
     ap.add_argument("--resume", action="store_true",
@@ -195,8 +200,9 @@ def model_config(args):
 
 def run(argv=None):
     """Train; returns (cfg, final TrainState, history): one record a
-    logged step (``train_loop``'s metrics: step, loss, lm_loss, grad_norm,
-    lr, loss_scale, skipped, the step's wall ``ms`` (host clock, ending when
+    logged step (``train_loop``'s metrics: step, loss, lm_loss, router_aux
+    (0 without MoE layers), grad_norm, lr, loss_scale, skipped, the step's
+    wall ``ms`` (host clock, ending when
     the loss is read back) and the loop's counters).  With ``--dp`` every
     rank returns its own (the same numbers)."""
     args = parse_args(argv)
@@ -272,11 +278,13 @@ def _train(args, cfg, mesh):
         if not lead:
             return
         logger.info("step %d: loss %.4f, grad norm %.3f, lr %.3g, loss "
-                    "scale %g, %.1f ms", m["step"], m["loss"],
+                    "scale %g, %.1f ms%s", m["step"], m["loss"],
                     m.get("grad_norm", float("nan")),
                     m.get("lr", float("nan")),
                     m.get("loss_scale", float("nan")),
-                    m.get("ms", float("nan")))
+                    m.get("ms", float("nan")),
+                    f", router aux {m['router_aux']:.4f}" if cfg.has_moe
+                    else "")
         if args.loss_log:
             with open(args.loss_log, "a") as f:
                 f.write(json.dumps({"step": m["step"], "loss": m["loss"]})

@@ -5,13 +5,13 @@ batches, for BERT (the encoder) and the dense decoder LMs.
 The reference's ``ShapeDtypeStruct`` schema becomes ``BatchField`` (shape
 and numpy dtype); synthetic batches are drawn with numpy from a seed and
 moved to the device by ``to_device``.  Decoder training covers every
-layer the port runs (``transformer.check_supported``) but MoE: dense
-attention (full, sliding-window local and global; grouped-query heads,
-QKV biases, post-block norms, softcaps, tied and scaled embeddings, GeGLU)
-and RWKV-6.  ``lm_train_loss`` computes an MoE model's loss as the
-reference does (the router's aux loss added); training one is refused
-(``check_trainable``) until the trainer carries it.  Mamba,
-encoder-decoder and vision models are refused, each naming its slice.
+layer the port runs (``transformer.check_supported``): dense attention
+(full, sliding-window local and global; grouped-query heads, QKV biases,
+post-block norms, softcaps, tied and scaled embeddings, GeGLU), RWKV-6
+and Mixture-of-Experts MLPs, whose loss adds the router's aux loss as the
+reference's does (``lm_train_loss``; ``moe_impl`` picks the expert path).
+Mamba, encoder-decoder and vision models are refused
+(``check_trainable``), each naming its slice.
 The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
@@ -43,16 +43,9 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder must be one ``transformer.check_supported`` runs, without MoE
-    layers."""
-    if cfg.is_encoder_only:
-        return
-    T.check_supported(cfg)
-    if cfg.has_moe:
-        raise NotImplementedError(
-            "training MoE models (the router's aux loss in the train step, "
-            "--moe-impl, the expert leaves under LAMB) is the roadmap's "
-            "next MoE item (ROADMAP.md Queue 1 item 2b); they serve today")
+    decoder must be one ``transformer.check_supported`` runs."""
+    if not cfg.is_encoder_only:
+        T.check_supported(cfg)
 
 
 class _MeanNLL(torch.autograd.Function):
@@ -104,10 +97,11 @@ def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
     return loss, {"lm_loss": nll.detach(), "router_aux": aux.detach()}
 
 
-def make_loss_fn(cfg: ModelConfig, policy: Policy, *, remat: bool = False,
-                 impl=None):
+def make_loss_fn(cfg: ModelConfig, policy: Policy, *, moe_impl: str = "a2a",
+                 remat: bool = False, impl=None):
     """``loss_fn(params, batch) -> (loss, metrics)``: BERT's pretraining
-    loss for an encoder-only model, else ``lm_train_loss``."""
+    loss for an encoder-only model, else ``lm_train_loss`` with an MoE
+    model's layers on ``moe_impl``."""
     check_trainable(cfg)
     if cfg.is_encoder_only:
         def loss_fn(params, batch):
@@ -115,8 +109,8 @@ def make_loss_fn(cfg: ModelConfig, policy: Policy, *, remat: bool = False,
                                            remat=remat, impl=impl)
     else:
         def loss_fn(params, batch):
-            return lm_train_loss(params, batch, cfg, policy, remat=remat,
-                                 impl=impl)
+            return lm_train_loss(params, batch, cfg, policy,
+                                 moe_impl=moe_impl, remat=remat, impl=impl)
     return loss_fn
 
 

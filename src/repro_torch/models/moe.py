@@ -8,17 +8,19 @@ Plain tensor functions with the reference's names and semantics:
   went to expert e; P_e: its mean probability).
 * ``moe_dense``: every expert on every token, combined by the router's
   weights in the compute dtype.  The correctness oracle and the serving
-  default (``moe_impl="dense"``): it drops nothing, and a token's output
-  does not depend on the other tokens of the batch.
-* ``_moe_single``: the capacity path.  The T * k assignments are sorted
-  stably by expert (``_dispatch_indices``); each expert takes the first
-  C = max(1, ceil(T * k * capacity_factor / E)) of them in token order
-  into an (E, C, d) buffer (``_group_local``), the experts run as three
-  batched products (``_expert_ffn``) and the kept slots are combined back
-  by their weights (``_combine_local``).  An assignment past its expert's
-  C goes to the dump slot E * C and contributes 0.  Every token routes and
-  takes capacity, the pad tokens of a bucketed prefill among them, so C
-  and the drops depend on the batch as the reference's do.
+  stack's default (``moe_impl="dense"``): it drops nothing, and a token's
+  output does not depend on the other tokens of the batch.
+* ``_moe_single``: the capacity path, the trainer's default
+  (``TrainConfig.moe_impl`` "a2a", as the reference's).  The T * k
+  assignments are sorted stably by expert (``_dispatch_indices``); each
+  expert takes the first C = max(1, ceil(T * k * capacity_factor / E)) of
+  them in token order into an (E, C, d) buffer (``_group_local``), the
+  experts run as three batched products (``_expert_ffn``) and the kept
+  slots are combined back by their weights (``_combine_local``).  An
+  assignment past its expert's C goes to the dump slot E * C and
+  contributes 0.  Every token routes and takes capacity, the pad tokens of
+  a bucketed prefill among them, so C and the drops depend on the batch as
+  the reference's do.
 * ``moe_apply``: the entry point.
 
 The reference's mesh paths (``_moe_replicated`` and ``_moe_a2a``, which
@@ -31,6 +33,33 @@ The MoE has no Pallas kernel in the reference (its products are
 ``jnp.einsum`` outside any kernel), so here the router, the dispatch, the
 expert products (``torch.matmul`` / ``torch.bmm``, plain large products)
 and the combine are plain PyTorch.
+
+The backward, op by op.  No operation of either path sums with
+floating-point atomics on CUDA, so two backwards of one step give the same
+bits (``chip_smoke.py --only moe_train`` relaunches one to check):
+
+* the router's products, softmax, renormalisation and ``mean``: fixed-order
+  products and reductions;
+* ``topk``: its backward scatters the k weights' gradients into zeros at
+  the chosen experts, k distinct indices a row (no sum);
+* the counts ``f_e`` (``scatter_add_`` of ones): no gradient, as ``f_e``
+  has none in the reference; the aux loss reaches the router through
+  ``P_e`` alone;
+* ``_group_local``: a token's k copies are a broadcast view of it reshaped
+  to (T * k, d), whose backward sums the k copies' gradients over the k
+  axis, one fixed-order reduction.  (``repeat_interleave`` is an
+  ``index_select``, whose backward is an ``index_add_``: atomics, the k
+  copies summed in another order each run.)  The ``buf[dest] = ...``
+  scatter's backward gathers the buffer's gradient at ``dest``; the only
+  duplicate destination is the dump row, which is cut off before the
+  experts and so carries a gradient of 0;
+* ``_combine_local``: the gather's backward accumulates into the
+  processed buffer's gradient, and assignments collide only on the
+  appended zero row, whose gradient is cut off; every other row takes
+  one term;
+* ``_dense_combine``: the ``scatter`` of the top-k weights writes k
+  distinct columns a row, and its backward gathers them back; the combine
+  is a batched product.
 """
 from __future__ import annotations
 
@@ -130,7 +159,9 @@ def _group_local(xt, topk_idx, topk_w, n_experts: int, capacity: int):
     dest, keep = _dispatch_indices(topk_idx, n_experts, capacity)
     buf = torch.zeros((n_experts * capacity + 1, d), dtype=xt.dtype,
                       device=xt.device)
-    buf[dest] = xt.repeat_interleave(k, dim=0)     # (T * k, d): a token a slot
+    # (T * k, d), a token a slot: a broadcast view, whose backward sums the
+    # k copies in one order (the module docstring)
+    buf[dest] = xt[:, None].expand(t, k, d).reshape(t * k, d)
     return buf[:-1].reshape(n_experts, capacity, d), dest, keep
 
 

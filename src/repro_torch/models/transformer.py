@@ -317,7 +317,11 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
     which the reference always returns.  ``remat=True`` recomputes each
     layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
     as ``jax.checkpoint`` wraps the reference's scan body (one block: one
-    layer of a one-position ``block_pattern``)."""
+    layer of a one-position ``block_pattern``).  The checkpointed layer
+    returns its aux loss beside x, so the aux loss's gradient reaches the
+    router through the recompute; the recompute runs the forward's
+    operations on the same inputs, each deterministic (``models/moe.py``),
+    so it routes and dispatches every token as the forward did."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, (mixer, mlp) in zip(params["blocks"], cfg.layer_kinds()):

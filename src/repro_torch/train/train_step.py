@@ -261,7 +261,8 @@ def _scaled_gradients(state: TrainState, batch, *, cfg: ModelConfig,
     micro-batch)."""
     opt = state.opt
     loss_scale = make_loss_scale(policy)
-    loss_fn = api.make_loss_fn(cfg, policy, remat=tcfg.remat, impl=impl)
+    loss_fn = api.make_loss_fn(cfg, policy, moe_impl=tcfg.moe_impl,
+                               remat=tcfg.remat, impl=impl)
     # the compute copy, one leaf per layer tensor; in f32 the leaves share
     # the master's storage (nothing writes the master before the update)
     compute = policy.cast_params(opt.master)

@@ -30,6 +30,7 @@ from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.train import train_step as ts
 from repro_torch.train.checkpoint import (load_manifest, restore_checkpoint,
                                           save_checkpoint)
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("deepseek-7b"), n_blocks=2)
 CFG = smoke_variant(get_config("deepseek-7b"), n_blocks=2)
@@ -51,7 +52,8 @@ ADAMW_MOMENT_REL_L2 = 2e-4
 
 
 def _params(seed=0):
-    jp, _ = japi.init_params(jax.random.PRNGKey(seed), JCFG)
+    jp = jax.jit(lambda key: japi.init_params(key, JCFG)[0])(
+        jax.random.PRNGKey(seed))
     return jp, jax.tree_util.tree_map(np.asarray, jp)
 
 

@@ -21,6 +21,7 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.models import api, bert as TB
 from repro_torch.utils import tree_leaves, tree_map
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("bert-large"), d_model=128, n_blocks=2)
 CFG = smoke_variant(get_config("bert-large"), d_model=128, n_blocks=2)
@@ -32,7 +33,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def _jparams(seed=0):
-    jp, _ = japi.init_params(jax.random.PRNGKey(seed), JCFG)
+    jp = jax.jit(lambda key: japi.init_params(key, JCFG)[0])(
+        jax.random.PRNGKey(seed))
     return jp, jax.tree_util.tree_map(np.asarray, jp)
 
 
@@ -70,10 +72,10 @@ def test_loss_metrics_and_every_gradient_match_the_reference(s, b):
     jp, np_params = _jparams()
     batch = make_batch(s, b, s, api.mlm_positions_count(s), CFG.vocab_size)
     jpol = jmake_policy("f32")
-    (jloss, jmet), jgrads = jax.value_and_grad(
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p: JB.bert_pretrain_loss(
             p, {k: jnp.asarray(v) for k, v in batch.items()}, JCFG, jpol),
-        has_aux=True)(jp)
+        has_aux=True))(jp)
     tparams = bridge.params_from_jax(np_params, CFG, device="cpu")
     loss, metrics, grads = _port_loss_and_grads(tparams, batch)
     np.testing.assert_allclose(float(loss.detach()), float(jloss),

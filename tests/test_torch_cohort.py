@@ -17,6 +17,7 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.serve import scheduler as S
 from test_torch_prefix import COUNTERS
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("deepseek-7b"), n_blocks=2)
 CFG = smoke_variant(get_config("deepseek-7b"), n_blocks=2)
@@ -25,7 +26,8 @@ JPOL, POL = jmake_policy("f32"), make_policy("f32")
 
 @pytest.fixture(scope="module")
 def weights():
-    jp, _ = JT.init_model(jax.random.PRNGKey(0), JCFG)
+    jp = jax.jit(lambda key: JT.init_model(key, JCFG)[0])(
+        jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, jp)
     return jp, bridge.params_from_jax(np_params, CFG, device="cpu")
 

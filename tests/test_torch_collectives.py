@@ -41,6 +41,7 @@ from repro_torch.launch import mesh as M
 from repro_torch.utils import LeafGroups
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 REF_CODE = """
 import sys
@@ -159,7 +160,8 @@ def test_bucket_leaves_match_the_reference(bucket_bytes):
     into the reference's buckets of its gradient tree."""
     jcfg = jsmoke(jget_config("bert-large"), d_model=64)
     cfg = smoke_variant(get_config("bert-large"), d_model=64)
-    jparams, _ = japi.init_params(jax.random.PRNGKey(0), jcfg)
+    jparams = jax.jit(lambda key: japi.init_params(key, jcfg)[0])(
+        jax.random.PRNGKey(0))
     params = bridge.params_from_jax(
         jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
     groups = LeafGroups(params)

@@ -36,6 +36,7 @@ from repro_torch.models import api
 from repro_torch.train import train_step as ts
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 SUM_TOL = {"fp16": 1e-3, "int8": 5e-2}      # tests/test_compression.py:103
 

@@ -32,6 +32,7 @@ import pytest
 
 from conftest import SRC
 from repro_torch.launch import pretrain_bert
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 FLAGS = ["--grad-compression", "int8", "--overlap", "--timing-breakdown"]
 LOGGED = [("phase1", s) for s in range(1, 5)] + [("phase2", 1)]

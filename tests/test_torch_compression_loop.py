@@ -13,6 +13,7 @@ import pytest
 from repro_torch.launch import mesh as M
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 LOOP_CASES = ("one_rank_error", "budget", "transient")
 

@@ -38,6 +38,7 @@ from test_torch_dp import reference_params
 from test_torch_train import SCALAR_TOL
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 # buckets of 1 MiB: 8 of them, and the reference compiles its step in
 # well under the file's minute

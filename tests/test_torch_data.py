@@ -11,6 +11,7 @@ from repro.data import pipeline as jpipe
 from repro.data import tokenizer as jtok
 from repro_torch.data import pipeline as tpipe
 from repro_torch.data import tokenizer as ttok
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 @pytest.mark.parametrize("seq_len,n_pred", [(128, 20), (512, 80)])

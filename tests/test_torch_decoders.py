@@ -28,6 +28,7 @@ from repro_torch.core.amp import make_policy
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ARCHS = ("gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b")
 JPOL, POL = jmake_policy("f32"), make_policy("f32")
@@ -62,7 +63,8 @@ def _model(arch, n_blocks=1):
     smoke variant, the same perturbed weights on both sides."""
     jcfg = jsmoke(jget_config(arch), n_blocks=n_blocks)
     cfg = smoke_variant(get_config(arch), n_blocks=n_blocks)
-    jp, _ = JT.init_model(jax.random.PRNGKey(0), jcfg)
+    jp = jax.jit(lambda key: JT.init_model(key, jcfg)[0])(
+        jax.random.PRNGKey(0))
     np_params = _perturbed(jp, seed=1)
     return (jcfg, cfg, jax.tree_util.tree_map(jnp.asarray, np_params),
             bridge.params_from_jax(np_params, cfg, device="cpu"))

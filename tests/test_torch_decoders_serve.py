@@ -17,6 +17,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import scheduler as S
 from repro_torch.serve import serve_step as SS
 from test_torch_decoders import JPOL, LOGIT_TOL, _jdecode, _model
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 POL = make_policy("f32")
 # int8 pages: the same values quantised with the same rounding on both

@@ -32,6 +32,7 @@ from repro_torch.train import train_step as ts
 from test_torch_train import MASTER_TOL, MOMENT_TOL, SCALAR_TOL
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 STRATEGIES = ("psum", "ring")
 

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 from conftest import SRC
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 STEPS, CRASH = 13, 11
 LOGGED = [("phase1", s) for s in range(1, 13)] + [("phase2", 1)]

@@ -8,6 +8,7 @@ from test_torch_dp import (check_against_reference, check_agrees_with_psum,
                            check_every_rank_the_same, reference_params)
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 STRATEGIES = ("bucketed", "hierarchical")
 

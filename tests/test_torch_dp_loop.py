@@ -20,6 +20,7 @@ import pytest
 from repro_torch.launch import mesh as M
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 WORLD = 2
 

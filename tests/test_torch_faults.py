@@ -49,6 +49,7 @@ from repro_torch.train.checkpoint import (latest_step, load_manifest,
 from repro_torch.train.faults import (FaultInjector, FaultPlan,
                                       TransientStepError, torn_write)
 from repro_torch.train.trainer import NonFiniteBudgetError, train_loop
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 REPO = Path(__file__).resolve().parent.parent
 D_MODEL = 64
@@ -468,7 +469,8 @@ def ref_state():
     """The reference's ``TrainState`` of the smoke BERT with moments, step
     and loss scale away from their initial values (numpy leaves), and the
     port's state bridged from the same numbers."""
-    jparams, _ = japi.init_params(jax.random.PRNGKey(0), JCFG)
+    jparams = jax.jit(lambda key: japi.init_params(key, JCFG)[0])(
+        jax.random.PRNGKey(0))
     jstate = jts.init_train_state(jparams, jamp.make_policy("f32"),
                                   JTrainConfig())
     rng = np.random.default_rng(0)

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 from pathlib import Path
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"

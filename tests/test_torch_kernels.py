@@ -26,6 +26,7 @@ from repro_torch.kernels import layernorm as tln
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import wkv6 as twkv
 from repro_torch.launch import mutation_check
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 def _t(x):

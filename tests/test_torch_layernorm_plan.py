@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import layernorm as tln
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 # (rows, d) of the main paths: BERT-large phase 1 and 2, the MLM head at
 # its predicted positions (phase 1 and 2), the rwkv raw prefill, a raw

@@ -15,6 +15,7 @@ from repro.models import layers as JL
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.models import layers as L
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("deepseek-7b"))
 CFG = smoke_variant(get_config("deepseek-7b"))

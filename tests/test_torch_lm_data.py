@@ -15,6 +15,7 @@ from repro.data import pipeline as jpipe
 from repro.data import tokenizer as jtok
 from repro_torch.data import pipeline as tpipe
 from repro_torch.data import tokenizer as ttok
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 @pytest.mark.parametrize("seed,vocab,batch,seq", [(0, 512, 4, 64),

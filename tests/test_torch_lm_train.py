@@ -29,6 +29,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models import transformer as T
 from repro_torch.utils import tree_leaves, tree_map
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("deepseek-7b"), n_blocks=2)
 CFG = smoke_variant(get_config("deepseek-7b"), n_blocks=2)
@@ -41,7 +42,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def _params(seed=0):
-    jp, _ = japi.init_params(jax.random.PRNGKey(seed), JCFG)
+    jp = jax.jit(lambda key: japi.init_params(key, JCFG)[0])(
+        jax.random.PRNGKey(seed))
     return jp, jax.tree_util.tree_map(np.asarray, jp)
 
 
@@ -96,10 +98,10 @@ def test_lm_loss_and_every_gradient_match_the_reference(monkeypatch, s,
     S 64 neither runs."""
     jp, np_params = _params()
     tokens = _tokens(s, 2, s + 1)
-    (jloss, jmet), jgrads = jax.value_and_grad(
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p: japi.lm_train_loss(p, {"tokens": jnp.asarray(tokens)},
                                      JCFG, jamp.make_policy("f32"),
-                                     remat=remat), has_aux=True)(jp)
+                                     remat=remat), has_aux=True))(jp)
     calls = _count_flash(monkeypatch)
     loss, metrics, tgrads = _port_grads(np_params, lambda p: api.lm_train_loss(
         p, api.to_device({"tokens": tokens}, "cpu"), CFG,
@@ -127,7 +129,7 @@ def test_model_forward_and_gradient_through_the_flash_route(monkeypatch):
         logits, _ = JT.apply_lm(p, jnp.asarray(tokens), JCFG,
                                 jamp.make_policy("f32"))
         return jnp.mean(logits.astype(jnp.float32) ** 2)
-    jloss, jgrads = jax.value_and_grad(jloss_fn)(jp)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jloss_fn))(jp)
     calls = _count_flash(monkeypatch)
 
     def loss_of(p):
@@ -146,17 +148,23 @@ def test_model_forward_and_gradient_through_the_flash_route(monkeypatch):
 
 
 def test_decoder_training_refuses_what_later_slices_bring():
-    """A model with MoE layers (the MoE family's slice comes next) and an
-    encoder-decoder model are refused, each naming what it waits for."""
+    """A model with MoE layers trains now (its loss, parameters and batch
+    schema are the trainer's: the loss adds the router's aux loss); an
+    encoder-decoder model is refused, naming what it waits for."""
     pol = amp.make_policy("f32")
     moe = smoke_variant(get_config("deepseek-7b"))
-    moe = dataclasses.replace(moe, block_pattern=(("attn", "moe"),))
-    for fn in (lambda: api.make_loss_fn(moe, pol),
-               lambda: api.init_params(moe, device="cpu"),
-               lambda: api.train_batch_struct(
-                   moe, InputShape("t", 64, 2, "train"))):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            fn()
+    moe = dataclasses.replace(moe, block_pattern=(("attn", "moe"),),
+                              n_experts=4, top_k=2, moe_d_ff=64)
+    params = api.init_params(moe, device="cpu")
+    assert params["blocks"][0]["mlp"]["wi"].shape == (4, moe.d_model, 64)
+    batch = api.train_batch_struct(moe, InputShape("t", 64, 2, "train"))
+    assert batch["tokens"].shape == (2, 65)
+    tokens = api.to_device({"tokens": _tokens(3, 2, 65)}, "cpu")
+    loss, metrics = api.make_loss_fn(moe, pol)(params, tokens)
+    assert np.isfinite(float(loss)) and float(metrics["router_aux"]) > 0
+    assert float(loss) == pytest.approx(
+        float(metrics["lm_loss"]) + moe.router_aux_coef
+        * float(metrics["router_aux"]), rel=1e-6)
     whisper_like = dataclasses.replace(CFG, is_encoder_decoder=True)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         api.make_loss_fn(whisper_like, pol)

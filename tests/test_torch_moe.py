@@ -24,6 +24,7 @@ from repro.models import moe as JM
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.models import moe as M
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -1,7 +1,7 @@
 """The MoE decoders' forward values beside serving, against the JAX
 package on the weights of ``tests/test_torch_moe_serve.py`` (smoke
-sizes): ``lm_train_loss`` with ``router_aux`` (the refusal to train an
-MoE model beside it), qwen3's query/key norms on and off (the K each
+sizes): ``lm_train_loss`` with ``router_aux`` (and the trainer's
+``make_loss_fn``, the same loss), qwen3's query/key norms on and off (the K each
 cache holds is normed, then rotated), a bf16 forward with the share of
 identical routing choices printed beside the logits bound, and the CLIs'
 MoE flags.  Tolerances as in ``test_torch_moe_serve``."""
@@ -21,6 +21,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from test_torch_moe_serve import (ARCHS, BF16_LOGIT_REL_L2, JPOL, LOGIT_TOL,
                                   POL, _model, _tokens)
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 # ---------------------------------------------------------------------------
@@ -32,8 +33,9 @@ from test_torch_moe_serve import (ARCHS, BF16_LOGIT_REL_L2, JPOL, LOGIT_TOL,
 def test_lm_train_loss_adds_the_router_aux(arch, moe_impl):
     """``lm_train_loss`` at two blocks on (2, 25) tokens: the loss
     (lm_loss + 0.01 aux), lm_loss and router_aux as the reference's
-    (rtol 1e-5); ``aux_coef`` replaces the config's coefficient.  Training
-    an MoE model stays refused."""
+    (rtol 1e-5); ``aux_coef`` replaces the config's coefficient.  The
+    trainer's loss function (``make_loss_fn``, on ``moe_impl``) is the
+    same loss."""
     jcfg, cfg, jp, tp = _model(arch, 2)
     toks = _tokens(cfg, (2, 25), 3)
     jloss, jm = japi.lm_train_loss(jp, {"tokens": jnp.asarray(toks)}, jcfg,
@@ -51,8 +53,10 @@ def test_lm_train_loss_adds_the_router_aux(arch, moe_impl):
     jloss2, _ = japi.lm_train_loss(jp, {"tokens": jnp.asarray(toks)}, jcfg,
                                    JPOL, moe_impl=moe_impl, aux_coef=1.0)
     np.testing.assert_allclose(float(loss2), float(jloss2), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-        api.make_loss_fn(cfg, POL)
+    fn_loss, fn_m = api.make_loss_fn(cfg, POL, moe_impl=moe_impl)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    assert torch.equal(fn_loss, loss)
+    assert torch.equal(fn_m["router_aux"], m["router_aux"])
 
 
 # ---------------------------------------------------------------------------
@@ -175,11 +179,16 @@ def test_serve_cli_runs_on_cpu(arch, mode, moe_impl, caplog):
 def test_profile_serve_and_train_take_or_refuse_the_moe_archs():
     """``profile_serve --arch`` parses both MoE configs with ``--layers``
     and ``--moe-impl`` and then asks for the card it measures; the trainer
-    refuses them, naming the roadmap item that brings MoE training."""
+    takes them: one finite, taken step of each with its router aux."""
     from repro_torch.launch import profile_serve, train
     for arch in ARCHS:
         with pytest.raises(SystemExit, match="no CUDA device"):
             profile_serve.main(["--arch", arch, "--full-width", "--layers",
                                 "8", "--moe-impl", "a2a"])
-        with pytest.raises(SystemExit, match="Queue 1 item 2b"):
-            train.run(["--arch", arch, "--device", "cpu", "--steps", "1"])
+        cfg, state, history = train.run(
+            ["--arch", arch, "--device", "cpu", "--steps", "1", "--batch",
+             "2", "--seq", "16"])
+        assert cfg.has_moe and state.opt.step == 1
+        assert [r["step"] for r in history] == [1]
+        assert np.isfinite(history[0]["loss"]) and not history[0]["skipped"]
+        assert np.isfinite(history[0]["router_aux"])

@@ -38,6 +38,7 @@ from repro_torch.core.amp import make_policy
 from repro_torch.models import transformer as T
 from repro_torch.serve import scheduler as S
 from repro_torch.serve import serve_step as SS
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
 JPOL, POL = jmake_policy("f32"), make_policy("f32")
@@ -75,7 +76,8 @@ def _model(arch, n_blocks=1, qk_norm=None):
     if qk_norm is not None:
         jcfg = dataclasses.replace(jcfg, qk_norm=qk_norm)
         cfg = dataclasses.replace(cfg, qk_norm=qk_norm)
-    jp, _ = JT.init_model(jax.random.PRNGKey(0), jcfg)
+    jp = jax.jit(lambda key: JT.init_model(key, jcfg)[0])(
+        jax.random.PRNGKey(0))
     np_params = _perturbed(jp, seed=1)
     return (jcfg, cfg, jax.tree_util.tree_map(jnp.asarray, np_params),
             bridge.params_from_jax(np_params, cfg, device="cpu"))
@@ -144,8 +146,9 @@ def test_apply_lm_and_aux_match_jax(arch, moe_impl):
     experts: drops happen)."""
     jcfg, cfg, jp, tp = _model(arch, 2)
     toks = _tokens(cfg, (2, 24), 2)
-    want, jaux = JT.apply_lm(jp, jnp.asarray(toks), jcfg, JPOL,
-                             moe_impl=moe_impl)
+    want, jaux = jax.jit(functools.partial(
+        JT.apply_lm, cfg=jcfg, policy=JPOL, moe_impl=moe_impl))(
+            jp, jnp.asarray(toks))
     got, aux = T.apply_lm(tp, torch.from_numpy(toks), cfg, POL,
                           moe_impl=moe_impl, return_aux=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
@@ -171,8 +174,9 @@ def test_prefill_decode_matches_jax_and_forward(arch, moe_impl):
     full = T.apply_lm(tp, torch.from_numpy(toks), cfg, POL, moe_impl="dense")
     jstate = JT.init_decode_state(jcfg, b, s + 8, jnp.float32)
     tstate = T.init_decode_state(cfg, b, s + 8, torch.float32, device="cpu")
-    jl, jstate = JT.prefill(jp, jnp.asarray(toks[:, :s - 4]), jcfg, JPOL,
-                            state=jstate, **kw)
+    jl, jstate = jax.jit(functools.partial(
+        JT.prefill, cfg=jcfg, policy=JPOL, **kw))(
+            jp, jnp.asarray(toks[:, :s - 4]), state=jstate)
     tl, tstate = T.prefill(tp, torch.from_numpy(toks[:, :s - 4]), cfg, POL,
                            state=tstate, **kw)
     jstep = _jdecode(arch, moe_impl or "replicated")
@@ -220,8 +224,9 @@ def test_prefill_into_slot_matches_jax(arch, mode, moe_impl):
         T.set_block_tables(tstate, rows)
     toks = np.zeros((1, bucket), np.int32)
     toks[0, :length] = _tokens(cfg, (length,), 11)
-    jl, jstate = JSS.prefill_into_slot(jp, jnp.asarray(toks), length, jstate,
-                                       1, jcfg, JPOL, moe_impl=moe_impl)
+    jl, jstate = jax.jit(functools.partial(
+        JSS.prefill_into_slot, cfg=jcfg, policy=JPOL, moe_impl=moe_impl),
+        static_argnums=4)(jp, jnp.asarray(toks), length, jstate, 1)
     tl, tstate = SS.prefill_into_slot(tp, torch.from_numpy(toks), length,
                                       tstate, 1, cfg, POL, moe_impl=moe_impl)
     assert tstate["pos"].tolist() == [0, length]

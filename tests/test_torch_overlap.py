@@ -33,6 +33,7 @@ from repro_torch.launch import mesh as M
 from test_torch_dp import reference_params
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 SERIAL_VS_OVERLAP = (
     [dict(strategy="psum", accum=a) for a in (1, 2, 4)]

@@ -16,6 +16,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import paged_attention as tpa
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 # (slot, KV head) pairs and SM counts the plan is asked about: the serve
 # geometry (4 x 32 on an H100), one slot (path parity), a large batch, and

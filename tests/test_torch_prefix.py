@@ -24,6 +24,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import scheduler as S
 from repro_torch.serve import serve_step as SS
 from test_torch_scheduler import INT8_LOGIT_BOUND, LOGIT_TOL
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("deepseek-7b"), n_blocks=2)
 CFG = smoke_variant(get_config("deepseek-7b"), n_blocks=2)
@@ -42,7 +43,8 @@ COUNTERS = ("cohorts", "prefills", "decode_steps", "useful_tokens",
 
 @pytest.fixture(scope="module")
 def weights():
-    jp, _ = JT.init_model(jax.random.PRNGKey(0), JCFG)
+    jp = jax.jit(lambda key: JT.init_model(key, JCFG)[0])(
+        jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, jp)
     return jp, bridge.params_from_jax(np_params, CFG, device="cpu")
 

@@ -28,6 +28,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import scheduler as S
 from repro_torch.serve import serve_step as SS
 from repro_torch.serve.slot_state import SlotStateAdapter
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ARCH = "rwkv6-1.6b"
 JCFG = jsmoke(jget_config(ARCH), n_blocks=2)
@@ -41,7 +42,8 @@ STATE_KEYS = ("tm_shift", "wkv", "cm_shift")
 
 @pytest.fixture(scope="module")
 def weights():
-    jp, _ = JT.init_model(jax.random.PRNGKey(0), JCFG)
+    jp = jax.jit(lambda key: JT.init_model(key, JCFG)[0])(
+        jax.random.PRNGKey(0))
     # the reference initialises the mix and bonus vectors to constants
     # (zeros, ones, -6); perturb them so a swapped mix or a dropped bias
     # shows in the logits
@@ -96,7 +98,8 @@ def test_params_from_jax_round_trips_bit_exactly(weights):
 def test_init_model_is_seeded_with_the_reference_layout():
     a = T.init_model(CFG, seed=3, device="cpu")
     b = T.init_model(CFG, seed=3, device="cpu")
-    jp, _ = JT.init_model(jax.random.PRNGKey(0), JCFG)
+    jp = jax.jit(lambda key: JT.init_model(key, JCFG)[0])(
+        jax.random.PRNGKey(0))
     shapes = lambda tree, skip: {
         jax.tree_util.keystr(path): tuple(leaf.shape)[skip:]
         for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}

@@ -53,6 +53,7 @@ from test_torch_variants_step import (ADAMW_MOMENT_REL_L2,
                                       MASTER_TOL, MOMENT_TOL, SCALAR_TOL)
 
 import torch_dp_workers as W
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("rwkv6-1.6b"), n_blocks=2)
 CFG = smoke_variant(get_config("rwkv6-1.6b"), n_blocks=2)

@@ -34,6 +34,7 @@ from repro_torch.models import api
 from repro_torch.optim import warmup_poly_decay
 from repro_torch.train import phases
 from repro_torch.train import train_step as ts
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 JCFG = jsmoke(jget_config("bert-large"), d_model=128, n_blocks=2)
 CFG = smoke_variant(get_config("bert-large"), d_model=128, n_blocks=2)
@@ -107,7 +108,8 @@ def test_three_steps_match_the_reference_train_step(accum, precision):
     2**24 for a fourth step, which both packages must skip): loss and
     gradient norm within F16_SCALAR_TOL, every gradient group within
     F16_GRAD_REL_L2, and the loss-scale state and skip decision equal."""
-    jparams, _ = japi.init_params(jax.random.PRNGKey(0), JCFG)
+    jparams = jax.jit(lambda key: japi.init_params(key, JCFG)[0])(
+        jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     kw = dict(precision=precision, accum_steps=accum, optimizer="lamb",
               learning_rate=2e-3, warmup_steps=2, total_steps=3)

@@ -37,6 +37,7 @@ import pytest
 from conftest import SRC
 from repro_torch.launch import train as T
 from repro_torch.train.checkpoint import latest_step
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ARGS = ["--device", "cpu", "--steps", "7", "--batch", "2", "--seq", "32",
         "--precision", "f32", "--log-every", "1", "--ckpt-every", "3"]

@@ -23,6 +23,7 @@ from repro_torch.models import api
 from repro_torch.train import train_step as ts
 from test_torch_variants_train import (ARCHS, JPOL, POL, _cfgs, _key,
                                        _params, _tokens)
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 S = 640
 

@@ -46,6 +46,7 @@ from repro_torch.train import train_step as ts
 from repro_torch.train.checkpoint import (load_manifest, restore_checkpoint,
                                           save_checkpoint)
 from repro_torch.utils import tree_leaves, tree_map
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ARCHS = ("gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b")
 # f32 on both sides; the two differ in the order of sums (the flash

@@ -14,6 +14,7 @@ from repro.models import rwkv as JRW
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import wkv6 as twkv
 from repro_torch.models import rwkv as RW
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 # the reference test's tolerance (tests/test_kernels.py:161-162)
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import wkv6 as twkv
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 @pytest.fixture
