@@ -96,9 +96,10 @@
    (counted by group), the flash forward at every slot prefill (granite's
    causal at Dh 64); then ``path_parity`` in both modes: every flash and
    paged call held, logits kernels vs plain within
-   ``LOGIT_REL_L2_BOUND``, and the share of identical (token, layer, slot)
-   routing choices of the two paths logged (and of choices found in the
-   other path's top-k set); the same in f32 at 2 layers of each.  granite's capacity path
+   ``LOGIT_REL_L2_BOUND`` (the plain path run on the kernel path's expert
+   sets, ``routing_forced``), and the share of (token, layer, slot) choices
+   where the plain router chose as the kernel path did logged (and of
+   choices found in its top-k set); the same in f32 at 2 layers of each.  granite's capacity path
    (``moe_impl="a2a"``) on the same request: at capacity_factor = E no
    drop and the logits within the bf16 bound of ``dense``'s; at the
    config's 1.25 finite, its drops counted; and one "paged" scheduler run
@@ -107,6 +108,28 @@
    over 8 KV heads held and timed beside the plain version, the bound, a
    ``torch.sum`` of the same bytes (paged) and SDPA over the expanded heads
    (flash); those five rows join the kernel JSON line.
+4d. The hybrid jamba-1.5-large-398b at full width, its 8-layer block cut
+   to the first 4 layers ((attn, dense), (mamba, moe), (mamba, dense),
+   (mamba, moe): 23.02 B parameters, 42.88 GiB in bf16; a whole block
+   does not fit the card), bf16 weights seeded on the card, served as the
+   MoE decoders are (``serve_run``, ``moe_impl="dense"``) in "paged" and
+   "paged_int8": paged decode on the split kernel at G 8 (64 heads over
+   8 KV heads) only, the flash forward once a slot prefill, the mamba
+   layers' conv and ssm rows per slot beside the pages (``state_bytes``
+   and ``cache_bytes`` logged, both non-zero); ``path_parity`` in both
+   modes (every flash and paged call held; the logits of all 5 rows
+   within ``LOGIT_REL_L2_BOUND``, the plain path on the kernel path's
+   expert sets; routing agreement logged, and the router's top-k margin
+   wherever a read token would have taken another set) and
+   again in f32 at 2 layers ((attn, dense), (mamba, moe): 11.91 B,
+   44.4 GiB), where every row is held; the mamba rows and logits of a
+   padded slot prefill against an unpadded prefill of the same 777-token
+   prompt (the bits compared and logged, each relative L2 held within
+   ``LOGIT_REL_L2_BOUND``); the slot prefill and the 4-slot decode step
+   timed on the host clock; the peak device memory.  Then paged decode at G 8 over 8 KV heads (bf16 and int8
+   pages) and the causal flash forward at (1, 64, 1024, 128) over 8 KV
+   heads held and timed as in 4c; those three rows join the kernel JSON
+   line.
 5. Training kernel phase: the kernels of the BERT training path against
    their plain versions -- the flash backward (pre-pass, main pass and, in
    16 bits over more than one 128-key tile, the post-pass that adds the dQ
@@ -329,7 +352,8 @@ bf16 run (the losses (a) is held to) and the data-parallel phase, ``--only
 lm`` after the build and the decoder-LM phase, ``--only serve`` after the
 build and the deepseek serve phase (step 4), ``--only decoders`` after the
 build and the dense decoder variants phase (step 4b), ``--only moe``
-after the build and the MoE decoders phase (step 4c), ``--only
+after the build and the MoE decoders phase (step 4c), ``--only jamba``
+after the build and the jamba phase (step 4d), ``--only
 variants_train``, ``--only rwkv_train`` and ``--only moe_train`` after
 the build and step 12, 13 or 14 (exit 2, no result line in each case);
 without arguments everything runs.
@@ -374,6 +398,7 @@ DEVICE = "cuda"
 
 # full-width serve geometry
 BATCH, PREFILL_LEN, MAX_LEN, PAGE_SIZE = 4, 1024, 1040, 16
+SLOT_PROMPT = PREFILL_LEN * 3 // 4 + 9     # slot_run's prompt: 777 tokens
 SERVE_KERNELS = ("flash_fwd", "paged_decode")
 N_REQUESTS = 8
 # kernel-path vs plain-path logits (relative L2 over prefill + 4 decode
@@ -1117,6 +1142,9 @@ def wkv6_phase(ops, timer):
 # ---------------------------------------------------------------------------
 
 def serve_run(T, ops, sched_mod, cfg, params, pol, mode, moe_impl="dense"):
+    """The 8-request trace through ``ContinuousScheduler`` in ``mode``,
+    launch counts zeroed just before and read just after; returns (the
+    counts, the scheduler's ``ServeStats``)."""
     rng = np.random.default_rng(SEED + 2)
     sched = sched_mod.ContinuousScheduler(
         params, cfg, pol, batch=BATCH, max_len=MAX_LEN,
@@ -1156,8 +1184,10 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode, moe_impl="dense"):
         f"{st.decode_steps} decode steps, {st.useful_tokens} tokens in "
         f"{st.wall_s:.3f} s ({st.tokens_per_s:.1f} tok/s), decode "
         f"{step_ms:.3f} ms/step ({st.decode_tokens_per_s:.1f} tok/s), "
-        f"launches {counts}, KV cache {st.cache_bytes / 2**30:.3f} GiB")
-    return counts
+        f"launches {counts}, KV cache {st.cache_bytes / 2**30:.3f} GiB"
+        + (f", recurrent state {st.state_bytes / 2**20:.3f} MiB"
+           if st.state_bytes else ""))
+    return counts, st
 
 
 # one held kernel call: max abs error, within its tolerance, largest
@@ -1251,7 +1281,7 @@ def slot_run(T, serve_step, cfg, params, pol, mode, moe_impl, feed=None,
     step's argmax).  Returns (the 5 logits rows (5, V) in f32, the fed
     tokens)."""
     rng = np.random.default_rng(SEED + 3)
-    n = PREFILL_LEN * 3 // 4 + 9           # 777 tokens at the 1024 bucket
+    n = SLOT_PROMPT
     prompt = np.zeros((1, PREFILL_LEN), np.int32)
     prompt[0, :n] = rng.integers(0, cfg.vocab_size, size=n)
     toks = torch.from_numpy(prompt).to(DEVICE)
@@ -1281,16 +1311,20 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode,
     through the plain versions, fed the same tokens.  Each kernel call of
     the kernel path is also held against its plain version on that call's
     inputs (tolerance TOL), so rounding does not compound over the layers.
-    An MoE model's layers run ``moe_impl``.  Returns the readings (an MoE
-    model's with ``routing_share``: the share of identical (token, layer,
-    slot) top-k choices of the two paths); ``check_parity`` judges
-    them."""
+    An MoE model's layers run ``moe_impl``; its plain path takes the kernel path's expert sets at every
+    router call (``routing_forced``), so the two paths' logits differ by
+    the kernels' rounding and not by a near tie of the router, and every
+    row is held; its readings add ``routing_share`` (the share of (token,
+    layer, slot) top-k choices where the plain router, on its own inputs,
+    chose as the kernel path did), ``row_flips`` and ``flip_margins``.
+    ``check_parity`` judges the readings."""
     record = {"flash_attention": [], "paged_decode_attention": []}
-    feed, logits, routes = None, {}, {}
+    feed, logits, routes, margins = None, {}, {None: [], "torch": []}, []
     with held_against_plain(ops, record, {k: (pol.compute_dtype, False)
                                           for k in record}):
         for impl in (None, "torch"):
-            with routing_recorded(routes.setdefault(impl, [])):
+            with (routing_recorded(routes[None]) if impl is None else
+                  routing_forced(routes[None], routes["torch"], margins)):
                 logits[impl], feed = slot_run(T, serve_step, cfg, params,
                                               pol, mode, moe_impl, feed,
                                               impl=impl)
@@ -1298,15 +1332,29 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode,
     res = {"mode": mode, "dtype": pol.compute_dtype,
            "finite": bool(torch.isfinite(a).all()),
            "rel_l2": float((a - b).norm() / b.norm()),
+           "row_rel_l2": [rel_l2(x, y) for x, y in zip(a, b)],
            "max_abs": float((a - b).abs().max()), **call_summary(record)}
     routing = ""
     if cfg.has_moe:
+        n_moe = sum(mlp == "moe" for _, mlp in cfg.layer_kinds())
         res["routing_share"], res["routing_set_share"] = routing_share(
-            routes[None], routes["torch"], cfg.n_layers)
-        routing = (f"; identical routing choices {res['routing_share']:.4f}"
-                   f" of {sum(r.numel() for r in routes[None])} (token, "
+            routes[None], routes["torch"], n_moe)
+        res["flip_margins"] = read_token_flips(
+            routes[None], routes["torch"], margins, n_moe)
+        res["row_flips"] = [len(m) for m in res["flip_margins"]]
+        routing = (f"; the plain router on its own inputs chose as the "
+                   f"kernel path did in {res['routing_share']:.4f} of "
+                   f"{sum(r.numel() for r in routes[None])} (token, "
                    f"layer, slot), {res['routing_set_share']:.4f} of them in "
-                   "the other path's top-k set")
+                   "the kernel path's top-k set (the plain path ran the "
+                   "kernel path's sets); a row's read token would have "
+                   "taken another expert set in "
+                   f"{res['row_flips']} of its {n_moe} MoE layers, the "
+                   "plain router's top-k margins p_k - p_(k+1) there "
+                   + str([[f"{m:.2e}" for m in row]
+                          for row in res["flip_margins"]]))
+    routing += ("; logits rel L2 by row (prefill, decode 1-4) "
+                + ", ".join(f"{r:.3e}" for r in res["row_rel_l2"]))
     log(f"path parity {cfg.arch_id} {mode} {pol.compute_dtype}"
         f"{f' moe_impl={moe_impl}' if cfg.has_moe else ''}: prefill + 4 "
         "decode logits,"
@@ -1351,10 +1399,10 @@ def routing_share(a: list, b: list, n_layers: int):
     """(the share of identical (token, layer, slot) top-k choices, the
     share of (token, layer) expert sets' members found in the other's set)
     between two runs' ``routing_recorded`` records, which must hold the
-    same calls (a multiple of ``n_layers``, with the same shapes).  Two
-    experts swapped within a top-k differ in the first and not the
-    second; the output depends on the set (and the weights), not on the
-    order."""
+    same calls (a multiple of ``n_layers``, the model's MoE layers, with
+    the same shapes).  Two experts swapped within a top-k differ in the
+    first and not the second; the output depends on the set (and the
+    weights), not on the order."""
     if len(a) != len(b) or len(a) % n_layers or any(
             x.shape != y.shape for x, y in zip(a, b)):
         raise AssertionError(f"routing records differ in shape: {len(a)} "
@@ -1366,7 +1414,60 @@ def routing_share(a: list, b: list, n_layers: int):
     return same / n, in_set / n
 
 
+@contextlib.contextmanager
+def routing_forced(forced: list, natural: list, margins: list):
+    """While active, the n-th call of ``moe._router`` routes its tokens to
+    the expert ids ``forced[n]`` (a ``routing_recorded`` record), weighted
+    by its own probabilities at those ids, renormalised as the router
+    does; it appends its own top-k choice to ``natural`` and its top-k
+    margin p_k - p_(k+1) of each token to ``margins``."""
+    from repro_torch.models import moe
+    real = moe._router
+    calls = iter(forced)
+
+    def call(params, xt, cfg, policy):
+        probs, idx, _, aux = real(params, xt, cfg, policy)
+        ids = next(calls, None)
+        if ids is None or ids.shape != idx.shape:
+            raise AssertionError("forced routing: the router calls differ "
+                                 "from the recorded run's")
+        natural.append(idx)
+        top = probs.topk(cfg.top_k + 1, dim=-1).values
+        margins.append(top[:, -2] - top[:, -1])
+        w = probs.gather(-1, ids)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return probs, ids, w, aux
+
+    moe._router = call
+    try:
+        yield
+    finally:
+        moe._router = real
+
+
+def read_token_flips(a: list, b: list, margins: list, n_layers: int
+                     ) -> list:
+    """For each forward of ``slot_run`` (the prefill, then each decode
+    step), the top-k margins (``routing_forced``'s ``margins``) of the MoE
+    layers, of its ``n_layers``, where the token whose logits it returns
+    (the prompt's last true token, then the decode token) has another
+    expert set in record ``b`` than in record ``a`` (of the same
+    calls)."""
+    flips = []
+    for f in range(len(a) // n_layers):
+        t = SLOT_PROMPT - 1 if f == 0 else 0
+        calls = range(f * n_layers, (f + 1) * n_layers)
+        flips.append([
+            float(margins[c][t]) for c in calls
+            if not torch.equal(a[c][t].sort().values, b[c][t].sort().values)])
+    return flips
+
+
 def check_parity(res: dict) -> None:
+    """Raise unless ``path_parity``'s readings hold: finite logits, every
+    kernel called and every call within its tolerance, and the logits of
+    the two paths (an MoE model's plain path on the kernel path's expert
+    sets) within LOGIT_REL_L2_BOUND."""
     mode = res["mode"]
     if not res["finite"]:
         raise AssertionError(f"{mode}: non-finite kernel-path logits")
@@ -1376,9 +1477,10 @@ def check_parity(res: dict) -> None:
         if res["calls_outside"][k]:
             raise AssertionError(f"{mode}: {res['calls_outside'][k]} of {n} "
                                  f"{k} calls disagree with the plain version")
-    if not res["rel_l2"] <= LOGIT_REL_L2_BOUND[res["dtype"]]:
+    rel = res["rel_l2"]
+    if not rel <= LOGIT_REL_L2_BOUND[res["dtype"]]:
         raise AssertionError(f"{mode}: kernel path departs from the plain "
-                             f"path (rel L2 {res['rel_l2']:.3e})")
+                             f"path (rel L2 {rel:.3e})")
     # the paged calls also as a whole: elementwise, TOL is about half a
     # typical output value (~0.06 at the serve geometry)
     rel = res["call_max_rel"].get("paged_decode_attention")
@@ -3734,7 +3836,8 @@ def deepseek_serve_phase(T, ops, serve_step, sched_mod, get_config,
 
     launches = {}
     for mode in ("paged", "paged_int8"):
-        launches[mode] = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+        launches[mode] = serve_run(T, ops, sched_mod, cfg, params, pol,
+                                   mode)[0]
         torch.cuda.empty_cache()
     for mode in ("paged", "paged_int8"):
         check_parity(path_parity(T, serve_step, ops, cfg, params, pol, mode))
@@ -3980,8 +4083,8 @@ def decoder_yardsticks(ops) -> dict:
     serve geometry, bf16 and int8 pages).  Each held against its plain
     version first, then timed beside the plain version, one PyTorch op
     over the same bytes and an empty kernel; no single PyTorch call
-    computes either (SDPA has no softcap; there is no paged call)."""
-    from repro_torch.kernels import paged_attention as pa
+    computes either (SDPA has no softcap; there is no paged call; the
+    paged rows by ``paged_yardstick``)."""
     timer = Timer()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
     dtype = torch.bfloat16
@@ -4021,41 +4124,11 @@ def decoder_yardsticks(ops) -> dict:
         f"softcap: kernel {spread(nocap)}; "
         + yardstick_log(res, "torch.sum of the same bytes"))
     del q, k, v, o, ro, wide, same
-    mp = -(-MAX_LEN // PAGE_SIZE)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     h, kvh = CODER_HEADS
     for quant in (False, True):
-        lens = np.random.default_rng(500 + quant).integers(
-            600, MAX_LEN + 1, size=BATCH)
-        qd, kp, vp, bt, kvl, sc = paged_inputs(
-            gen, lens, h=h, kvh=kvh, dh=128, mp=mp, dtype=dtype, quant=quant)
-        args = (qd, kp, vp, bt, kvl)
-        tag = (f"paged_decode{'_int8' if quant else ''} G 7 ({h} heads over "
-               f"{kvh}) B={BATCH} split {pa.split_plan(mp, BATCH * kvh, n_sm)}")
-        ops.reset_launch_counts()
-        err = paged_check(ops, tag, args, sc, dtype)
-        if ops.launch_counts().get("paged_decode_split") != 1:
-            raise AssertionError(f"{tag}: not on the split kernel")
-        first = ops.paged_decode_attention(*args, **sc)
-        second = ops.paged_decode_attention(*args, **sc)
-        torch.cuda.synchronize()
-        check_same_bits(tag, (first,), (second,))
-        nbytes = paged_bytes(lens, kp, qd, quant)
-        same = torch.ones(nbytes // 4, device=DEVICE)
-        res = yardstick_times(
-            timer, lambda: ops.paged_decode_attention(*args, **sc),
-            lambda: same.sum())
-        plain = timer.times(lambda: ops.paged_decode_attention(
-            *args, impl="torch", **sc))
-        bd = bound(nbytes, 4 * int(lens.sum()) * h * 128, dtype)
-        out[f"paged_g7{'_int8' if quant else ''}"] = dict(
-            err=err, ms=float(np.mean(res["times"])), plain_ms=median(plain),
-            bound_ms=bd[0], bound_by=bd[1], library_ms=None)
-        log(f"{tag} (kv_len {lens.tolist()}): max err {err:.3e}, the same "
-            f"bits on relaunch; kernel {spread(res['times'])}, plain median "
-            f"{median(plain):.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
-            "library none; " + yardstick_log(res, "torch.sum of the same "
-                                                  "bytes"))
+        name = f"paged_decode_g7{'_int8' if quant else ''}"
+        out[name] = paged_yardstick(ops, timer, gen, name, h, kvh, 128, quant,
+                                    500 + quant, "deepseek-coder-33b")
     return out
 
 
@@ -4094,7 +4167,7 @@ def decoders_phase(T, ops, serve, serve_step, sched_mod, get_config,
             f"over {cfg.n_kv_heads} KV heads, QKV bias {cfg.qkv_bias}")
         for mode in ("paged", "paged_int8"):
             launches[f"{arch} {mode}"] = serve_run(T, ops, sched_mod, cfg,
-                                                   params, pol, mode)
+                                                   params, pol, mode)[0]
             torch.cuda.empty_cache()
         for mode in ("paged", "paged_int8"):
             check_parity(path_parity(T, serve_step, ops, cfg, params, pol,
@@ -4174,72 +4247,68 @@ def moe_capacity_check(T, serve_step, cfg, params, pol) -> dict:
     return out
 
 
-def moe_yardsticks(ops) -> dict:
-    """The new path shapes timed: paged decode at granite's G 3 (24 heads
-    over 8 at Dh 64) and qwen3's G 8 (32 over 4 at Dh 128), bf16 and int8
-    pages at the serve geometry, each held against its plain version,
-    launched twice for the same bits and timed beside the plain version,
-    the bytes bound, a ``torch.sum`` of the same bytes and an empty kernel;
-    and granite's causal flash forward at Dh 64, (1, 24, 1024, 64) over 8
-    KV heads, held and timed beside SDPA over the heads expanded to 24
-    (the library call; the port never calls it), the plain version and
-    the bound."""
+def paged_yardstick(ops, timer, gen, name, h, kvh, dh, quant, seed,
+                    label) -> dict:
+    """Paged decode of ``h`` query heads over ``kvh`` KV heads at ``dh``
+    (G = h // kvh), bf16 or int8 pages at the serve geometry (BATCH slots of
+    600-MAX_LEN tokens, their lengths drawn from ``seed``): held against its
+    plain version, on the split kernel at G, launched twice for the same
+    bits and timed beside the plain version, the bytes bound, a
+    ``torch.sum`` of the same bytes and an empty kernel.  Returns its row
+    of the kernel JSON line (``label`` names the model in the log)."""
     from repro_torch.kernels import paged_attention as pa
-    timer = Timer()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
     dtype = torch.bfloat16
+    g = h // kvh
     mp = -(-MAX_LEN // PAGE_SIZE)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    out = {}
-    for arch, (h, kvh, dh) in MOE_HEADS.items():
-        g = h // kvh
-        for quant in (False, True):
-            lens = np.random.default_rng(600 + g + quant).integers(
-                600, MAX_LEN + 1, size=BATCH)
-            qd, kp, vp, bt, kvl, sc = paged_inputs(
-                gen, lens, h=h, kvh=kvh, dh=dh, mp=mp, dtype=dtype,
-                quant=quant)
-            args = (qd, kp, vp, bt, kvl)
-            name = f"paged_decode_g{g}{'_int8' if quant else ''}"
-            tag = (f"{name} ({arch}: {h} heads over {kvh}, Dh {dh}) B={BATCH}"
-                   f" split {pa.split_plan(mp, BATCH * kvh, n_sm)}")
-            ops.reset_launch_counts()
-            err = paged_check(ops, tag, args, sc, dtype)
-            counts = ops.launch_counts()
-            if counts.get("paged_decode_split") != 1 or \
-                    counts.get(f"paged_decode_g{g}") != 1:
-                raise AssertionError(f"{tag}: not on the split kernel at "
-                                     f"G {g}: {counts}")
-            first = ops.paged_decode_attention(*args, **sc)
-            second = ops.paged_decode_attention(*args, **sc)
-            torch.cuda.synchronize()
-            check_same_bits(tag, (first,), (second,))
-            nbytes = paged_bytes(lens, kp, qd, quant)
-            same = torch.ones(nbytes // 4, device=DEVICE)
-            res = yardstick_times(
-                timer, lambda: ops.paged_decode_attention(*args, **sc),
-                lambda: same.sum())
-            plain = timer.times(lambda: ops.paged_decode_attention(
-                *args, impl="torch", **sc))
-            bd = bound(nbytes, 4 * int(lens.sum()) * h * dh, dtype)
-            out[name] = entry(name, "paged_decode.cu",
-                              "paged_attention.py:160", err,
-                              float(np.mean(res["times"])), median(plain),
-                              *bd, None)
-            log(f"{tag} (kv_len {lens.tolist()}): max err {err:.3e}, the "
-                f"same bits on relaunch; kernel {spread(res['times'])}, "
-                f"plain median {median(plain):.4f} ms, bound {bd[0]:.4f} ms "
-                f"({bd[1]}), library none; "
-                + yardstick_log(res, "torch.sum of the same bytes"))
-            del qd, kp, vp, same
-    b, (h, kvh, dh), s = 1, MOE_HEADS["granite-moe-3b-a800m"], PREFILL_LEN
+    lens = np.random.default_rng(seed).integers(600, MAX_LEN + 1,
+                                                size=BATCH)
+    qd, kp, vp, bt, kvl, sc = paged_inputs(gen, lens, h=h, kvh=kvh, dh=dh,
+                                           mp=mp, dtype=dtype, quant=quant)
+    args = (qd, kp, vp, bt, kvl)
+    tag = (f"{name} ({label}: {h} heads over {kvh}, Dh {dh}) B={BATCH} "
+           f"split {pa.split_plan(mp, BATCH * kvh, n_sm)}")
+    ops.reset_launch_counts()
+    err = paged_check(ops, tag, args, sc, dtype)
+    counts = ops.launch_counts()
+    if counts.get("paged_decode_split") != 1 or \
+            counts.get(f"paged_decode_g{g}") != 1:
+        raise AssertionError(f"{tag}: not on the split kernel at G {g}: "
+                             f"{counts}")
+    first = ops.paged_decode_attention(*args, **sc)
+    second = ops.paged_decode_attention(*args, **sc)
+    torch.cuda.synchronize()
+    check_same_bits(tag, (first,), (second,))
+    nbytes = paged_bytes(lens, kp, qd, quant)
+    same = torch.ones(nbytes // 4, device=DEVICE)
+    res = yardstick_times(
+        timer, lambda: ops.paged_decode_attention(*args, **sc),
+        lambda: same.sum())
+    plain = timer.times(lambda: ops.paged_decode_attention(
+        *args, impl="torch", **sc))
+    bd = bound(nbytes, 4 * int(lens.sum()) * h * dh, dtype)
+    log(f"{tag} (kv_len {lens.tolist()}): max err {err:.3e}, the same bits "
+        f"on relaunch; kernel {spread(res['times'])}, plain median "
+        f"{median(plain):.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), library "
+        "none; " + yardstick_log(res, "torch.sum of the same bytes"))
+    return entry(name, "paged_decode.cu", "paged_attention.py:160", err,
+                 median(res["times"]), median(plain), *bd, None)
+
+
+def causal_flash_yardstick(ops, timer, gen, name, h, kvh, dh) -> dict:
+    """The causal flash forward of one slot prefill, (1, h, PREFILL_LEN,
+    dh) over ``kvh`` KV heads in bf16: held against its plain version and
+    timed beside SDPA over the heads expanded to ``h`` (the library call;
+    the port never calls it), the plain version and the bound.  Returns
+    its row of the kernel JSON line."""
+    b, s, dtype = 1, PREFILL_LEN, torch.bfloat16
     q = torch.randn(b, h, s, dh, generator=gen, device=DEVICE).to(dtype)
     k, v = (torch.randn(b, kvh, s, dh, generator=gen, device=DEVICE).to(
         dtype) for _ in range(2))
     o, lse = ops.flash_attention(q, k, v, causal=True)
     ro, rlse = ops.flash_attention(q, k, v, causal=True, impl="torch")
     torch.cuda.synchronize()
-    tag = f"flash {(b, h, s, dh)} over {kvh} KV heads, causal, bf16"
+    tag = f"{name}: flash {(b, h, s, dh)} over {kvh} KV heads, causal, bf16"
     err = check_grad(tag + " out", o, ro, dtype)[0]
     check_grad(tag + " lse", lse, rlse, dtype)
     times = timer.times(lambda: ops.flash_attention(q, k, v, causal=True))
@@ -4249,12 +4318,31 @@ def moe_yardsticks(ops) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = timer.times(lambda: sdpa(q, ke, ve, is_causal=True))
     bd = flash_window_bound(b, h, kvh, s, dh, s)
-    out["flash_fwd_dh64_causal"] = entry(
-        "flash_fwd_dh64_causal", "flash_fwd.cu", "flash_attention.py:132",
-        err, float(np.mean(times)), median(plain), *bd, float(np.mean(lib)))
     log(f"{tag}: max err {err:.3e}; kernel {spread(times)}, plain median "
         f"{median(plain):.4f} ms, SDPA over the expanded heads "
         f"{spread(lib)}, bound {bd[0]:.4f} ms ({bd[1]})")
+    return entry(name, "flash_fwd.cu", "flash_attention.py:132", err,
+                 median(times), median(plain), *bd, median(lib))
+
+
+def moe_yardsticks(ops) -> dict:
+    """The new path shapes timed: paged decode at granite's G 3 (24 heads
+    over 8 at Dh 64) and qwen3's G 8 (32 over 4 at Dh 128), bf16 and int8
+    pages at the serve geometry (``paged_yardstick``), and granite's
+    causal flash forward at Dh 64, (1, 24, 1024, 64) over 8 KV heads
+    (``causal_flash_yardstick``)."""
+    timer = Timer()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    out = {}
+    for arch, (h, kvh, dh) in MOE_HEADS.items():
+        g = h // kvh
+        for quant in (False, True):
+            name = f"paged_decode_g{g}{'_int8' if quant else ''}"
+            out[name] = paged_yardstick(ops, timer, gen, name, h, kvh, dh,
+                                        quant, 600 + g + quant, arch)
+    h, kvh, dh = MOE_HEADS["granite-moe-3b-a800m"]
+    out["flash_fwd_dh64_causal"] = causal_flash_yardstick(
+        ops, timer, gen, "flash_fwd_dh64_causal", h, kvh, dh)
     return out
 
 
@@ -4291,7 +4379,7 @@ def moe_phase(T, ops, serve_step, sched_mod, get_config,
             f"{cfg.n_kv_heads} KV heads (G {g}) at Dh {cfg.head_dim}, "
             f"query/key norms {cfg.qk_norm}")
         for mode in ("paged", "paged_int8"):
-            c = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+            c = serve_run(T, ops, sched_mod, cfg, params, pol, mode)[0]
             if c.get(f"paged_decode_g{g}") != c["paged_decode"]:
                 raise AssertionError(f"{arch} {mode}: paged decode off G "
                                      f"{g}: {c}")
@@ -4305,7 +4393,8 @@ def moe_phase(T, ops, serve_step, sched_mod, get_config,
         if arch == "granite-moe-3b-a800m":
             moe_capacity_check(T, serve_step, cfg, params, pol)
             launches[f"{arch} paged a2a"] = serve_run(
-                T, ops, sched_mod, cfg, params, pol, "paged", moe_impl="a2a")
+                T, ops, sched_mod, cfg, params, pol, "paged",
+                moe_impl="a2a")[0]
         del params
         torch.cuda.empty_cache()
         # the same hold in f32 at 2 layers
@@ -4326,6 +4415,221 @@ def moe_phase(T, ops, serve_step, sched_mod, get_config,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; MoE phase on "
         f"{nvidia_smi()}: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "routing": routing, "entries": yard}
+
+# ---------------------------------------------------------------------------
+# the hybrid jamba-1.5-large-398b (attention, mamba and MoE)
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+# the first 4 layers of its 8-layer block at full width: (attn, dense),
+# (mamba, moe), (mamba, dense), (mamba, moe), 23.02 B parameters (42.88
+# GiB in bf16); a whole block (45.2 B, 84.3 GiB) does not fit the card
+JAMBA_LAYERS = 4
+# the kernels-vs-plain hold in f32: (attn, dense), (mamba, moe), 11.91 B
+# parameters (44.4 GiB)
+JAMBA_F32_LAYERS = 2
+# (query heads, KV heads, Dh): paged decode at G 8 over 8 KV heads
+JAMBA_HEADS = (64, 8, 128)
+
+
+def jamba_padding(T, serve_step, cfg, params, pol) -> dict:
+    """The exactness contract on the card: ``slot_run``'s 777-token prompt
+    prefilled right-padded to the 1024-token bucket (``prefill_into_slot``)
+    and unpadded (777 wide, ``lengths`` 777, ``transformer.prefill``), each
+    into a fresh one-slot paged state.  Logged per mamba layer: whether
+    ``conv`` and ``ssm`` hold the same bits, and their relative L2; and the
+    logits' relative L2.  The masked scan is exact; the layers' products
+    at 1024 and at 777 rows may be tiled differently by cuBLAS, and the
+    attention layer's flash forward sees a different key count, so the
+    bits may differ: every relative L2 is held within
+    LOGIT_REL_L2_BOUND."""
+    rng = np.random.default_rng(SEED + 3)
+    n = SLOT_PROMPT
+    prompt = rng.integers(0, cfg.vocab_size, size=n)
+    mp = -(-MAX_LEN // PAGE_SIZE)
+    runs = {}
+    for width in (PREFILL_LEN, n):
+        toks = np.zeros((1, width), np.int32)
+        toks[0, :n] = prompt
+        toks = torch.from_numpy(toks).to(DEVICE)
+        paged = T.PagedCacheConfig(page_size=PAGE_SIZE, num_pages=1 + mp)
+        state = T.init_decode_state(cfg, 1, MAX_LEN, pol.compute_dtype,
+                                    paged=paged, device=DEVICE)
+        T.set_block_tables(state, np.arange(1, 1 + mp, dtype=np.int32))
+        if width == PREFILL_LEN:
+            lg, state = serve_step.prefill_into_slot(params, toks, n, state,
+                                                     0, cfg, pol)
+        else:
+            lg, state = T.prefill(params, toks, cfg, pol, state=state,
+                                  lengths=torch.tensor([n], device=DEVICE),
+                                  moe_impl="dense")
+            lg = lg[0]
+        runs[width] = (lg.float(), state)
+    (lp, sp), (lu, su) = runs[PREFILL_LEN], runs[n]
+    rows = {}
+    for i, (a, b) in enumerate(zip(sp["blocks"], su["blocks"])):
+        for key in ("conv", "ssm"):
+            if key in a:
+                rows[f"layer {i} {key}"] = (same_bits(a[key], b[key]),
+                                            rel_l2(a[key], b[key]))
+    logits = rel_l2(lp, lu)
+    bound_ = LOGIT_REL_L2_BOUND[pol.compute_dtype]
+    log(f"{cfg.arch_id} {pol.compute_dtype} padded ({PREFILL_LEN}) vs "
+        f"unpadded ({n}) prefill of one {n}-token prompt: " + ", ".join(
+            f"{k} {'same bits' if same else f'rel L2 {r:.3e}'}"
+            for k, (same, r) in rows.items())
+        + f"; logits rel L2 {logits:.3e} (bound {bound_})")
+    worst = max([r for _, r in rows.values()] + [logits])
+    if not worst <= bound_:
+        raise AssertionError(f"padded vs unpadded prefill: rel L2 "
+                             f"{worst:.3e} above {bound_}")
+    return {"rows": rows, "logits_rel_l2": logits}
+
+
+def jamba_times(T, serve_step, cfg, params, pol) -> dict:
+    """Host-clock times, each ending in a synchronize, on a 4-slot paged
+    state: the slot prefill of a 777-token prompt in the 1024 bucket (one
+    warm-up, then 3), and 16 decode steps of the 4 filled slots (one
+    warm-up step first).  Returns the lists in ms."""
+    rng = np.random.default_rng(SEED + 4)
+    n = SLOT_PROMPT
+    mp = -(-MAX_LEN // PAGE_SIZE)
+    paged = T.PagedCacheConfig(page_size=PAGE_SIZE,
+                               num_pages=1 + BATCH * mp)
+    state = T.init_decode_state(cfg, BATCH, MAX_LEN, pol.compute_dtype,
+                                paged=paged, device=DEVICE)
+    T.set_block_tables(state, 1 + np.arange(BATCH * mp, dtype=np.int32)
+                       .reshape(BATCH, mp))
+    toks = np.zeros((BATCH, PREFILL_LEN), np.int32)
+    toks[:, :n] = rng.integers(0, cfg.vocab_size, size=(BATCH, n))
+    toks = torch.from_numpy(toks).to(DEVICE)
+    prefill_ms = []
+    for i in range(BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_step.prefill_into_slot(params, toks[i:i + 1], n, state, i,
+                                     cfg, pol)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    cur = torch.zeros((BATCH, 1), dtype=torch.int64, device=DEVICE)
+    decode_ms = []
+    for _ in range(17):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = T.decode_step(params, cur, state, cfg, pol,
+                                  moe_impl="dense")
+        cur.copy_(logits.argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    res = {"prefill_ms": prefill_ms[1:], "decode_ms": decode_ms[1:]}
+    log(f"{cfg.arch_id} at {cfg.n_layers} layers, bf16, paged: slot "
+        f"prefill of {n} tokens in the {PREFILL_LEN} bucket "
+        f"{spread(res['prefill_ms'])} ms (first, with warm-up, "
+        f"{prefill_ms[0]:.1f} ms); decode step of {BATCH} slots "
+        f"{spread(res['decode_ms'])} ms; on {nvidia_smi()}")
+    return res
+
+
+def jamba_yardsticks(ops) -> dict:
+    """The two shapes new to the hybrid's path: paged decode at G 8 over 8
+    KV heads at Dh 128 (bf16 and int8 pages, the serve geometry) and the
+    causal flash forward of a slot prefill, (1, 64, 1024, 128) over 8 KV
+    heads."""
+    timer = Timer()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50)
+    h, kvh, dh = JAMBA_HEADS
+    out = {}
+    for quant in (False, True):
+        name = f"paged_decode_jamba{'_int8' if quant else ''}"
+        out[name] = paged_yardstick(ops, timer, gen, name, h, kvh, dh, quant,
+                                    700 + quant, JAMBA)
+    out["flash_fwd_jamba"] = causal_flash_yardstick(
+        ops, timer, gen, "flash_fwd_jamba", h, kvh, dh)
+    return out
+
+
+def jamba_phase(T, ops, serve_step, sched_mod, get_config, make_policy,
+                cut_depth) -> dict:
+    """The hybrid at full width, its block cut to the first JAMBA_LAYERS
+    layers, bf16 weights seeded on the card: served as the MoE decoders are
+    (``serve_run``, ``moe_impl="dense"``) in "paged" and "paged_int8":
+    paged decode on the split kernel at G 8 only, the flash forward once a
+    slot prefill (one attention layer), both footprints logged; held
+    kernels vs plain (``path_parity``) in both modes; the padded slot
+    prefill against an unpadded one (``jamba_padding``); the slot prefill
+    and decode step timed (``jamba_times``); the kernels-vs-plain hold in
+    f32 at JAMBA_F32_LAYERS layers; then the yardsticks.  Returns each
+    run's launch counts, the routing agreement and the read tokens'
+    routing flips of the bf16 holds, the times, the padding readings, the
+    peak and the yardsticks' entries."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pol = make_policy("bf16")
+    cfg = cut_depth(get_config(JAMBA), JAMBA_LAYERS)
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    g = cfg.n_heads // cfg.n_kv_heads
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_kinds())
+    log(f"{JAMBA} full width, first {cfg.n_layers} layers "
+        f"{cfg.block_pattern}: {cfg.param_count() / 1e9:.3f} B params "
+        f"({cfg.param_count() * 2 / 2**30:.2f} GiB in bf16; "
+        f"{cfg.param_count(active_only=True) / 1e9:.3f} B active a token) "
+        f"made in {time.perf_counter() - t_phase:.1f} s; d_inner "
+        f"{cfg.mamba_d_inner}, N {cfg.mamba_d_state}, {cfg.n_experts} "
+        f"experts top-{cfg.top_k}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (G {g}) at Dh {cfg.head_dim}")
+    launches, routing, flips = {}, {}, {}
+    for mode in ("paged", "paged_int8"):
+        c, st = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+        if c.get(f"paged_decode_g{g}") != c["paged_decode"]:
+            raise AssertionError(f"{mode}: paged decode off G {g}: {c}")
+        if c["flash_fwd"] != n_attn * st.prefills:
+            raise AssertionError(f"{mode}: {c['flash_fwd']} flash launches "
+                                 f"for {st.prefills} slot prefills")
+        if not (st.state_bytes and st.cache_bytes):
+            raise AssertionError(f"{mode}: state {st.state_bytes} B, cache "
+                                 f"{st.cache_bytes} B")
+        log(f"{JAMBA} {mode}: state_bytes {st.state_bytes} "
+            f"(conv and ssm rows of {cfg.n_layers - n_attn} mamba layers, "
+            f"{BATCH} slots), cache_bytes {st.cache_bytes}")
+        launches[mode] = c
+        torch.cuda.empty_cache()
+    for mode in ("paged", "paged_int8"):
+        res = path_parity(T, serve_step, ops, cfg, params, pol, mode)
+        check_parity(res)
+        routing[mode] = res["routing_share"]
+        routing[f"{mode} set"] = res["routing_set_share"]
+        flips[mode] = res["row_flips"]
+    padding = jamba_padding(T, serve_step, cfg, params, pol)
+    times = jamba_times(T, serve_step, cfg, params, pol)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory ({JAMBA} bf16 at {cfg.n_layers} layers) "
+        f"{peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    pol32 = make_policy("f32")
+    c32 = cut_depth(cfg, JAMBA_F32_LAYERS)
+    params = T.init_model(c32, seed=SEED, dtype=pol32.param_dtype,
+                          device=DEVICE)
+    log(f"{JAMBA} f32 at {c32.n_layers} layers {c32.block_pattern}: "
+        f"{c32.param_count() / 1e9:.3f} B params "
+        f"({c32.param_count() * 4 / 2**30:.2f} GiB)")
+    for mode in ("paged", "paged_int8"):
+        res = path_parity(T, serve_step, ops, c32, params, pol32, mode)
+        check_parity(res)
+        routing[f"f32 {mode}"] = res["routing_share"]
+    del params
+    torch.cuda.empty_cache()
+    yard = jamba_yardsticks(ops)
+    torch.cuda.empty_cache()
+    log(f"peak device memory (jamba phase) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; jamba phase "
+        f"on {nvidia_smi()}: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "routing": routing, "flips": flips,
+            "times": times, "padding": padding, "peak_gib": peak,
+            "entries": yard}
+
 
 # ---------------------------------------------------------------------------
 # training the dense decoder variants and RWKV-6
@@ -4867,7 +5171,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig, cut_depth, get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.core.amp import make_policy
     from repro_torch.data.pipeline import ShardedLoader, lm_batches
@@ -4947,6 +5251,12 @@ def main(argv=None) -> int:
         moe_phase(T, ops, serve_step, sched_mod, get_config, make_policy)
         log("MoE decoders phase only: no other phase, no result")
         return 2
+    if only == "jamba":
+        del timer
+        jamba_phase(T, ops, serve_step, sched_mod, get_config, make_policy,
+                    cut_depth)
+        log("jamba phase only: no other phase, no result")
+        return 2
     train_mods = (train_cli, api, ts, TrainConfig, make_policy, lm_batches)
     if only == "variants_train":
         del timer
@@ -4991,6 +5301,11 @@ def main(argv=None) -> int:
     entries += [moe["entries"][k] for k in (
         "paged_decode_g3", "paged_decode_g3_int8", "paged_decode_g8",
         "paged_decode_g8_int8", "flash_fwd_dh64_causal")]
+    torch.cuda.empty_cache()
+    jamba = jamba_phase(T, ops, serve_step, sched_mod, get_config,
+                        make_policy, cut_depth)
+    entries += [jamba["entries"][k] for k in (
+        "flash_fwd_jamba", "paged_decode_jamba", "paged_decode_jamba_int8")]
 
     torch.cuda.reset_peak_memory_stats()
     launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
@@ -5075,6 +5390,20 @@ def main(argv=None) -> int:
         for r, c in moe_runs.items()) + "; routing agreement kernels vs "
         "plain: " + ", ".join(f"{r} {v:.4f}" for r, v in
                               moe["routing"].items()))
+    # the hybrid: its attention layer's flash forward (64 heads over 8,
+    # Dh 128) and paged decode (G 8 over 8 KV heads) on the rows timed at
+    # those shapes
+    jamba_runs = jamba["launches"]
+    by_name["flash_fwd_jamba"] = sum(c["flash_fwd"]
+                                     for c in jamba_runs.values())
+    by_name["paged_decode_jamba"] = jamba_runs["paged"]["paged_decode"]
+    by_name["paged_decode_jamba_int8"] = \
+        jamba_runs["paged_int8"]["paged_decode"]
+    log(f"{JAMBA}'s launches: " + ", ".join(
+        f"{r}: flash_fwd {c['flash_fwd']}, paged_decode {c['paged_decode']}"
+        for r, c in jamba_runs.items()) + "; routing agreement kernels vs "
+        "plain: " + ", ".join(f"{r} {v:.4f}" for r, v in
+                              jamba["routing"].items()))
     by_name.update({k: launches["train"][k] for k in TRAIN_KERNELS[1:]})
     for phase, (_, _, s, _) in enumerate(TRAIN_ATTN, start=1):
         for kind in ("fwd", "bwd"):

@@ -13,8 +13,12 @@ reference has two layouts:
 
 Leaf layouts are kept as they are (``wq`` (d, H, Dh), ``wo`` (H, Dh, d),
 the query/key norms ``q_norm`` and ``k_norm`` (Dh,), an MoE layer's
-``router`` (d, E), ``wi`` and ``wg`` (E, d, f) and ``wo`` (E, f, d), ...),
-so the conversion is lossless.  Callers pass numpy arrays
+``router`` (d, E), ``wi`` and ``wg`` (E, d, f) and ``wo`` (E, f, d), a mamba
+mixer's ``in_proj`` (d, 2 d_inner), ``conv_w`` (d_conv, d_inner),
+``x_proj`` (d_inner, dt_rank + 2 N), ``dt_proj`` (dt_rank, d_inner),
+``a_log`` (d_inner, N), ``out_proj`` (d_inner, d) and its vectors ...), so
+the conversion is lossless; jamba's 8-position pattern unstacks as any
+other.  Callers pass numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports JAX.
 """
 from __future__ import annotations

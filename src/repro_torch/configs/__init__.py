@@ -1,16 +1,18 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants
 (copy of ``repro/configs/__init__.py`` for the architectures the port
 runs: deepseek-7b, rwkv6-1.6b, the dense decoder variants gemma2-27b,
-qwen1.5-32b and deepseek-coder-33b and the MoE decoders
-granite-moe-3b-a800m and qwen3-moe-30b-a3b for serving, bert-large and
-bert-base for pretraining)."""
+qwen1.5-32b and deepseek-coder-33b, the MoE decoders
+granite-moe-3b-a800m and qwen3-moe-30b-a3b and the hybrid
+jamba-1.5-large-398b for serving, bert-large and bert-base for
+pretraining)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import (bert_large, deepseek_7b,
                                  deepseek_coder_33b, gemma2_27b,
-                                 granite_moe_3b_a800m, qwen1p5_32b,
+                                 granite_moe_3b_a800m,
+                                 jamba_1p5_large_398b, qwen1p5_32b,
                                  qwen3_moe_30b_a3b, rwkv6_1p6b)
 from repro_torch.configs.base import (DecodeCaps, InputShape, ModelConfig,
                                       TrainConfig)
@@ -20,6 +22,7 @@ ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, rwkv6_1p6b.CONFIG,
                                 deepseek_coder_33b.CONFIG,
                                 granite_moe_3b_a800m.CONFIG,
                                 qwen3_moe_30b_a3b.CONFIG,
+                                jamba_1p5_large_398b.CONFIG,
                                 bert_large.CONFIG, bert_large.BERT_BASE]}
 
 
@@ -38,7 +41,7 @@ def smoke_variant(cfg: ModelConfig, *, d_model: int = 256,
     d_model = min(d_model, 512)
     pattern = cfg.block_pattern
     n_layers = n_blocks * len(pattern)
-    if n_layers > 8:
+    if n_layers > 8:  # jamba's 8-layer pattern: keep one block
         n_layers = len(pattern)
     head_dim = 32
     n_heads = max(2, d_model // 64)
@@ -58,5 +61,18 @@ def smoke_variant(cfg: ModelConfig, *, d_model: int = 256,
     return dataclasses.replace(cfg, **upd)
 
 
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """The config's first ``n_layers`` layers at its widths: a prefix of
+    the block pattern when that is shorter than one block (jamba's first 4
+    of its 8-layer block: (attn, dense), (mamba, moe), (mamba, dense),
+    (mamba, moe)), else whole blocks: past one block, a depth that is not
+    a multiple of it raises ``ValueError`` (``ModelConfig`` refuses an
+    ``n_layers`` that does not tile its block pattern)."""
+    if n_layers < len(cfg.block_pattern):
+        return dataclasses.replace(cfg, n_layers=n_layers,
+                                   block_pattern=cfg.block_pattern[:n_layers])
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
 __all__ = ["ARCHS", "DecodeCaps", "InputShape", "ModelConfig",
-           "TrainConfig", "get_config", "smoke_variant"]
+           "TrainConfig", "cut_depth", "get_config", "smoke_variant"]

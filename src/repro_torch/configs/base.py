@@ -133,6 +133,14 @@ class ModelConfig:
         return tuple(self.block_pattern) * self.n_blocks
 
     @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or max(1, self.d_model // 16)
+
+    @property
     def rwkv_n_heads(self) -> int:
         return self.d_model // self.rwkv_head_size
 
@@ -147,8 +155,11 @@ class ModelConfig:
         2 d for the two norms plus the mixer and the MLP.  A dense layer
         counts attention and its MLP; an MoE layer attention, the router
         and every expert's three matrices (``active_only``: the ``top_k``
-        a token runs); an RWKV-6 layer counts the time mix (r, k, v, g and
-        output projections, the mix and decay LoRAs, the bias and mix
+        a token runs); a mamba mixer counts in_proj, the depthwise conv's
+        weights and bias, x_proj, dt_proj, 2 d_inner for dt_bias and
+        d_skip, and out_proj (like the reference's ``mamba_params``, it
+        leaves out a_log's d_inner x N); an RWKV-6 layer counts the time mix (r, k, v, g
+        and output projections, the mix and decay LoRAs, the bias and mix
         vectors) and the channel mix together, as the reference's
         ``rwkv_params`` does.  Like the reference's, the count leaves out
         the query/key norms' 2 Dh a layer."""
@@ -166,10 +177,15 @@ class ModelConfig:
         mlp = (3 if self.mlp_kind in ("swiglu", "geglu") else 2) * d * self.d_ff
         rwkv = (5 * d * d + d * (5 * 32) + 5 * 32 * d + d * 64 + 64 * d
                 + 2 * d * self.d_ff + d * d + 10 * d)
+        din, n, r = self.mamba_d_inner, self.mamba_d_state, self.dt_rank
+        mamba = (d * 2 * din + self.mamba_d_conv * din + din
+                 + din * (r + 2 * n) + r * din + 2 * din + din * d)
         for mixer, mlp_kind in self.layer_kinds():
             total += 2 * d
             if mixer == "rwkv":
                 total += rwkv
+            elif mixer == "mamba":
+                total += mamba
             else:
                 total += attn
             if mlp_kind == "dense":

@@ -3,14 +3,18 @@ one prefill and of steady-state decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--arch deepseek-7b|rwkv6-1.6b|granite-moe-3b-a800m|\
-              qwen3-moe-30b-a3b] [--cache-mode paged|paged_int8] \
+              qwen3-moe-30b-a3b|jamba-1.5-large-398b] \
+      [--cache-mode paged|paged_int8] \
       [--moe-impl dense|a2a|replicated] [--steps 8] [--batch 4] \
       [--full-width [--layers N]]
 
 Builds the model (full width and depth with ``--full-width``, at
-``--layers`` layers if given, else the smoke variant) in bf16 with seeded
-random weights and runs the geometry of ``chip_smoke.py``'s serve phases
-at ``--batch`` slots (default 4).  deepseek-7b and the MoE decoders: fills
+``--layers`` layers if given, else the smoke variant; fewer layers than
+one block keep a prefix of the block pattern: jamba at ``--layers 4`` is
+(attn, dense), (mamba, moe), (mamba, dense), (mamba, moe)) in bf16 with
+seeded random weights and runs the geometry of ``chip_smoke.py``'s serve
+phases at ``--batch`` slots (default 4).  deepseek-7b, the MoE decoders
+and jamba (its mamba rows beside the paged attention layer): fills
 the slots with 1024-token prompts through ``prefill_into_slot``, in
 ``--cache-mode``, the MoE layers under ``--moe-impl`` (default
 ``dense``, the serving default).  rwkv6-1.6b: the raw mode's unmasked
@@ -27,7 +31,11 @@ splits a decode step's device time by the port's functions
 decode kernel inside), and in an MoE layer the router (``moe._router``),
 the expert products (``moe._dense_experts``, ``moe._expert_ffn``) and
 the dispatch and combine (``moe._dense_combine``, ``moe._group_local``,
-``moe._combine_local``), each the device time of the kernels launched
+``moe._combine_local``), and in a mamba layer its in-projection
+(``mamba._in_proj``), causal conv (``mamba._causal_conv``), selective
+scan (``mamba._selective_scan``: x_proj, dt, the recurrence and the
+contraction with C) and gated out-projection (``mamba._out_proj``), each
+the device time of the kernels launched
 inside it, from a third loop profiled with those functions wrapped in
 ``record_function`` spans; the rest of the busy time (norms, embedding,
 the LM head) beside them.  The spans' own trace events stay out of the
@@ -38,7 +46,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import functools
 import json
 import time
@@ -47,9 +54,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import cut_depth, get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.serve.serve_step import prefill_into_slot
@@ -156,7 +164,11 @@ SPANS = {"attention": ((L, "apply_attention"),),
          "moe_experts": ((MOE, "_dense_experts"), (MOE, "_expert_ffn")),
          "moe_dispatch_combine": ((MOE, "_dense_combine"),
                                   (MOE, "_group_local"),
-                                  (MOE, "_combine_local"))}
+                                  (MOE, "_combine_local")),
+         "mamba_in_proj": ((MB, "_in_proj"),),
+         "mamba_conv": ((MB, "_causal_conv"),),
+         "mamba_scan": ((MB, "_selective_scan"),),
+         "mamba_out_proj": ((MB, "_out_proj"),)}
 SPAN_PREFIX = "profile_serve::"
 
 
@@ -256,12 +268,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="deepseek-7b",
                     choices=["deepseek-7b", "rwkv6-1.6b",
-                             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"])
+                             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                             "jamba-1.5-large-398b"])
     ap.add_argument("--full-width", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the full-width model (default: the "
                          "config's; chip_smoke.py serves qwen3-moe-30b-a3b "
-                         "at 8 of its 48)")
+                         "at 8 of its 48 and jamba-1.5-large-398b at 4 of "
+                         "its 72)")
     ap.add_argument("--cache-mode", default="paged",
                     choices=["paged", "paged_int8"],
                     help="the KV layout (rwkv6-1.6b has no KV)")
@@ -277,7 +291,7 @@ def main(argv=None):
     if not args.full_width:
         cfg = smoke_variant(cfg)
     elif args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     pol = make_policy("bf16")
     params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
                           device="cuda")

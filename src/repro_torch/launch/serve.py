@@ -3,7 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch deepseek-7b|rwkv6-1.6b|gemma2-27b|qwen1.5-32b|\
-              deepseek-coder-33b|granite-moe-3b-a800m|qwen3-moe-30b-a3b] \
+              deepseek-coder-33b|granite-moe-3b-a800m|qwen3-moe-30b-a3b|\
+              jamba-1.5-large-398b] \
       [--moe-impl dense|a2a|replicated] [--batch 4] [--prompt-len 32] \
       [--new-tokens 16] [--mode raw|cohort|continuous] \
       [--cache-mode contiguous|paged|paged_int8] \
@@ -31,8 +32,19 @@ top-8; 24 query heads over 8 KV heads at Dh 64) and qwen3-moe-30b-a3b
 layers run ``--moe-impl``: ``dense`` (the default, as the reference's
 schedulers: every expert on every token) or ``a2a`` / ``replicated``
 (on one device both are the capacity path, which drops a token's
-assignment past its expert's capacity).  Mamba, cross-attention and
-vision architectures are not ported yet.  ``--prefix-cache``
+assignment past its expert's capacity).  The hybrid
+jamba-1.5-large-398b (one attention layer and seven mamba layers a block,
+MoE on every other layer) serves in raw and continuous modes, its
+attention layers in any ``--cache-mode`` and its mamba layers' conv and
+ssm rows per slot beside them (the continuous mode logs both
+footprints); its raw prefill is unmasked and runs the chunked scan (a
+prompt longer than 128 tokens must be a multiple of 128), its slot
+prefills the masked sequential one; cohort mode and ``--prefix-cache``
+refuse it, as they refuse rwkv6-1.6b.  At ``--full-width`` its 398 B
+parameters do not fit one card (``chip_smoke.py`` and
+``profile_serve.py --layers 4`` serve its first 4 layers).
+Cross-attention and vision architectures are not ported yet.
+``--prefix-cache``
 (continuous, paged cache modes) shares cached prompt-prefix pages across
 slots: the workload's prompts then start with one of ``--prefix-groups``
 shared heads, and ``max_len`` gains ``--prompt-len`` of headroom so a
@@ -181,9 +193,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="deepseek-7b",
                     choices=["deepseek-7b", "rwkv6-1.6b", "gemma2-27b",
                              "qwen1.5-32b", "deepseek-coder-33b",
-                             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"],
-                    help="the architectures the port serves (mamba, "
-                         "cross-attention and vision ones are not ported "
+                             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                             "jamba-1.5-large-398b"],
+                    help="the architectures the port serves "
+                         "(cross-attention and vision ones are not ported "
                          "yet)")
     ap.add_argument("--moe-impl", default="dense",
                     choices=["dense", "a2a", "replicated"],

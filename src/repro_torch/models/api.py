@@ -10,8 +10,8 @@ layer the port runs (``transformer.check_supported``): dense attention
 post-block norms, softcaps, tied and scaled embeddings, GeGLU), RWKV-6
 and Mixture-of-Experts MLPs, whose loss adds the router's aux loss as the
 reference's does (``lm_train_loss``; ``moe_impl`` picks the expert path).
-Mamba, encoder-decoder and vision models are refused
-(``check_trainable``), each naming its slice.
+Mamba layers (jamba: the port serves it) and encoder-decoder and vision
+models are refused (``check_trainable``), each naming its slice.
 The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
@@ -43,9 +43,16 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder must be one ``transformer.check_supported`` runs."""
-    if not cfg.is_encoder_only:
-        T.check_supported(cfg)
+    decoder must be one ``transformer.check_supported`` runs, without
+    mamba layers, which the port serves but does not train."""
+    if cfg.is_encoder_only:
+        return
+    T.check_supported(cfg)
+    if any(mixer == "mamba" for mixer, _ in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: mamba layers are served, not trained yet; "
+            "training them (the selective scan's backward, jamba) comes "
+            "with the hybrid training slice")
 
 
 class _MeanNLL(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Decoder-only LM (port of ``repro/models/transformer.py`` for
 attention layers -- full, sliding-window local and global, with or without
-query/key norms -- under a dense or a Mixture-of-Experts MLP, and RWKV-6
-layers).
+query/key norms -- and mamba layers, each under a dense or a
+Mixture-of-Experts MLP, and RWKV-6 layers).
 
 The reference stacks the blocks' weights on a leading axis and runs them
 with ``lax.scan``; here each layer is its own dict of tensors in a list and
@@ -17,6 +17,10 @@ Parameters are a plain dict::
                        [, "q_norm" (Dh,), "k_norm"]}
                        [, "postnorm1"], "norm2", "mlp": {"wi", "wg", "wo"}
                        [, "postnorm2"]}
+    mamba layer's mixer = {"in_proj" (d, 2 din), "conv_w" (dc, din),
+                           "conv_b", "x_proj" (din, r + 2 N), "dt_proj"
+                           (r, din), "dt_bias", "a_log" (din, N), "d_skip",
+                           "out_proj" (din, d)}  (``models/mamba.py``)
     MoE layer's mlp = {"router" (d,E), "wi", "wg" (E,d,f), "wo" (E,f,d)}
                       (``models/moe.py``)
     rwkv layer = {"norm1", "mixer": time mix, "norm2", "mlp": channel mix}
@@ -33,18 +37,20 @@ passes "dense".  The router's aux loss is summed over the layers, as the
 reference's scan sums it; ``apply_lm(return_aux=True)`` returns it.
 
 The decode state is ``{"pos": (B,) int32, "blocks": [layer state, ...]}``
-with ``{"cache": ...}`` for an attention layer and ``{"tm_shift", "wkv",
-"cm_shift"}`` (fp32) for an rwkv layer.  A local (sliding-window) layer's
+with ``{"cache": ...}`` for an attention layer, ``{"conv", "ssm"}`` (fp32)
+for a mamba layer and ``{"tm_shift", "wkv", "cm_shift"}`` (fp32) for an
+rwkv layer.  A local (sliding-window) layer's
 contiguous cache is a ring of ``min(max_len, sliding_window)`` rows: decode
 writes position p at row p % rows, and a prefill wider than the ring keeps
 its last rows there, rolled to the same place.  ``prefill`` and
-``decode_step`` update it in place and return the same dict.  In a paged state every
-layer's cache holds the same ``block_table`` tensor: one logical
-allocation per slot serves all layers (the reference keeps one stacked
-copy per block).
+``decode_step`` update it in place and return the same dict.  In a paged
+state every attention layer's cache holds the same ``block_table``
+tensor: one logical allocation per slot serves all of them (the reference
+keeps one stacked copy per block); a hybrid's mamba layers keep their
+per-slot rows beside the pool, outside the table.
 
-Mamba, cross-attention, M-RoPE and vision layers belong to later slices
-and raise ``NotImplementedError``.
+Cross-attention, M-RoPE and vision layers belong to later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,12 +63,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amp import Policy
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
 
 LAYER_KINDS = (("attn", "dense"), ("attn_local", "dense"),
                ("attn_global", "dense"), ("attn", "moe"),
-               ("rwkv", "rwkv_cm"))
+               ("mamba", "dense"), ("mamba", "moe"), ("rwkv", "rwkv_cm"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +88,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if tuple(kind) not in LAYER_KINDS:
             raise NotImplementedError(
-                f"{kind} layers: the port runs {LAYER_KINDS}; mamba "
-                "layers come with a later architecture-family slice")
+                f"{kind} layers: the port runs {LAYER_KINDS}")
     if cfg.is_encoder_decoder or cfg.is_encoder_only:
         raise NotImplementedError(
             "encoder-decoder models (cross-attention) come with a later "
@@ -112,12 +118,11 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
         if mixer == "rwkv":
             mix, mlp = (RW.init_time_mix(cfg, gen, **kw),
                         RW.init_channel_mix(cfg, gen, **kw))
-        elif mlp_kind == "moe":
-            mix, mlp = (L.init_attention(cfg, gen, **kw),
-                        MOE.init_moe(cfg, gen, **kw))
         else:
-            mix, mlp = (L.init_attention(cfg, gen, **kw),
-                        L.init_mlp(cfg, gen, **kw))
+            mix = (MB.init_mamba if mixer == "mamba"
+                   else L.init_attention)(cfg, gen, **kw)
+            mlp = (MOE.init_moe if mlp_kind == "moe"
+                   else L.init_mlp)(cfg, gen, **kw)
         layer = {"norm1": L.init_norm(cfg, **kw), "mixer": mix,
                  "norm2": L.init_norm(cfg, **kw), "mlp": mlp}
         if cfg.post_block_norm:
@@ -140,9 +145,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     the global page pool and one block table shared by all layers; a
     sliding-window ring cannot be paged and raises ``ValueError``.  A local
     layer's contiguous cache is a ring of ``min(max_len,
-    cfg.sliding_window)`` rows.  An rwkv layer holds its fp32 recurrent
-    rows and no cache (``max_len`` and ``cache_dtype`` do not apply to
-    it)."""
+    cfg.sliding_window)`` rows.  A mamba or an rwkv layer holds its fp32
+    recurrent rows and no cache (``max_len``, ``cache_dtype`` and
+    ``paged`` do not apply to it): a hybrid's paged state has the pool and
+    the table in its attention layers only."""
     check_supported(cfg)
     blocks = []
     table = None
@@ -153,6 +159,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     for mixer, _ in cfg.layer_kinds():
         if mixer == "rwkv":
             blocks.append(RW.init_rwkv_state(cfg, batch, device=device))
+            continue
+        if mixer == "mamba":
+            blocks.append(MB.init_mamba_state(cfg, batch, device=device))
             continue
         if paged is not None:
             if mixer != "attn":
@@ -244,6 +253,19 @@ def _apply_rwkv_layer(p, x, cfg: ModelConfig, policy: Policy, *,
     return x + y2.to(x.dtype)
 
 
+def _apply_mamba_mixer(p, h, cfg: ModelConfig, policy: Policy, *,
+                       state=None, valid_len=None):
+    """A mamba mixer; with a state its ``conv`` and ``ssm`` rows are read
+    and then overwritten in place.  Decode passes no ``valid_len``."""
+    y, ns = MB.apply_mamba(p, h, cfg, policy, state=state,
+                           return_state=state is not None,
+                           valid_len=valid_len)
+    if state is not None:
+        for key, t in ns.items():
+            state[key].copy_(t)
+    return y
+
+
 def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
                  mlp: str, *, state=None, decode_pos=None, valid_len=None,
                  moe_impl: str = "a2a", impl: Optional[str] = None):
@@ -258,7 +280,10 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
 
     h = L.apply_norm(p["norm1"], x, cfg, policy)
     cache = state.get("cache") if state is not None else None
-    if cache is not None and decode_pos is not None:
+    if mixer == "mamba":
+        y = _apply_mamba_mixer(p["mixer"], h, cfg, policy, state=state,
+                               valid_len=valid_len)
+    elif cache is not None and decode_pos is not None:
         if "k_pages" in cache:
             # no ring wrap: a paged write past capacity is routed to the
             # trash page inside apply_attention
@@ -345,9 +370,9 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
     """Run the prompt (B, S) through the model, filling ``state`` in place.
     Returns (last-token logits (B, V), state).  ``lengths`` (B,) are the
     true lengths of right-padded prompts: logits are taken at
-    ``lengths - 1`` and decode resumes at ``lengths``; rwkv layers then
-    run the masked sequential scan, without ``lengths`` the chunked one
-    (``kops.wkv6``)."""
+    ``lengths - 1`` and decode resumes at ``lengths``; rwkv and mamba
+    layers then run their masked sequential scans, without ``lengths``
+    the chunked ones (``kops.wkv6``, ``mamba._ssm_chunked``)."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
     for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
                                    cfg.layer_kinds()):

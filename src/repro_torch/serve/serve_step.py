@@ -10,8 +10,10 @@ live tensors -- the slot's stripe of a contiguous cache, or the shared page
 pool with the slot's block-table row -- so the prefill writes the slot's
 rows and pages in place and touches nothing of its neighbours.  The pages
 written are the ``ceil(P / page_size)`` that the bucket covers, as in the
-reference.  An rwkv layer's view is its slot's rows of the recurrent
-state, which the masked prefill overwrites in place.
+reference.  A recurrent layer's (rwkv's, mamba's) view is its slot's rows
+of the recurrent state, zeroed before the masked prefill overwrites them
+in place: the prefill starts from the zero state, as the reference's fresh
+row does, whatever decode steps did to an empty slot's rows.
 
 The prefix cache's ``start`` (suffix) mode cannot prefill through views:
 the suffix's queries must read the cached prefix.  It gathers the slot's
@@ -169,6 +171,12 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
         return _prefill_suffix_into_slot(params, tokens, length, state, slot,
                                          start, cfg, policy, moe_impl, impl)
     row = slot_view(state, slot)
+    for st in row["blocks"]:
+        # a fresh row, as the reference's: decode steps over the whole
+        # batch advance an empty slot's recurrent rows too
+        for key, t in st.items():
+            if key != "cache":
+                t.zero_()
     lengths = torch.tensor([length], dtype=torch.int32,
                            device=state["pos"].device)
     logits, _ = T.prefill(params, tokens, cfg, policy, state=row,

@@ -1,5 +1,5 @@
 """Per-slot decode-state contract (port of ``repro/serve/slot_state.py``
-for dense attention and RWKV-6 architectures).
+for attention, RWKV-6 and hybrid attention + mamba architectures).
 
 ``SlotStateAdapter`` owns everything architecture-specific about a batch
 slot, so ``ContinuousScheduler`` stays pure policy over abstract slots:
@@ -13,13 +13,17 @@ slot, so ``ContinuousScheduler`` stays pure policy over abstract slots:
   the block table (unallocated entries point at the trash page);
 * ``copy_page(state, src, dst, valid)`` -- copy-on-write of a shared page;
 * ``cache_bytes()`` / ``state_bytes()`` -- KV footprint vs recurrent
-  state, from the sizes of the tensors ``init_state`` makes.
+  state, from the sizes of the tensors ``init_state`` makes; a hybrid
+  (jamba: paged attention layers beside mamba layers) has both.
+* ``has_slot_state`` -- whether any layer keeps per-slot rows outside the
+  KV cache (rwkv's and mamba's recurrent rows), which ``reset_slot``
+  zeroes.
 
 Exactness rule (``needs_exact_prefill``): a recurrent scan must not be
 advanced by the pad tokens of the prefill bucket.  The slot prefill passes
-``lengths``, so rwkv layers step pad positions with the exact identity and
-run the sequential scan, and a padded slot prefill leaves the same state,
-bit for bit, as an unpadded prefill of the true prompt.
+``lengths``, so rwkv and mamba layers step pad positions with the exact
+identity and run their sequential scans, and a padded slot prefill leaves
+the same state, bit for bit, as an unpadded prefill of the true prompt.
 
 An MoE model's slot prefills run ``moe_impl`` (default ``"dense"``, as
 the reference's adapter).  Cross-attention state comes with the
@@ -79,6 +83,7 @@ class SlotStateAdapter:
         shapes = T.init_decode_state(cfg, batch, max_len, cache_dtype,
                                      paged=paged_cfg, device="meta")
         self._cache_bytes = kv_state_bytes(shapes)
+        self.has_slot_state = bool(_slot_tensors(shapes))
         self._state_bytes = _nbytes(_slot_tensors(shapes))
 
     def init_state(self) -> dict:
@@ -96,9 +101,10 @@ class SlotStateAdapter:
 
     def reset_slot(self, state, slot: int):
         """Zero the slot's position and recurrent rows, in place.  Hygiene,
-        not correctness: the next prefill overwrites every row it reads, but
-        a zeroed slot decodes from the zero state, never from the previous
-        tenant's.  KV pages and stripes are reclaimed through the tables."""
+        not correctness: decode steps run over the whole batch and advance
+        an empty slot's recurrent rows again, so the next prefill zeroes
+        them itself (``prefill_into_slot``).  KV pages and stripes are
+        reclaimed through the tables."""
         state["pos"][slot] = 0
         for t in _slot_tensors(state):
             t[slot].zero_()
@@ -115,8 +121,10 @@ class SlotStateAdapter:
     def state_bytes(self) -> int:
         """Bytes of non-KV state over the batch: rwkv's token shifts and
         WKV states (24 x (2 x 2048 x 4 + 32 x 64 x 64 x 4) B, ~12.8 MB, per
-        slot of full-width rwkv6-1.6b, whatever ``max_len``); 0 for
-        attention-only architectures."""
+        slot of full-width rwkv6-1.6b), mamba's conv and ssm rows ((3 x
+        16384 + 16384 x 16) x 4 B, ~1.25 MB, per mamba layer and slot of
+        jamba), whatever ``max_len``; 0 for attention-only
+        architectures."""
         return self._state_bytes
 
     def cache_bytes(self) -> int:

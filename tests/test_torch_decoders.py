@@ -26,6 +26,7 @@ from repro_torch.configs import ARCHS as PORT_ARCHS
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.amp import make_policy
 from repro_torch.kernels import ops as kops
+from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 import torch_threads  # noqa: F401  (one PyTorch thread a worker)
@@ -398,10 +399,20 @@ def test_rings_refuse_a_paged_cache():
     (dict(block_pattern=(("mamba", "moe"),)), "mamba"),
     (dict(block_pattern=(("mamba", "dense"),)), "mamba")])
 def test_later_slices_stay_refused(change, match):
-    """What later family slices bring raises ``NotImplementedError``
-    naming it; query/key norms and MoE layers run since the MoE slice
+    """What later slices bring raises ``NotImplementedError`` naming it:
+    vision stubs and M-RoPE at serving and training, mamba layers at
+    training only (``api.check_trainable``, naming the hybrid training
+    slice) since the port serves them (tests/test_torch_jamba_serve.py);
+    query/key norms and MoE layers run since the MoE slice
     (tests/test_torch_moe.py, tests/test_torch_moe_serve.py)."""
     cfg = dataclasses.replace(smoke_variant(get_config("deepseek-7b")),
                               **change)
     with pytest.raises(NotImplementedError, match=match):
+        api.check_trainable(cfg)
+    if match == "mamba":
         T.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="training slice"):
+            api.check_trainable(cfg)
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            T.check_supported(cfg)

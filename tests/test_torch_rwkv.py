@@ -267,6 +267,33 @@ def test_padded_slot_prefill_state_is_bit_identical(weights):
         _assert_states_close(state, jstate, row=1)
 
 
+def test_slot_prefill_starts_from_a_fresh_row(weights):
+    """A slot prefill starts from the zero state whatever the slot's rows
+    hold (the reference prefills into a fresh row): decode steps over the
+    whole batch advance an empty slot's rows, so its next tenant would
+    otherwise inherit them.  Rows dirtied with noise, prefill into slot 1:
+    its logits and rows equal, bit for bit, those of the same prefill
+    into a zero state; slot 0's noise stays."""
+    _, tp = weights
+    toks = torch.zeros((1, 16), dtype=torch.int32)
+    toks[0, :7] = torch.arange(3, 10)
+    gen = torch.Generator().manual_seed(3)
+    fresh = T.init_decode_state(CFG, 2, 32, torch.float32, device="cpu")
+    dirty = T.init_decode_state(CFG, 2, 32, torch.float32, device="cpu")
+    for st in dirty["blocks"]:
+        for key in STATE_KEYS:
+            st[key].copy_(torch.randn(st[key].shape, generator=gen))
+    noise = [st[key][0].clone() for st in dirty["blocks"] for key in STATE_KEYS]
+    lg_fresh, fresh = SS.prefill_into_slot(tp, toks, 7, fresh, 1, CFG, POL)
+    lg_dirty, dirty = SS.prefill_into_slot(tp, toks, 7, dirty, 1, CFG, POL)
+    assert torch.equal(lg_dirty, lg_fresh)
+    for st, st_fresh in zip(dirty["blocks"], fresh["blocks"]):
+        for key in STATE_KEYS:
+            assert torch.equal(st[key][1], st_fresh[key][1]), key
+    assert all(torch.equal(st[key][0], n) for n, (st, key) in zip(
+        noise, ((st, key) for st in dirty["blocks"] for key in STATE_KEYS)))
+
+
 def test_reset_slot_zeroes_the_recurrent_rows(weights):
     _, tp = weights
     adapter = SlotStateAdapter(tp, CFG, POL, batch=2, max_len=32,
