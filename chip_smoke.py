@@ -341,7 +341,26 @@
    twice for the same bits, timed beside its bound, the plain version and
    SDPA's backward over the expanded heads (row
    ``flash_bwd_dh64_causal``).
-15. Prints one JSON line of kernel results, then, as the last line,
+15. Training the hybrid jamba-1.5-large-398b at full width on its
+   (mamba, dense) layer alone (``LM_PATHS``: ``--positions 2``, 2.098 B
+   parameters; any prefix past its first layer holds a 10.1 B (mamba, moe)
+   layer), 8 x 1024 tokens in 2 micro-batches: (a) ``launch/train.py``
+   under LAMB, 3 steps of bf16, in process: every loss finite and no step
+   skipped, the launches exactly ``train_launches`` (LAMB once a leaf
+   group a step; the selective scan and RMSNorm are plain PyTorch, there
+   is no attention layer), the step ms, the peak and, in one more
+   profiled step, the device's busy time and the scan backward's share
+   logged.  (b) One LAMB step kernels vs plain in f32 and in bf16 at the
+   same cut within LM_BOUND, every LAMB call held.  (c) The selective
+   scan's backward (``mamba._SelectiveScan``) against autograd through
+   the plain chunked scan at full width, one layer's scan at (B, S) =
+   (1, 256), from a nonzero state: each gradient within
+   ``SCAN_GRAD_BOUND`` relative L2 in f32 (on bf16-rounded inputs
+   logged), two backward passes the same bits, the peak of both logged;
+   the scan's forward and forward + backward timed at the training
+   micro-batch (4, 1024).  (d) Two gradient steps of the CLI's model from
+   one state in the same bits.  Its LAMB launches join the LM's row.
+16. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
@@ -354,8 +373,9 @@ build and the deepseek serve phase (step 4), ``--only decoders`` after the
 build and the dense decoder variants phase (step 4b), ``--only moe``
 after the build and the MoE decoders phase (step 4c), ``--only jamba``
 after the build and the jamba phase (step 4d), ``--only
-variants_train``, ``--only rwkv_train`` and ``--only moe_train`` after
-the build and step 12, 13 or 14 (exit 2, no result line in each case);
+variants_train``, ``--only rwkv_train``, ``--only moe_train`` and
+``--only jamba_train`` after the build and step 12, 13, 14 or 15 (exit
+2, no result line in each case);
 without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -387,7 +407,7 @@ sys.path.insert(0, str(REPO / "src"))
 # each decoder's training path on one card, the table
 # ``launch/profile_train.py`` profiles: (layers at full width, global
 # batch, S, micro-batches)
-from repro_torch.launch.profile_train import LM_PATHS  # noqa: E402
+from repro_torch.launch.profile_train import LM_PATHS, depth_flags  # noqa: E402,E501
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense, no TF32
@@ -4659,59 +4679,69 @@ GEMMA_ATTN = (1, 32, 16, 8192, 128, 4096, 50.0)
 CODER_ATTN = (4, 56, 8, 1024, 128, 0, 0.0)
 
 
-def train_args(arch: str, optimizer: str = "lamb") -> list:
-    layers, batch, seq, accum = LM_PATHS[arch]
-    return ["--arch", arch, "--full", "--layers", str(layers), "--batch",
+def train_args(arch: str, optimizer: str = "lamb",
+               steps: int = LM_STEPS) -> list:
+    depth, batch, seq, accum = LM_PATHS[arch]
+    return ["--arch", arch, "--full", *depth_flags(depth), "--batch",
             str(batch), "--seq", str(seq), "--accum", str(accum), "--steps",
-            str(LM_STEPS), "--precision", "bf16", "--optimizer", optimizer,
+            str(steps), "--precision", "bf16", "--optimizer", optimizer,
             "--device", DEVICE, "--seed", str(SEED), "--log-every", "1"]
 
 
-def path_cfg(train, arch: str, layers: int):
-    """The CLI's model of ``arch`` at full width and ``layers`` layers."""
+def path_cfg(train, arch: str, depth):
+    """The CLI's model of ``arch`` at full width, cut to ``depth``: a
+    number of layers, or a tuple of block-pattern positions."""
     return train.model_config(train.parse_args(
-        ["--arch", arch, "--full", "--layers", str(layers)]))
+        ["--arch", arch, "--full", *depth_flags(depth)]))
 
 
-def train_launches(arch: str, n_groups: int, optimizer: str = "lamb"
-                   ) -> dict:
-    """The launches of LM_STEPS steps of ``arch``'s CLI run under
-    ``optimizer``, derived: per micro-batch, an attention layer's flash forward runs
-    twice (once more in the backward: the layer's recompute under the
-    checkpoint) and its backward once (pre-pass, main pass and, over
-    S / 128 > 1 KV tiles, the post-pass); an rwkv layer's wkv6 forward
-    twice (the recompute; its backward is the chunked form's VJP, no
-    kernel) and its two LayerNorms twice forward and once backward, the
-    final norm once each (outside the checkpoint); LAMB's kernel once a
-    leaf group a step (never under AdamW).  An MoE layer launches nothing
-    of its own.  Nothing else launches."""
-    layers, _, seq, accum = LM_PATHS[arch]
-    mb = accum * LM_STEPS
-    if arch == "rwkv6-1.6b":
-        want = {"wkv6": 2 * layers * mb, "layernorm": (4 * layers + 1) * mb,
-                "layernorm_bwd": (2 * layers + 1) * mb}
-    else:
-        want = {"flash_fwd": 2 * layers * mb,
-                f"flash_fwd_s{seq}": 2 * layers * mb}
+def train_launches(cfg, arch: str, n_groups: int, optimizer: str = "lamb",
+                   steps: int = LM_STEPS) -> dict:
+    """The launches of ``steps`` steps of ``arch``'s CLI run (model
+    ``cfg``) under ``optimizer``, derived: per micro-batch, an attention
+    layer's flash forward runs twice (once more in the backward: the
+    layer's recompute under the checkpoint) and its backward once
+    (pre-pass, main pass and, over S / 128 > 1 KV tiles, the post-pass);
+    an rwkv layer's wkv6 forward twice (the recompute; its backward is
+    the chunked form's VJP, no kernel) and its two LayerNorms twice
+    forward and once backward, the final norm once each (outside the
+    checkpoint); LAMB's kernel once a leaf group a step (never under
+    AdamW).  An MoE or a mamba layer launches nothing of its own (the
+    selective scan is plain PyTorch, its backward ``_SelectiveScan``), nor
+    does an RMSNorm.  Nothing else launches."""
+    _, _, seq, accum = LM_PATHS[arch]
+    mb = accum * steps
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    rwkv, attn = kinds.count("rwkv"), sum(k.startswith("attn")
+                                          for k in kinds)
+    want = {}
+    if rwkv:
+        want.update(wkv6=2 * rwkv * mb, layernorm=(4 * rwkv + 1) * mb,
+                    layernorm_bwd=(2 * rwkv + 1) * mb)
+    if attn:
+        want.update({"flash_fwd": 2 * attn * mb,
+                     f"flash_fwd_s{seq}": 2 * attn * mb})
         for k in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post",
                   f"flash_bwd_s{seq}"):
-            want[k] = layers * mb
+            want[k] = attn * mb
     if optimizer == "lamb":
-        want["lamb_moments"] = n_groups * LM_STEPS
+        want["lamb_moments"] = n_groups * steps
     return want
 
 
-def model_train_run(ops, train, arch: str, optimizer: str = "lamb") -> dict:
+def model_train_run(ops, train, arch: str, optimizer: str = "lamb",
+                    steps: int = LM_STEPS) -> dict:
     """``launch/train.py`` on ``arch``'s training path under
-    ``optimizer``, launch counts zeroed just before and read just after:
-    every step finite and taken (an MoE model's router aux finite too),
-    the launches exactly ``train_launches``.  Returns the counts, the
-    history, the peak memory, the seconds and the config."""
+    ``optimizer`` for ``steps`` steps, launch counts zeroed just before
+    and read just after: every step finite and taken (an MoE model's
+    router aux finite too), the launches exactly ``train_launches``.
+    Returns the counts, the history, the peak memory, the seconds and the
+    config."""
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cfg, state, history = train.run(train_args(arch, optimizer))
+    cfg, state, history = train.run(train_args(arch, optimizer, steps))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -4725,17 +4755,17 @@ def model_train_run(ops, train, arch: str, optimizer: str = "lamb") -> dict:
             f"({r['loss'].hex()}), grad norm {r['grad_norm']:.4f}, lr "
             f"{r['lr']:.3g}, skipped {bool(r['skipped'])}, {r['ms']:.1f} ms"
             + (f", router aux {r['router_aux']:.4f}" if cfg.has_moe else ""))
-    if [r["step"] for r in history] != list(range(1, LM_STEPS + 1)) or any(
+    if [r["step"] for r in history] != list(range(1, steps + 1)) or any(
             r["skipped"] or not np.isfinite(r["loss"])
             or not np.isfinite(r["router_aux"]) for r in history):
-        raise AssertionError(f"{arch} train: expected {LM_STEPS} finite "
+        raise AssertionError(f"{arch} train: expected {steps} finite "
                              f"steps, got {history}")
-    want = train_launches(arch, n_groups, optimizer)
+    want = train_launches(cfg, arch, n_groups, optimizer, steps)
     got = {k: n for k, n in counts.items() if n}
     if got != want:
         raise AssertionError(f"{arch} train: launches {got}, expected "
                              f"{want}")
-    layers, batch, seq, accum = LM_PATHS[arch]
+    _, batch, seq, accum = LM_PATHS[arch]
     steps_ms = [r["ms"] for r in history]
     log(f"{arch} train full width: {cfg.n_layers} layers "
         f"{[m for m, _ in cfg.layer_kinds()]}, d_model {cfg.d_model}, "
@@ -5165,6 +5195,214 @@ def moe_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
     return {"entry": entry_, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# training the hybrid
+# ---------------------------------------------------------------------------
+
+# jamba's training path (LM_PATHS): its (mamba, dense) layer alone at full
+# width, block-pattern position 2 (``--positions 2``: 2.098 B parameters
+# with the embedding and the head; any prefix past one layer holds a 10.1
+# B (mamba, moe) layer), 8 x 1024 tokens in 2 micro-batches, bf16, LAMB
+JAMBA_STEPS = 3
+# the only kernel on the path: no attention layer, RMSNorm and the
+# selective scan plain PyTorch
+JAMBA_HELD = {"lamb_moments": (None, False)}
+# (c): the selective scan's gradients through ``_SelectiveScan`` against
+# autograd through the plain chunked scan (``_scan_blocks``: the doubling
+# scan's own graph) at full width (d_inner 16384, N 16), (B, S) =
+# SCAN_CHECK, two chunks, from a nonzero h0: the relative L2 difference of
+# each of the six gradients (dt, x1, B, C, A, h0).  In f32 the two differ
+# in the order of the reverse recurrence's products and sums only
+# (~1e-7 relative on the CPU, tests/test_torch_mamba_grad.py); the bound
+# sits two orders above.  The same on bf16-rounded inputs (dt's
+# pre-activation, x1, B and C as the bf16 policy's projections give them)
+# is logged beside it.
+SCAN_CHECK = (1, 256)
+SCAN_GRAD_BOUND = 1e-5
+# the scan timed alone at the training path's micro-batch, (4, 1024)
+SCAN_TIMED = (LM_PATHS[JAMBA][1] // LM_PATHS[JAMBA][3], LM_PATHS[JAMBA][2])
+
+
+def scan_inputs(MB, cfg, b, s, seed, bf16=False):
+    """The six inputs of ``_SelectiveScan`` at ``cfg``'s widths, drawn on
+    the card at a mixer's scales: dt = softplus(N(0, 1) - 4) (mostly in
+    [1e-3, 0.1], as the init's dt_bias gives it), x1, B and C ~ N(0, 1),
+    A = -exp(a_log) with S4D-real a_log, h0 ~ 0.1 N(0, 1); with ``bf16``
+    dt's pre-activation, x1, B and C rounded to bf16 first."""
+    din, n = cfg.mamba_d_inner, cfg.mamba_d_state
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    r = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
+    dt = torch.nn.functional.softplus(r(rnd(b, s, din) - 4.0))
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=DEVICE).expand(din, n).contiguous()
+    return [dt, r(rnd(b, s, din)), r(rnd(b, s, n)), r(rnd(b, s, n)), a,
+            0.1 * rnd(b, din, n)]
+
+
+def scan_grads(MB, ins, cots, chunk, plain: bool):
+    """(gradients of the six inputs, peak GiB above the inputs) through
+    ``_SelectiveScan`` or, with ``plain``, autograd through the chunked
+    scan."""
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    if plain:
+        dt, x1, b_in, c_in, a, h0 = leaves
+        out = MB._scan_blocks(dt, dt * x1, b_in, c_in, a, h0, chunk)
+    else:
+        out = MB._SelectiveScan.apply(*leaves, chunk)
+    grads = torch.autograd.grad(out, leaves, cots)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return grads, peak
+
+
+def jamba_scan_check(MB, cfg, timer) -> dict:
+    """(c): the Function's gradients against autograd through the plain
+    chunked scan at full width, SCAN_CHECK, in f32 (each within
+    SCAN_GRAD_BOUND relative L2) and on bf16-rounded inputs (logged), the
+    peak memory of both; two backward passes the same bits; then the
+    Function's forward (the no-grad path: ``_scan_blocks``) and forward
+    + backward timed at SCAN_TIMED, the training micro-batch."""
+    chunk = 128
+    b, s = SCAN_CHECK
+    res = {}
+    for tag, bf16 in (("f32", False), ("bf16", True)):
+        ins = scan_inputs(MB, cfg, b, s, SEED + 80, bf16)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 81)
+        cots = [torch.randn(shape, generator=gen, device=DEVICE) for shape in
+                ((b, s, cfg.mamba_d_inner),
+                 (b, cfg.mamba_d_inner, cfg.mamba_d_state))]
+        got, peak = scan_grads(MB, ins, cots, chunk, plain=False)
+        again, _ = scan_grads(MB, ins, cots, chunk, plain=False)
+        check_same_bits(f"selective scan backward {tag}", got, again)
+        want, peak_plain = scan_grads(MB, ins, cots, chunk, plain=True)
+        rels = {name: rel_l2(g, w) for name, g, w in
+                zip(("dt", "x1", "B", "C", "A", "h0"), got, want)}
+        res[tag] = {"rel": rels, "peak_gib": peak,
+                    "plain_peak_gib": peak_plain}
+        del ins, cots, got, again, want
+        torch.cuda.empty_cache()
+    worst = max(res["f32"]["rel"].values())
+    b, s = SCAN_TIMED
+    ins = scan_inputs(MB, cfg, b, s, SEED + 82)
+    leaves = [t.requires_grad_() for t in ins]
+    dy = torch.randn((b, s, cfg.mamba_d_inner), device=DEVICE)
+
+    def forward():
+        with torch.no_grad():
+            MB._scan_blocks(ins[0], ins[0] * ins[1], *ins[2:], chunk)
+
+    def both():
+        y, _ = MB._SelectiveScan.apply(*leaves, chunk)
+        torch.autograd.grad(y, leaves, dy)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fwd, total = timer.times(forward, iters=3), timer.times(both, iters=3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del ins, leaves, dy
+    torch.cuda.empty_cache()
+    res.update(fwd_ms=median(fwd), bwd_ms=median(total) - median(fwd),
+               timed_peak_gib=peak)
+    log(f"{JAMBA} selective scan backward (``_SelectiveScan``) vs autograd "
+        f"through the plain chunked scan, d_inner {cfg.mamba_d_inner}, N "
+        f"{cfg.mamba_d_state}, (B, S) {SCAN_CHECK}, h0 nonzero: " + "; ".join(
+            f"{tag} rel L2 " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in r["rel"].items())
+            + f", peak {r['peak_gib']:.3f} GiB (plain autograd "
+            f"{r['plain_peak_gib']:.3f})" for tag, r in res.items()
+            if tag in ("f32", "bf16"))
+        + f" (f32 bound SCAN_GRAD_BOUND {SCAN_GRAD_BOUND}; bf16 logged); two "
+        f"backward passes the same bits; at (B, S) {SCAN_TIMED}: forward "
+        f"{spread(fwd)} ms, forward + backward {spread(total)} ms (backward "
+        f"~{res['bwd_ms']:.2f}), peak {peak:.2f} GiB above the inputs, on "
+        f"{nvidia_smi()}")
+    if not worst <= SCAN_GRAD_BOUND:
+        raise AssertionError(f"selective scan backward: rel L2 {worst:.3e} "
+                             f"from autograd through the plain scan "
+                             f"(bound {SCAN_GRAD_BOUND})")
+    return res
+
+
+def jamba_step_busy(api, ts, TrainConfig, make_policy, lm_batches, cfg,
+                    profile_train) -> dict:
+    """One bf16 LAMB step of the path's model on its first batch, after a
+    warm-up step, under ``torch.profiler``: the device's busy time (the
+    union of the kernels' spans) and the selective scan's backward
+    (``_SelectiveScanBackward``, its recompute included)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import _busy_ms
+    pol = make_policy("bf16")
+    _, batch_n, seq, accum = LM_PATHS[JAMBA]
+    tcfg = TrainConfig(precision="bf16", accum_steps=accum,
+                       optimizer="lamb")
+    state = ts.init_train_state(
+        api.init_params(cfg, seed=SEED + 3, device=DEVICE), pol, tcfg,
+        cfg=cfg)
+    batch = api.to_device(next(lm_batches(SEED, cfg.vocab_size, batch_n,
+                                          seq)), DEVICE)
+
+    def step():
+        ts.train_step_fn(state, batch, cfg=cfg, tcfg=tcfg, policy=pol)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy = _busy_ms(prof)
+    scan_bwd = profile_train._backward_fns(prof, 1)["mamba_scan_backward_ms"]
+    del state, batch
+    torch.cuda.empty_cache()
+    log(f"{JAMBA} bf16 LAMB step: wall {wall:.1f} ms (unprofiled), device "
+        f"busy {busy:.1f} ms (profiled; idle {1 - busy / wall:.3f}), the "
+        f"selective scan's backward {scan_bwd:.1f} ms of it")
+    return {"wall_ms": wall, "busy_ms": busy, "scan_bwd_ms": scan_bwd}
+
+
+def jamba_train_phase(ops, train, api, ts, TrainConfig, make_policy,
+                      lm_batches) -> dict:
+    """jamba-1.5-large-398b's training at full width on its (mamba, dense)
+    layer (LM_PATHS: ``--positions 2``): (a) the CLI under LAMB for
+    JAMBA_STEPS steps (``model_train_run``: LAMB's kernel once a leaf group
+    a step, nothing else launches), losses finite and taken, the step
+    ms, the device's busy time in one more profiled step and the peak
+    logged; (b) one LAMB step kernels vs plain in f32 and in bf16 at the
+    same cut within LM_BOUND, every LAMB call held; (c) the selective
+    scan's backward against autograd through the plain scan
+    (``jamba_scan_check``); (d) two gradient steps of the CLI's model in
+    the same bits (``step_bits``).  Returns the CLI run."""
+    from repro_torch.launch import profile_train
+    from repro_torch.models import mamba as MB
+    t_phase = time.perf_counter()
+    run = model_train_run(ops, train, JAMBA, steps=JAMBA_STEPS)
+    cfg = run["cfg"]
+    depth, batch_n, seq, accum = LM_PATHS[JAMBA]
+    run["busy"] = jamba_step_busy(api, ts, TrainConfig, make_policy,
+                                  lm_batches, cfg, profile_train)
+    for precision in ("f32", "bf16"):
+        check_train_parity(lm_train_parity(
+            ops, api, ts, TrainConfig, make_policy, lm_batches,
+            path_cfg(train, JAMBA, depth), precision,
+            geometry=(batch_n, seq, accum), held=JAMBA_HELD, tag=JAMBA),
+            LM_BOUND, JAMBA)
+        torch.cuda.empty_cache()
+    timer = Timer()
+    run["scan"] = jamba_scan_check(MB, cfg, timer)
+    del timer
+    torch.cuda.empty_cache()
+    step_bits(api, ts, TrainConfig, make_policy, lm_batches, cfg, JAMBA)
+    log(f"jamba training phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return run
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -5273,6 +5511,11 @@ def main(argv=None) -> int:
         moe_train_phase(ops, fa, *train_mods)
         log("MoE training phase only: no other phase, no result")
         return 2
+    if only == "jamba_train":
+        del timer
+        jamba_train_phase(ops, *train_mods)
+        log("jamba training phase only: no other phase, no result")
+        return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
     train_entries["layernorm"] = layernorm_phase(ops, timer)
@@ -5354,6 +5597,9 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     mtrain = moe_train_phase(ops, fa, *train_mods)
     entries.append(mtrain["entry"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    jtrain = jamba_train_phase(ops, *train_mods)
 
     serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
                   "prefix_unshared", "cohort")
@@ -5445,6 +5691,9 @@ def main(argv=None) -> int:
         by_name[f"flash_{kind}_lm"] += qwen3[f"flash_{kind}"]
     by_name["lamb_moments_lm"] += sum(c["lamb_moments"]
                                       for c in mt_runs.values())
+    # jamba's training run (step 15): LAMB once a leaf group a step, on the
+    # LM's row; nothing else launches on its path
+    by_name["lamb_moments_lm"] += jtrain["counts"]["lamb_moments"]
     log("flash_fwd launches: serve " + " + ".join(
         f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
         + f", train {launches['train']['flash_fwd']}, dense decoder "

@@ -3,8 +3,7 @@
 runs: deepseek-7b, rwkv6-1.6b, the dense decoder variants gemma2-27b,
 qwen1.5-32b and deepseek-coder-33b, the MoE decoders
 granite-moe-3b-a800m and qwen3-moe-30b-a3b and the hybrid
-jamba-1.5-large-398b for serving, bert-large and bert-base for
-pretraining)."""
+jamba-1.5-large-398b, bert-large and bert-base for pretraining)."""
 from __future__ import annotations
 
 import dataclasses
@@ -74,5 +73,23 @@ def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     return dataclasses.replace(cfg, n_layers=n_layers)
 
 
+def cut_positions(cfg: ModelConfig, positions) -> ModelConfig:
+    """One block of the given positions of the config's block pattern, in
+    order, at its widths: jamba's ``(2,)`` is its (mamba, dense) layer
+    alone.  A depth cut the reference lacks, as ``cut_depth``'s; a
+    position out of the pattern, repeated or out of order raises
+    ``ValueError``."""
+    positions = tuple(positions)
+    n = len(cfg.block_pattern)
+    if not positions or list(positions) != sorted(set(positions)) or \
+            not all(0 <= p < n for p in positions):
+        raise ValueError(f"positions {positions}: distinct, increasing "
+                         f"positions of the {n}-position block pattern")
+    return dataclasses.replace(
+        cfg, n_layers=len(positions),
+        block_pattern=tuple(cfg.block_pattern[p] for p in positions))
+
+
 __all__ = ["ARCHS", "DecodeCaps", "InputShape", "ModelConfig",
-           "TrainConfig", "cut_depth", "get_config", "smoke_variant"]
+           "TrainConfig", "cut_depth", "cut_positions", "get_config",
+           "smoke_variant"]

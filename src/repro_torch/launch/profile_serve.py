@@ -34,7 +34,8 @@ the dispatch and combine (``moe._dense_combine``, ``moe._group_local``,
 ``moe._combine_local``), and in a mamba layer its in-projection
 (``mamba._in_proj``), causal conv (``mamba._causal_conv``), selective
 scan (``mamba._selective_scan``: x_proj, dt, the recurrence and the
-contraction with C) and gated out-projection (``mamba._out_proj``), each
+contraction with C) and gated out-projection (``mamba._out_proj``), and
+a dense layer's MLP (``layers.apply_mlp``), each
 the device time of the kernels launched
 inside it, from a third loop profiled with those functions wrapped in
 ``record_function`` spans; the rest of the busy time (norms, embedding,
@@ -168,7 +169,8 @@ SPANS = {"attention": ((L, "apply_attention"),),
          "mamba_in_proj": ((MB, "_in_proj"),),
          "mamba_conv": ((MB, "_causal_conv"),),
          "mamba_scan": ((MB, "_selective_scan"),),
-         "mamba_out_proj": ((MB, "_out_proj"),)}
+         "mamba_out_proj": ((MB, "_out_proj"),),
+         "mlp": ((L, "apply_mlp"),)}
 SPAN_PREFIX = "profile_serve::"
 
 
@@ -197,11 +199,11 @@ def _spanned():
             setattr(mod, name, fn)
 
 
-def _split(name, fn, iters, busy_ms):
+def _split(name, fn, iters, busy_ms, extra=None):
     """Device ms per iteration of the kernels launched inside each span
     (the CPU-side span's device total), from a loop profiled under
     ``_spanned``; ``rest_ms`` is ``busy_ms`` (from ``_phase``'s trace)
-    less the spans."""
+    less the spans.  ``extra`` (a dict) joins the printed line."""
     with _spanned(), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -217,7 +219,7 @@ def _split(name, fn, iters, busy_ms):
             spans[e.key[len(SPAN_PREFIX):]] += us / 1e3 / iters
     out = {"phase": name, "span_device_ms": spans,
            "rest_ms": busy_ms - sum(spans.values()),
-           "device_busy_ms": busy_ms}
+           "device_busy_ms": busy_ms, **(extra or {})}
     print(json.dumps(out), flush=True)
     return out
 

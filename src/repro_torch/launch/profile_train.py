@@ -3,7 +3,8 @@ full training steps of BERT or of the decoder LM.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \
       [--full-width] [--steps 3] [--precision bf16] \
-      [--arch bert-large|deepseek-7b|granite-moe-3b-a800m|...]
+      [--arch bert-large|deepseek-7b|granite-moe-3b-a800m|...] \
+      [--positions P,...]
 
 Builds bert-large (as published with ``--full-width``, else the 2-layer
 smoke variant) with seeded random weights and LAMB state, and times
@@ -31,14 +32,22 @@ deepseek-7b at 4 layers, 8 x 1024; gemma2-27b at its first (local) layer,
 2 x 8192; qwen1.5-32b at 1 layer and deepseek-coder-33b at 2, 8 x 1024;
 rwkv6-1.6b whole (24 layers), 8 x 1024; the MoE decoders on the capacity
 path (``TrainConfig.moe_impl`` "a2a"), granite-moe-3b-a800m at 24 of its
-32 layers and qwen3-moe-30b-a3b at 2 of its 48, 8 x 1024.  An MoE model's
+32 layers and qwen3-moe-30b-a3b at 2 of its 48, 8 x 1024; the hybrid
+jamba-1.5-large-398b at its (mamba, dense) layer alone (block-pattern
+position 2, ``launch/train.py --full --positions 2``), 8 x 1024.
+``--positions`` (with ``--full-width``, a decoder) replaces the path's
+depth by one block of those positions.  An MoE or a mamba model's
 step gets one more line, ``train_step_lm_split``: the device ms of
 attention, the router, the expert products and the dispatch and combine,
-as ``profile_serve.py``'s ``decode_step_split`` takes them (the kernels
-launched inside ``record_function`` spans around those functions, in a
-third profiled loop): the forward's and the recompute's kernels; the
-backward's run on autograd's device thread, outside the spans, and are
-in ``backward_by_fn``.  Needs a CUDA device.
+mamba's in-projection, conv, selective scan (x_proj, dt and the scan's
+forward) and out-projection, and the dense MLP, as ``profile_serve.py``'s
+``decode_step_split`` takes them (the kernels launched inside
+``record_function`` spans around those functions, in a third profiled
+loop): the forward's and the recompute's kernels; the backward's run on
+autograd's device thread, outside the spans, and are in
+``backward_by_fn``, of which the line repeats the selective scan's
+backward (``_SelectiveScanBackward``, its recompute included) as
+``mamba_scan_backward_ms``.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -59,14 +68,24 @@ from repro_torch.train.train_step import init_train_state, train_step_fn
 
 SEED = 0
 PHASES = (("phase1", 128, 128), ("phase2", 512, 64))   # name, seq, batch
-# a decoder's training path on one card: (depth at full width, global
-# batch, seq, accumulation steps)
+# a decoder's training path on one card: (depth at full width -- layers,
+# or a tuple of block-pattern positions --, global batch, seq,
+# accumulation steps)
 LM_PATHS = {"deepseek-7b": (4, 8, 1024, 2), "gemma2-27b": (1, 2, 8192, 2),
             "qwen1.5-32b": (1, 8, 1024, 2),
             "deepseek-coder-33b": (2, 8, 1024, 2),
             "rwkv6-1.6b": (24, 8, 1024, 2),
             "granite-moe-3b-a800m": (24, 8, 1024, 2),
-            "qwen3-moe-30b-a3b": (2, 8, 1024, 2)}
+            "qwen3-moe-30b-a3b": (2, 8, 1024, 2),
+            "jamba-1.5-large-398b": ((2,), 8, 1024, 2)}
+
+
+def depth_flags(depth) -> list:
+    """``launch/train.py``'s depth cut of an ``LM_PATHS`` depth: ``--layers
+    N``, or ``--positions P,...`` for a tuple of positions."""
+    if isinstance(depth, tuple):
+        return ["--positions", ",".join(map(str, depth))]
+    return ["--layers", str(depth)]
 
 
 def main(argv=None):
@@ -76,7 +95,15 @@ def main(argv=None):
     ap.add_argument("--precision", default="bf16")
     ap.add_argument("--arch", default="bert-large",
                     choices=("bert-large", *LM_PATHS))
+    ap.add_argument("--positions", default=None,
+                    help="with --full-width and a decoder: one block of "
+                    "these block-pattern positions (a comma list) instead "
+                    "of the path's depth")
     args = ap.parse_args(argv)
+    if args.positions is not None and (not args.full_width
+                                       or args.arch == "bert-large"):
+        raise SystemExit("--positions cuts a full-width decoder: it needs "
+                         "--full-width and a decoder --arch")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card: no CUDA device")
     cfg = get_config(args.arch)
@@ -86,10 +113,12 @@ def main(argv=None):
         if not args.full_width:
             cfg = smoke_variant(cfg, d_model=128, n_blocks=2)
     else:
-        layers, batch, seq, accum = LM_PATHS[args.arch]
+        depth, batch, seq, accum = LM_PATHS[args.arch]
         phases = (("lm", seq, batch),)
+        cut = (["--positions", args.positions] if args.positions
+               else depth_flags(depth))
         cfg = train_model(train_args(
-            ["--arch", args.arch, "--full", "--layers", str(layers)]
+            ["--arch", args.arch, "--full", *cut]
             if args.full_width else ["--arch", args.arch]))
     pol = make_policy(args.precision)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
@@ -116,9 +145,11 @@ def main(argv=None):
         step()   # warm-up: cuBLAS plans, allocator
         res = _phase(f"train_step_{name}", step, args.steps,
                      extra=_backward_fns)
-        if cfg.has_moe:
+        if cfg.has_moe or any(m == "mamba" for m, _ in cfg.block_pattern):
             _split(f"train_step_{name}_split", step, args.steps,
-                   res["device_busy_ms"])
+                   res["device_busy_ms"], extra={
+                       "mamba_scan_backward_ms":
+                       res["mamba_scan_backward_ms"]})
 
 
 def _device_us(e):
@@ -128,7 +159,8 @@ def _device_us(e):
 
 def _backward_fns(prof, iters):
     """Device time of each autograd function's backward (its kernels
-    included), per step: where the backward pass spends the card; and the
+    included), per step: where the backward pass spends the card (the
+    selective scan's apart, ``mamba_scan_backward_ms``); and the
     LayerNorm backward's split into its own work (the span) and the rest
     (the checkpointed blocks' recompute)."""
     rows, span = [], {"ms_per_iter": 0.0, "calls_per_iter": 0.0}
@@ -145,6 +177,9 @@ def _backward_fns(prof, iters):
     ln = next((r["ms_per_iter"] for r in rows
                if r["fn"] == "_LayerNormBackward"), 0.0)
     return {"backward_by_fn": rows[:12],
+            "mamba_scan_backward_ms": sum(
+                r["ms_per_iter"] for r in rows
+                if r["fn"] == "_SelectiveScanBackward"),
             "layernorm_backward_split": {
                 "fn_ms_per_iter": ln, "span": span,
                 "rest_ms_per_iter": ln - span["ms_per_iter"]}}

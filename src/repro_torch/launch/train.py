@@ -1,7 +1,8 @@
 """Decoder-LM training launcher (counterpart of ``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \
-      --steps 50 --batch 8 --seq 256 [--smoke | --full [--layers N]] \
+      --steps 50 --batch 8 --seq 256 \
+      [--smoke | --full [--layers N | --positions P,...]] \
       [--precision bf16|f32|f16] [--optimizer lamb|adamw] [--accum 4] \
       [--device cuda|cpu] [--dp --strategy psum|ring|hierarchical|bucketed] \
       [--grad-compression none|fp16|int8] \
@@ -36,8 +37,12 @@ deepseek-coder-33b (56 query heads over 8 KV heads), rwkv6-1.6b, whose
 ``--seq`` must be at most 64 or a multiple of 64 (``min(64, S)`` divides
 S: wkv6's chunk), and the MoE decoders granite-moe-3b-a800m (40 experts
 top-8, tied embeddings) and qwen3-moe-30b-a3b (128 experts top-8,
-query/key norms).  An MoE model's loss adds ``router_aux_coef`` times the
-router's aux loss, logged as ``router aux`` in each step line;
+query/key norms), and the hybrid jamba-1.5-large-398b (attention, mamba
+and MoE layers in an 8-layer block; mamba's selective scan takes its
+backward from ``models/mamba.py`` ``_SelectiveScan``).  An MoE model's
+loss adds ``router_aux_coef`` times the router's aux loss (the
+reference's: each block's last pattern position, summed over the
+blocks), logged as ``router aux`` in each step line;
 ``--moe-impl`` picks its expert path: ``dense`` (every expert on every
 token), or ``a2a`` (the default) and ``replicated``, which on one card
 are both the reference's capacity path without a mesh (``_moe_single``,
@@ -57,6 +62,15 @@ buffer, a bf16 compute copy), ~124 GB against the H100's 80 GB; the
 reference reaches that depth only with its optimizer state sharded over a
 mesh, which the port has not ported.  At ``--full --layers 4`` (1.65 B
 parameters) a bf16 step fits one card.
+
+And ``--positions P,...`` (with ``--full`` only, not with ``--layers``):
+one block of the given block-pattern positions, in order, at full width
+(``configs.cut_positions``).  Like ``--layers`` it is a depth cut the
+reference lacks, not a feature of the model: jamba's ``--positions 2`` is
+its (mamba, dense) layer alone, 2.098 B parameters with the embedding and
+the head.  Any prefix of jamba's block past its first layer holds a
+(mamba, moe) layer, 10.1 B parameters, ~280 GB of training state, and its
+attention layer beside the (mamba, dense) one comes to ~80 GB.
 
 ``--dp`` is the reference's pure data parallelism
 (``train_step.make_train_step_dp``) with the gradient exchange
@@ -82,7 +96,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import cut_positions, get_config, smoke_variant
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import collectives as C
 from repro_torch.core.amp import make_policy
@@ -109,6 +123,10 @@ def parse_args(argv=None):
                     "multiple of the block pattern (gemma2-27b's 2: local, "
                     "global) or fewer layers than it; the other decoders "
                     "take any depth; default: the config's")
+    ap.add_argument("--positions", default=None,
+                    help="with --full: one block of these block-pattern "
+                    "positions, a comma list (jamba-1.5-large-398b's 2: "
+                    "its (mamba, dense) layer alone); not with --layers")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -161,6 +179,19 @@ def parse_args(argv=None):
     if args.timing_breakdown and not args.dp:
         raise SystemExit("--timing-breakdown requires --dp (the twin it "
                          "times against swaps the explicit collective out)")
+    if args.positions is not None:
+        if args.layers is not None:
+            raise SystemExit("--positions and --layers are two depth cuts: "
+                             "give one")
+        if args.smoke:
+            raise SystemExit("--positions cuts the full-width model: it "
+                             "needs --full")
+        try:
+            args.positions = tuple(int(p) for p in
+                                   args.positions.split(","))
+        except ValueError:
+            raise SystemExit(f"--positions {args.positions!r}: a comma list "
+                             "of integers") from None
     if args.pure_dp:
         raise SystemExit("--pure-dp (ZeRO-1: the optimizer state sharded "
                          "over the ranks) comes with the sharding slice of "
@@ -169,13 +200,18 @@ def parse_args(argv=None):
 
 
 def model_config(args):
-    """The model of ``--arch``, ``--smoke``/``--full`` and ``--layers``;
-    ``SystemExit`` for one this trainer does not take."""
+    """The model of ``--arch``, ``--smoke``/``--full`` and ``--layers`` or
+    ``--positions``; ``SystemExit`` for one this trainer does not take."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
     if cfg.is_encoder_only:
         raise SystemExit("use launch/pretrain_bert.py for BERT")
+    if args.positions is not None:
+        try:
+            cfg = cut_positions(cfg, args.positions)
+        except ValueError as e:
+            raise SystemExit(f"--positions: {e}") from None
     if args.layers is not None:
         pattern = cfg.block_pattern
         if args.layers <= 0 or (args.layers > len(pattern)

@@ -7,11 +7,13 @@ and numpy dtype); synthetic batches are drawn with numpy from a seed and
 moved to the device by ``to_device``.  Decoder training covers every
 layer the port runs (``transformer.check_supported``): dense attention
 (full, sliding-window local and global; grouped-query heads, QKV biases,
-post-block norms, softcaps, tied and scaled embeddings, GeGLU), RWKV-6
-and Mixture-of-Experts MLPs, whose loss adds the router's aux loss as the
-reference's does (``lm_train_loss``; ``moe_impl`` picks the expert path).
-Mamba layers (jamba: the port serves it) and encoder-decoder and vision
-models are refused (``check_trainable``), each naming its slice.
+post-block norms, softcaps, tied and scaled embeddings, GeGLU), RWKV-6,
+mamba (the hybrid jamba; its selective scan's backward is
+``mamba._SelectiveScan``) and Mixture-of-Experts MLPs, whose loss adds the
+router's aux loss as the reference's does (``lm_train_loss``; each
+block's last pattern position, ``transformer.apply_lm``; ``moe_impl``
+picks the expert path).  Encoder-decoder and vision models are refused
+(``check_trainable``), naming their slice.
 The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
@@ -43,16 +45,11 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder must be one ``transformer.check_supported`` runs, without
-    mamba layers, which the port serves but does not train."""
+    decoder must be one ``transformer.check_supported`` runs (whisper and
+    qwen2-vl are not)."""
     if cfg.is_encoder_only:
         return
     T.check_supported(cfg)
-    if any(mixer == "mamba" for mixer, _ in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: mamba layers are served, not trained yet; "
-            "training them (the selective scan's backward, jamba) comes "
-            "with the hybrid training slice")
 
 
 class _MeanNLL(torch.autograd.Function):
@@ -89,7 +86,8 @@ def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
     ``lm_train_loss``): inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``,
     ``log_softmax`` of the logits in fp32, the mean NLL (``_MeanNLL``);
     an MoE model adds ``aux_coef`` (default ``cfg.router_aux_coef``) times
-    the router's aux loss summed over the layers.  Returns (loss,
+    the router's aux loss, that of each block's last pattern position
+    summed over the blocks (``transformer.apply_lm``).  Returns (loss,
     {"lm_loss", "router_aux"}), 0-d float32 tensors; ``router_aux`` is 0
     for a model without MoE layers."""
     tokens = batch["tokens"]

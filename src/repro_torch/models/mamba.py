@@ -168,6 +168,118 @@ def _ssm_sequential(a_coef: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
     return torch.stack(ys, dim=1), h
 
 
+def _scan_blocks(dt, dx, b_in, c_in, a, h0, step: int, *,
+                 sequential: bool = False, keep=None, starts=None):
+    """The scan a block of ``step`` steps at a time: each block's
+    coefficients a = exp(dt A) and bx = dx B (pad steps of ``keep`` (B, S)
+    the identity, a = 1 and bx = 0), its scan from the carried state --
+    step by step with ``sequential``, else one chunk of the doubling scan
+    -- and the contraction of its states with C.  Returns (y (B, S, din),
+    h_final); ``starts`` (a list) collects the state at each block's
+    start."""
+    h, ys = h0, []
+    for i in range(0, dt.shape[1], step):
+        blk = slice(i, i + step)
+        if starts is not None:
+            starts.append(h)
+        a_coef = torch.exp(dt[:, blk, :, None] * a)           # (B,L,din,N)
+        bx = dx[:, blk, :, None] * b_in[:, blk, None, :]
+        if keep is not None:
+            k = keep[:, blk, None, None]
+            a_coef = torch.where(k, a_coef, torch.ones((), dtype=a.dtype,
+                                                       device=a.device))
+            bx = torch.where(k, bx, torch.zeros((), dtype=a.dtype,
+                                                device=a.device))
+        if sequential:
+            hs, h = _ssm_sequential(a_coef, bx, h)
+        else:
+            hs, h = _ssm_chunked(a_coef, bx, h, step)
+        ys.append(torch.einsum("bldn,bln->bld", hs, c_in[:, blk]))
+        del a_coef, bx, hs
+    return torch.cat(ys, dim=1), h
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The chunked selective scan with a hand-written backward, which
+    recomputes a chunk's states from its saved start state.
+
+    Inputs: dt (B, S, din) after softplus, x1 (B, S, din), B and C (B, S,
+    N), A = -exp(a_log) (din, N) and h0 (B, din, N), all fp32, and the
+    chunk.  Outputs: y_t = sum_n h_t C_t (B, S, din), without the D skip,
+    and h_final.  The forward is ``_scan_blocks`` (the serving path's
+    bits) and keeps only its inputs and the state at each chunk's start,
+    (B, S / chunk, din, N): autograd through the doubling scan would keep
+    every round's (B, chunk, din, N) tensors, ~57 GiB for one of jamba's
+    layers at a micro-batch of 4 x 1024.
+
+    The backward walks the chunks from last to first.  It recomputes the
+    chunk's a, bx and states, then runs the reverse recurrence
+    g_t = C_t dy_t + a_{t+1} g_{t+1} -- g_t the gradient of h_t -- as a
+    doubling scan over the reversed chunk from the gradient carried in
+    from the chunk after it (a_{t+1} g_{t+1} of that chunk's first step,
+    or the gradient of h_final).  Then dC_t = sum_d h_t dy_t, d(a_t) =
+    g_t h_{t-1} (h_{t-1} of the chunk's first step the saved start
+    state), d(bx_t) = g_t, and through a = exp(dt A) and bx = dt x1 B the
+    gradients of dt, x1, B and A; dh0 is a_0 g_0.  Everything is
+    elementwise or a reduction in a fixed order: dA is summed over (B, L)
+    within a chunk and added chunk by chunk in fp32, and no operation
+    adds with atomics, so two backward passes give the same bits.  A
+    chunk's recompute holds a, bx, its states, g and their products, each
+    (B, chunk, din, N) fp32, and frees them before the next."""
+
+    @staticmethod
+    def forward(ctx, dt, x1, b_in, c_in, a, h0, chunk):
+        starts = []
+        y, h = _scan_blocks(dt, dt * x1, b_in, c_in, a, h0, chunk,
+                            starts=starts)
+        ctx.chunk = chunk
+        ctx.save_for_backward(dt, x1, b_in, c_in, a, torch.stack(starts, 1))
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, x1, b_in, c_in, a, starts = ctx.saved_tensors
+        step = ctx.chunk
+        dx = dt * x1
+        ddt, dx1 = torch.empty_like(dt), torch.empty_like(x1)
+        db, dc = torch.empty_like(b_in), torch.empty_like(c_in)
+        da = torch.zeros_like(a)
+        g = dh      # autograd passes zeros for an output that was not used
+        one = torch.ones((), dtype=a.dtype, device=a.device)
+        for i in reversed(range(starts.shape[1])):
+            blk = slice(i * step, (i + 1) * step)
+            dt_b, dx_b, dy_b = dt[:, blk], dx[:, blk], dy[:, blk]
+            a_coef = torch.exp(dt_b[..., None] * a)          # (B,L,din,N)
+            bx = dx_b[..., None] * b_in[:, blk, None, :]
+            hs, _ = _scan_chunk(a_coef, bx, starts[:, i])
+            del bx
+            dc[:, blk] = torch.einsum("bldn,bld->bln", hs, dy_b)
+            # the reverse recurrence over the flipped chunk: step j is
+            # t = L - 1 - j, its multiplier a_{t+1} (1 at j = 0, where the
+            # carried gradient already holds it)
+            e = torch.flip(dy_b[..., None] * c_in[:, blk, None, :], (1,))
+            a_rev = torch.cat([one.expand_as(a_coef[:, :1]),
+                               torch.flip(a_coef[:, 1:], (1,))], dim=1)
+            gs, _ = _scan_chunk(a_rev, e, g)
+            del e, a_rev
+            gs = torch.flip(gs, (1,))                         # g_t
+            g = a_coef[:, 0] * gs[:, 0]
+            h_prev = torch.cat([starts[:, i, None], hs[:, :-1]], dim=1)
+            del hs
+            # d(dt A) = g h_{t-1} a
+            dlog = gs * h_prev * a_coef
+            del h_prev, a_coef
+            da += torch.einsum("bldn,bld->dn", dlog, dt_b)
+            ddx = torch.einsum("bldn,bln->bld", gs, b_in[:, blk])
+            db[:, blk] = torch.einsum("bldn,bld->bln", gs, dx_b)
+            del gs
+            ddt[:, blk] = torch.einsum("bldn,dn->bld", dlog, a) + \
+                ddx * x1[:, blk]
+            dx1[:, blk] = ddx * dt_b
+            del dlog, ddx
+        return ddt, dx1, db, dc, da, g, None
+
+
 def _in_proj(params: dict, x: torch.Tensor, cd):
     """(x1, z), each (B, S, din), in the compute dtype."""
     xz = x.to(cd) @ params["in_proj"].to(cd)
@@ -180,7 +292,8 @@ def _selective_scan(params: dict, x1: torch.Tensor, cfg: ModelConfig, cd,
     """From the conv's SiLU output x1 (B, S, din) and the state h0: y =
     C h + D x1 (B, S, din) in fp32 and the final state.  ``keep`` (B, S)
     masks pad steps to the identity; ``sequential`` picks the step-by-step
-    scan, else chunks of ``chunk``."""
+    scan, else chunks of ``chunk``, through ``_SelectiveScan`` under grad
+    (training) and ``_scan_blocks`` without (serving: the same bits)."""
     b, s, _ = x1.shape
     n, r = cfg.mamba_d_state, cfg.dt_rank
     f32 = torch.float32
@@ -201,24 +314,12 @@ def _selective_scan(params: dict, x1: torch.Tensor, cfg: ModelConfig, cd,
         if not sequential and s % step:
             raise ValueError(f"sequence {s} is not a multiple of the chunk "
                              f"{step}")
-        h, ys = h0, []
-        for i in range(0, s, step):
-            blk = slice(i, i + step)
-            a_coef = torch.exp(dt[:, blk, :, None] * a)       # (B,L,din,N)
-            bx = dx[:, blk, :, None] * b_in[:, blk, None, :]
-            if keep is not None:
-                k = keep[:, blk, None, None]
-                a_coef = torch.where(k, a_coef, torch.ones((), dtype=f32,
-                                                           device=a.device))
-                bx = torch.where(k, bx, torch.zeros((), dtype=f32,
-                                                    device=a.device))
-            if sequential:
-                hs, h = _ssm_sequential(a_coef, bx, h)
-            else:
-                hs, h = _ssm_chunked(a_coef, bx, h, step)
-            ys.append(torch.einsum("bldn,bln->bld", hs, c_in[:, blk]))
-            del a_coef, bx, hs
-        y = torch.cat(ys, dim=1)
+        if not sequential and keep is None and torch.is_grad_enabled():
+            y, h = _SelectiveScan.apply(dt, x1.to(f32), b_in, c_in, a, h0,
+                                        step)
+        else:
+            y, h = _scan_blocks(dt, dx, b_in, c_in, a, h0, step,
+                                sequential=sequential, keep=keep)
     y = y + params["d_skip"].to(f32) * x1.to(f32)
     return y, h
 

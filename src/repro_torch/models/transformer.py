@@ -33,8 +33,11 @@ layer's MLP is ``moe.moe_apply`` with the caller's ``moe_impl``: the
 defaults are the reference's (``apply_lm`` and ``prefill`` "a2a",
 ``prefill_suffix`` "dense", ``decode_step`` "replicated"; on one device
 "a2a" and "replicated" are the capacity path), and the serving stack
-passes "dense".  The router's aux loss is summed over the layers, as the
-reference's scan sums it; ``apply_lm(return_aux=True)`` returns it.
+passes "dense".  The router's aux loss is the reference's: its scan over
+blocks keeps, of each block, the aux of the block's last pattern position
+(0 where that position's MLP is dense) and sums those over the blocks, so
+jamba's 8-position block counts position 7's MoE layer and not those at 1,
+3 and 5; ``apply_lm(return_aux=True)`` returns it.
 
 The decode state is ``{"pos": (B,) int32, "blocks": [layer state, ...]}``
 with ``{"cache": ...}`` for an attention layer, ``{"conv", "ssm"}`` (fp32)
@@ -338,18 +341,24 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
              return_aux: bool = False, impl: Optional[str] = None):
     """Full forward of (B, S) tokens -> logits (B, S, V), for training and
     scoring; with ``return_aux`` (logits, aux), aux the MoE router's loss
-    summed over the layers (0-d fp32; 0 for a model without MoE layers),
-    which the reference always returns.  ``remat=True`` recomputes each
+    as the reference's ``_run_blocks`` carries it (0-d fp32; 0 for a model
+    without MoE layers, which the reference always returns): per block of
+    ``len(cfg.block_pattern)`` layers the aux of its last position only,
+    summed over the blocks in order.  ``remat=True`` recomputes each
     layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
     as ``jax.checkpoint`` wraps the reference's scan body (one block: one
     layer of a one-position ``block_pattern``).  The checkpointed layer
-    returns its aux loss beside x, so the aux loss's gradient reaches the
-    router through the recompute; the recompute runs the forward's
+    returns its aux loss beside x; the aux of any other position is
+    dropped after it returns, so the aux loss's gradient reaches through
+    the recompute exactly the routers the reference's reaches, those of
+    each block's last position.  The recompute runs the forward's
     operations on the same inputs, each deterministic (``models/moe.py``),
     so it routes and dispatches every token as the forward did."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, (mixer, mlp) in zip(params["blocks"], cfg.layer_kinds()):
+    last = len(cfg.block_pattern) - 1
+    for i, (p, (mixer, mlp)) in enumerate(zip(params["blocks"],
+                                              cfg.layer_kinds())):
         if remat:
             x, a = checkpoint(_apply_layer, p, x, cfg, policy, mixer, mlp,
                               moe_impl=moe_impl, impl=impl,
@@ -357,7 +366,7 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
         else:
             x, a = _apply_layer(p, x, cfg, policy, mixer, mlp,
                                 moe_impl=moe_impl, impl=impl)
-        if a is not None:
+        if a is not None and i % len(cfg.block_pattern) == last:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
     logits = _lm_logits(params, x, cfg, policy)

@@ -400,19 +400,18 @@ def test_rings_refuse_a_paged_cache():
     (dict(block_pattern=(("mamba", "dense"),)), "mamba")])
 def test_later_slices_stay_refused(change, match):
     """What later slices bring raises ``NotImplementedError`` naming it:
-    vision stubs and M-RoPE at serving and training, mamba layers at
-    training only (``api.check_trainable``, naming the hybrid training
-    slice) since the port serves them (tests/test_torch_jamba_serve.py);
+    vision stubs and M-RoPE at serving and training.  Mamba layers, which
+    the hybrid slices brought, are served (tests/test_torch_jamba_serve.py)
+    and trained (tests/test_torch_jamba_train.py): both checks take them;
     query/key norms and MoE layers run since the MoE slice
     (tests/test_torch_moe.py, tests/test_torch_moe_serve.py)."""
     cfg = dataclasses.replace(smoke_variant(get_config("deepseek-7b")),
                               **change)
-    with pytest.raises(NotImplementedError, match=match):
-        api.check_trainable(cfg)
     if match == "mamba":
         T.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            api.check_trainable(cfg)
+        api.check_trainable(cfg)
     else:
+        with pytest.raises(NotImplementedError, match=match):
+            api.check_trainable(cfg)
         with pytest.raises(NotImplementedError, match=match):
             T.check_supported(cfg)

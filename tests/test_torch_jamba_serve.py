@@ -10,9 +10,8 @@ CLIs).
 
 The reference's aux loss of a multi-position block keeps the last
 position's router loss only (its scan body overwrites ``aux`` at each
-position); the port sums every MoE layer's.  Serving discards the aux, and
-the port does not train mamba layers (``api.check_trainable``), so no test
-here compares it."""
+position), and so does the port's; serving discards it, and
+tests/test_torch_jamba_train.py holds it against the reference."""
 import dataclasses
 import functools
 
