@@ -130,6 +130,23 @@
    pages) and the causal flash forward at (1, 64, 1024, 128) over 8 KV
    heads held and timed as in 4c; those three rows join the kernel JSON
    line.
+4e. The encoder-decoder whisper-small whole at full width (12 encoder
+   and 12 decoder layers, d 768, 12 heads of 64, 1500 frames), bf16
+   weights seeded on the card, deepseek's 8-request trace with each
+   request's own frames through ``ContinuousScheduler`` in "paged" and
+   "paged_int8": every launch exactly ``whisper_serve_launches`` (a slot
+   prefill: the encoder's bidirectional flash forward at S 1500, the
+   decoder's causal one at S 1024, every LayerNorm and bias-GELU; a
+   decode step: paged decode at G 1, Dh 64, LayerNorm, bias-GELU; the
+   cross-attention plain PyTorch), no page leaked, ``state_bytes`` (the
+   cross caches) and ``cache_bytes`` both non-zero; ``path_parity`` in
+   both modes with every flash, paged, LayerNorm and bias-GELU call held,
+   in bf16 and in f32 at 2 encoder and 2 decoder layers; slot 0 refilled
+   with a new request and new frames leaves slot 1's logits within the
+   bf16 bound of a run without the refill (the bits logged); the slot
+   prefill and the decode step timed; then paged decode at G 1, Dh 64
+   (bf16 and int8 pages) held and timed, its two rows in the kernel JSON
+   line.
 5. Training kernel phase: the kernels of the BERT training path against
    their plain versions -- the flash backward (pre-pass, main pass and, in
    16 bits over more than one 128-key tile, the post-pass that adds the dQ
@@ -360,7 +377,24 @@
    the scan's forward and forward + backward timed at the training
    micro-batch (4, 1024).  (d) Two gradient steps of the CLI's model from
    one state in the same bits.  Its LAMB launches join the LM's row.
-16. Prints one JSON line of kernel results, then, as the last line,
+16. Training whisper-small whole at full width (``LM_PATHS``: 8 x 1024
+   tokens with their frames, 2 micro-batches): (a) ``launch/train.py``
+   under LAMB, 4 steps of bf16, in process: every loss finite and no step
+   skipped, the launches exactly ``train_launches`` (the encoder's flash
+   pair at S 1500, the decoder's at S 1024, LayerNorm and bias-GELU
+   forward and backward, LAMB), the peak logged.  (b) One LAMB step
+   kernels vs plain within LM_BOUND, in f32 at 2 encoder and 2 decoder
+   layers and in bf16 at full depth, every flash, LayerNorm, bias-GELU and
+   LAMB call held.  (c) Two gradient steps in the same bits.  (d) The
+   encoder's flash pair alone at (4, 12, 1500, 64), bidirectional (a
+   ragged last tile of 92), in bf16 and f32: out, lse, dQ, dK and dV held,
+   forward and backward twice the same bits, timed in bf16 beside SDPA;
+   LayerNorm at rows of 768 and bias-GELU at rows of 3072, forward and
+   backward, held in f32 and bf16 (1, 7, 333 and 6000 rows), the
+   backwards twice the same bits, timed at 6000 rows.  Six rows join the
+   kernel JSON line; the decoder's causal pair joins granite's causal
+   Dh-64 rows, LAMB the LM's.
+17. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
@@ -372,10 +406,11 @@ lm`` after the build and the decoder-LM phase, ``--only serve`` after the
 build and the deepseek serve phase (step 4), ``--only decoders`` after the
 build and the dense decoder variants phase (step 4b), ``--only moe``
 after the build and the MoE decoders phase (step 4c), ``--only jamba``
-after the build and the jamba phase (step 4d), ``--only
-variants_train``, ``--only rwkv_train``, ``--only moe_train`` and
-``--only jamba_train`` after the build and step 12, 13, 14 or 15 (exit
-2, no result line in each case);
+after the build and the jamba phase (step 4d), ``--only whisper`` after
+the build and the whisper serve phase (step 4e), ``--only
+variants_train``, ``--only rwkv_train``, ``--only moe_train``, ``--only
+jamba_train`` and ``--only whisper_train`` after the build and step 12,
+13, 14, 15 or 16 (exit 2, no result line in each case);
 without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -1161,11 +1196,23 @@ def wkv6_phase(ops, timer):
 # serve phase
 # ---------------------------------------------------------------------------
 
+def request_frames(cfg, rng):
+    """An encoder-decoder request's frame embeddings, (enc_seq, d_model)
+    float32, 0.1 times a standard normal from ``rng`` (as the serve CLI
+    draws them); None for any other model, which draws nothing."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return (0.1 * rng.standard_normal((cfg.enc_seq, cfg.d_model))
+            ).astype(np.float32)
+
+
 def serve_run(T, ops, sched_mod, cfg, params, pol, mode, moe_impl="dense"):
     """The 8-request trace through ``ContinuousScheduler`` in ``mode``,
     launch counts zeroed just before and read just after; returns (the
-    counts, the scheduler's ``ServeStats``)."""
+    counts, the scheduler's ``ServeStats``).  An encoder-decoder's
+    requests carry their own frames (``request_frames``)."""
     rng = np.random.default_rng(SEED + 2)
+    frames_rng = np.random.default_rng(SEED + 5)
     sched = sched_mod.ContinuousScheduler(
         params, cfg, pol, batch=BATCH, max_len=MAX_LEN,
         prefill_len=PREFILL_LEN, cache_mode=mode, page_size=PAGE_SIZE,
@@ -1175,7 +1222,8 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode, moe_impl="dense"):
         sched.submit(sched_mod.Request(
             rid=rid, prompt=rng.integers(0, cfg.vocab_size, size=n,
                                          dtype=np.int32),
-            max_new_tokens=int(rng.integers(4, 17))))
+            max_new_tokens=int(rng.integers(4, 17)),
+            enc_frames=request_frames(cfg, frames_rng)))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     done = sched.run()
@@ -1205,7 +1253,8 @@ def serve_run(T, ops, sched_mod, cfg, params, pol, mode, moe_impl="dense"):
         f"{st.wall_s:.3f} s ({st.tokens_per_s:.1f} tok/s), decode "
         f"{step_ms:.3f} ms/step ({st.decode_tokens_per_s:.1f} tok/s), "
         f"launches {counts}, KV cache {st.cache_bytes / 2**30:.3f} GiB"
-        + (f", recurrent state {st.state_bytes / 2**20:.3f} MiB"
+        + (f", per-slot state (recurrent rows, cross caches) "
+           f"{st.state_bytes / 2**20:.3f} MiB"
            if st.state_bytes else ""))
     return counts, st
 
@@ -1298,21 +1347,27 @@ def slot_run(T, serve_step, cfg, params, pol, mode, moe_impl, feed=None,
              impl=None):
     """A 777-token request prefilled into slot 0 of a one-slot paged state
     (``mode``), then 4 decode steps fed ``feed`` (or, without it, each
-    step's argmax).  Returns (the 5 logits rows (5, V) in f32, the fed
-    tokens)."""
+    step's argmax); an encoder-decoder's request with its own frames.
+    Returns (the 5 logits rows (5, V) in f32, the fed tokens)."""
     rng = np.random.default_rng(SEED + 3)
     n = SLOT_PROMPT
     prompt = np.zeros((1, PREFILL_LEN), np.int32)
     prompt[0, :n] = rng.integers(0, cfg.vocab_size, size=n)
     toks = torch.from_numpy(prompt).to(DEVICE)
+    frames = request_frames(cfg, np.random.default_rng(SEED + 6))
+    if frames is not None:
+        frames = torch.from_numpy(frames)[None].to(DEVICE)
     mp = -(-MAX_LEN // PAGE_SIZE)
     paged = T.PagedCacheConfig(page_size=PAGE_SIZE, num_pages=1 + mp,
                                quantized=(mode == "paged_int8"))
     state = T.init_decode_state(cfg, 1, MAX_LEN, pol.compute_dtype,
-                                paged=paged, device=DEVICE)
+                                paged=paged, device=DEVICE,
+                                enc_len=cfg.enc_seq if frames is not None
+                                else 0)
     T.set_block_tables(state, np.arange(1, 1 + mp, dtype=np.int32))
     lg, state = serve_step.prefill_into_slot(
-        params, toks, n, state, 0, cfg, pol, moe_impl=moe_impl, impl=impl)
+        params, toks, n, state, 0, cfg, pol, moe_impl=moe_impl,
+        enc_frames=frames, impl=impl)
     seq = [lg[None]]
     feed = list(feed) if feed is not None else [int(lg.argmax())]
     for i in range(4):
@@ -1326,7 +1381,7 @@ def slot_run(T, serve_step, cfg, params, pol, mode, moe_impl, feed=None,
 
 
 def path_parity(T, serve_step, ops, cfg, params, pol, mode,
-                moe_impl="dense") -> dict:
+                moe_impl="dense", extra_held=()) -> dict:
     """One request's prefill and 4 decode steps through the kernels and
     through the plain versions, fed the same tokens.  Each kernel call of
     the kernel path is also held against its plain version on that call's
@@ -1337,8 +1392,11 @@ def path_parity(T, serve_step, ops, cfg, params, pol, mode,
     row is held; its readings add ``routing_share`` (the share of (token,
     layer, slot) top-k choices where the plain router, on its own inputs,
     chose as the kernel path did), ``row_flips`` and ``flip_margins``.
-    ``check_parity`` judges the readings."""
-    record = {"flash_attention": [], "paged_decode_attention": []}
+    ``extra_held`` names more dispatchers of ``ops`` held the same way
+    (whisper's ``layernorm_fwd`` and ``bias_gelu_fwd``).  ``check_parity``
+    judges the readings."""
+    record = {k: [] for k in ("flash_attention", "paged_decode_attention",
+                              *extra_held)}
     feed, logits, routes, margins = None, {}, {None: [], "torch": []}, []
     with held_against_plain(ops, record, {k: (pol.compute_dtype, False)
                                           for k in record}):
@@ -4708,22 +4766,41 @@ def train_launches(cfg, arch: str, n_groups: int, optimizer: str = "lamb",
     checkpoint); LAMB's kernel once a leaf group a step (never under
     AdamW).  An MoE or a mamba layer launches nothing of its own (the
     selective scan is plain PyTorch, its backward ``_SelectiveScan``), nor
-    does an RMSNorm.  Nothing else launches."""
+    does an RMSNorm.  An encoder-decoder (whisper) adds its encoder layers'
+    bidirectional flash pair at S = enc_seq, recomputed as the decoder's
+    (post-pass too: 1500 keys are 12 KV tiles), and LayerNorm and
+    bias-GELU: an encoder layer's two LayerNorms and a decoder layer's
+    three (the cross sublayer's) twice forward and once backward, the
+    encoder's and the decoder's final norms once each, every MLP's
+    bias-GELU twice forward and once backward; its cross-attention is
+    plain PyTorch.  Nothing else launches."""
+    from repro_torch.kernels.flash_attention import KV_TILE
     _, _, seq, accum = LM_PATHS[arch]
     mb = accum * steps
     kinds = [m for m, _ in cfg.layer_kinds()]
     rwkv, attn = kinds.count("rwkv"), sum(k.startswith("attn")
                                           for k in kinds)
+    enc = cfg.n_enc_layers if cfg.is_encoder_decoder else 0
     want = {}
     if rwkv:
         want.update(wkv6=2 * rwkv * mb, layernorm=(4 * rwkv + 1) * mb,
                     layernorm_bwd=(2 * rwkv + 1) * mb)
     if attn:
-        want.update({"flash_fwd": 2 * attn * mb,
+        want.update({"flash_fwd": 2 * (attn + enc) * mb,
                      f"flash_fwd_s{seq}": 2 * attn * mb})
-        for k in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post",
-                  f"flash_bwd_s{seq}"):
-            want[k] = attn * mb
+        for k in ("flash_bwd_prep", "flash_bwd"):
+            want[k] = (attn + enc) * mb
+        # the post-pass where keys span more than one KV tile
+        want["flash_bwd_post"] = (attn * (seq > KV_TILE) + enc * (
+            cfg.enc_seq > KV_TILE)) * mb
+        want[f"flash_bwd_s{seq}"] = attn * mb
+    if enc:
+        want.update({f"flash_fwd_s{cfg.enc_seq}": 2 * enc * mb,
+                     f"flash_bwd_s{cfg.enc_seq}": enc * mb,
+                     "layernorm": (4 * enc + 6 * attn + 2) * mb,
+                     "layernorm_bwd": (2 * enc + 3 * attn + 2) * mb,
+                     "bias_gelu": 2 * (enc + attn) * mb,
+                     "bias_gelu_bwd": (enc + attn) * mb})
     if optimizer == "lamb":
         want["lamb_moments"] = n_groups * steps
     return want
@@ -5403,6 +5480,453 @@ def jamba_train_phase(ops, train, api, ts, TrainConfig, make_policy,
     return run
 
 
+# ---------------------------------------------------------------------------
+# whisper-small: the encoder-decoder, served and trained
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-small"
+# the kernels-vs-plain holds in f32: 2 encoder and 2 decoder layers
+# (``cut_depth``), 131.8 M parameters with the two tables
+WHISPER_F32_LAYERS = 2
+# the serve path's held calls beside the flash forward and paged decode:
+# every LayerNorm (2 an encoder layer, 3 a decoder layer, the two final
+# norms) and every MLP's bias-GELU
+WHISPER_SERVE_HELD = ("layernorm_fwd", "bias_gelu_fwd")
+# the training step's held calls: each at the call's dtype
+WHISPER_TRAIN_HELD = {k: (None, False) for k in (
+    "flash_attention", "flash_attention_bwd", "layernorm_fwd",
+    "layernorm_bwd", "bias_gelu_fwd", "bias_gelu_bwd", "lamb_moments")}
+# the encoder's attention at the training micro-batch: (B, H, S, Dh), S
+# the 1500 frames, 11 whole KV tiles of 128 and a ragged one of 92
+WHISPER_ATTN = (LM_PATHS[WHISPER][1] // LM_PATHS[WHISPER][3], 12, 1500, 64)
+# the row kernels at the encoder's training micro-batch: 4 x 1500 rows of
+# d_model 768 (LayerNorm: 96 vectors of 16 bytes in bf16, 4 a lane in a
+# 32-lane warp, the last 32 lanes idle) and of d_ff 3072 (bias-GELU)
+WHISPER_ROWS = WHISPER_ATTN[0] * WHISPER_ATTN[2]
+WHISPER_D, WHISPER_FF = 768, 3072
+# the refill check: slot 0 refilled after this many decode steps, slot 1's
+# logits compared over the steps after it
+REFILL_BEFORE, REFILL_AFTER = 2, 3
+
+
+def whisper_serve_launches(cfg, st) -> dict:
+    """The launches of one continuous run of whisper (``ServeStats`` st),
+    derived: a slot prefill runs the encoder (a bidirectional flash
+    forward at S = enc_seq, two LayerNorms and a bias-GELU a layer, the
+    final norm) and the decoder over the bucket (a causal flash forward at
+    S = PREFILL_LEN, three LayerNorms and a bias-GELU a layer, the final
+    norm over the last token); a decode step three LayerNorms, a bias-GELU
+    and a paged decode at G 1 a decoder layer and the final norm; the
+    cross-attention is plain PyTorch in both."""
+    enc, dec, p, d = cfg.n_enc_layers, cfg.n_layers, st.prefills, \
+        st.decode_steps
+    return {"flash_fwd": (enc + dec) * p,
+            f"flash_fwd_s{cfg.enc_seq}": enc * p,
+            f"flash_fwd_s{PREFILL_LEN}": dec * p,
+            "layernorm": (2 * enc + 3 * dec + 2) * p + (3 * dec + 1) * d,
+            "bias_gelu": (enc + dec) * p + dec * d,
+            "paged_decode": dec * d, "paged_decode_split": dec * d,
+            "paged_decode_g1": dec * d}
+
+
+def whisper_refill(T, serve_step, cfg, params, pol) -> dict:
+    """The cross caches stay per slot on the card: two requests (their own
+    prompts and frames) prefilled into slots 0 and 1 of a two-slot paged
+    state, REFILL_BEFORE decode steps, then slot 0 refilled with a third
+    request (a new prompt and new frames) and REFILL_AFTER more steps;
+    slot 1's logits over those steps against the same run without the
+    refill.  Logged: whether they hold the same bits, and their relative
+    L2, held within LOGIT_REL_L2_BOUND."""
+    rng = np.random.default_rng(SEED + 7)
+    mp = -(-MAX_LEN // PAGE_SIZE)
+    lens = [int(n) for n in rng.integers(600, PREFILL_LEN + 1, size=3)]
+    toks, frames = [], []
+    for n in lens:
+        t = np.zeros((1, PREFILL_LEN), np.int32)
+        t[0, :n] = rng.integers(0, cfg.vocab_size, size=n)
+        toks.append(torch.from_numpy(t).to(DEVICE))
+        frames.append(torch.from_numpy(request_frames(cfg, rng))[None]
+                      .to(DEVICE))
+
+    def run(refill: bool):
+        paged = T.PagedCacheConfig(page_size=PAGE_SIZE, num_pages=1 + 2 * mp)
+        state = T.init_decode_state(cfg, 2, MAX_LEN, pol.compute_dtype,
+                                    paged=paged, device=DEVICE,
+                                    enc_len=cfg.enc_seq)
+        T.set_block_tables(state, 1 + np.arange(2 * mp, dtype=np.int32)
+                           .reshape(2, mp))
+        cur = torch.zeros((2, 1), dtype=torch.int64, device=DEVICE)
+        for i in (0, 1):
+            lg, _ = serve_step.prefill_into_slot(
+                params, toks[i], lens[i], state, i, cfg, pol,
+                enc_frames=frames[i])
+            cur[i, 0] = lg.argmax()
+        rows = []
+        for step in range(REFILL_BEFORE + REFILL_AFTER):
+            if refill and step == REFILL_BEFORE:
+                lg, _ = serve_step.prefill_into_slot(
+                    params, toks[2], lens[2], state, 0, cfg, pol,
+                    enc_frames=frames[2])
+                cur[0, 0] = lg.argmax()
+            logits, _ = T.decode_step(params, cur, state, cfg, pol)
+            cur.copy_(logits.argmax(-1, keepdim=True))
+            if step >= REFILL_BEFORE:
+                rows.append(logits[1].float().clone())
+        return torch.stack(rows)
+    a, b = run(True), run(False)
+    res = {"same_bits": same_bits(a, b), "rel_l2": rel_l2(a, b)}
+    bd = LOGIT_REL_L2_BOUND[pol.compute_dtype]
+    bits = ("hold the same bits as" if res["same_bits"]
+            else "differ in bits from")
+    log(f"{WHISPER} refill of slot 0 (new prompt, new frames) after "
+        f"{REFILL_BEFORE} decode steps: slot 1's logits over the next "
+        f"{REFILL_AFTER} steps {bits} the run without the refill, rel L2 "
+        f"{res['rel_l2']:.3e} (bound {bd})")
+    if not res["rel_l2"] <= bd:
+        raise AssertionError(f"{WHISPER} refill moved slot 1's logits (rel "
+                             f"L2 {res['rel_l2']:.3e})")
+    return res
+
+
+def whisper_times(T, serve_step, cfg, params, pol) -> dict:
+    """Host-clock times, each ending in a synchronize, on a 4-slot paged
+    state: the slot prefill of a 777-token prompt with its frames (the
+    encoder over 1500 frames, then the decoder over the 1024 bucket; one
+    warm-up, then 3) and 16 decode steps of the 4 filled slots (one
+    warm-up step first).  Returns the lists in ms."""
+    rng = np.random.default_rng(SEED + 8)
+    n = SLOT_PROMPT
+    mp = -(-MAX_LEN // PAGE_SIZE)
+    paged = T.PagedCacheConfig(page_size=PAGE_SIZE, num_pages=1 + BATCH * mp)
+    state = T.init_decode_state(cfg, BATCH, MAX_LEN, pol.compute_dtype,
+                                paged=paged, device=DEVICE,
+                                enc_len=cfg.enc_seq)
+    T.set_block_tables(state, 1 + np.arange(BATCH * mp, dtype=np.int32)
+                       .reshape(BATCH, mp))
+    toks = np.zeros((BATCH, PREFILL_LEN), np.int32)
+    toks[:, :n] = rng.integers(0, cfg.vocab_size, size=(BATCH, n))
+    toks = torch.from_numpy(toks).to(DEVICE)
+    frames = [torch.from_numpy(request_frames(cfg, rng))[None].to(DEVICE)
+              for _ in range(BATCH)]
+    prefill_ms = []
+    for i in range(BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_step.prefill_into_slot(params, toks[i:i + 1], n, state, i,
+                                     cfg, pol, enc_frames=frames[i])
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    cur = torch.zeros((BATCH, 1), dtype=torch.int64, device=DEVICE)
+    decode_ms = []
+    for _ in range(17):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = T.decode_step(params, cur, state, cfg, pol)
+        cur.copy_(logits.argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    res = {"prefill_ms": prefill_ms[1:], "decode_ms": decode_ms[1:]}
+    log(f"{WHISPER} whole, bf16, paged: slot prefill of {n} tokens in the "
+        f"{PREFILL_LEN} bucket with {cfg.enc_seq} frames "
+        f"{spread(res['prefill_ms'])} ms (first, with warm-up, "
+        f"{prefill_ms[0]:.1f} ms); decode step of {BATCH} slots "
+        f"{spread(res['decode_ms'])} ms; on {nvidia_smi()}")
+    return res
+
+
+def whisper_phase(T, ops, serve_step, sched_mod, get_config, make_policy,
+                  cut_depth) -> dict:
+    """whisper-small whole at full width (12 encoder and 12 decoder
+    layers, d 768, 12 heads of 64), bf16 weights seeded on the card:
+    deepseek's 8-request trace through ``ContinuousScheduler`` in "paged"
+    and "paged_int8", each request with its own frames (``serve_run``):
+    every launch derived exactly (``whisper_serve_launches``: paged decode
+    at G 1 only), no page leaked, both footprints logged; kernels vs plain
+    (``path_parity``) with every flash, paged, LayerNorm and bias-GELU call
+    held, in bf16 and in f32 at WHISPER_F32_LAYERS + WHISPER_F32_LAYERS
+    layers; the refill check (``whisper_refill``); the slot prefill and
+    decode step timed (``whisper_times``); then the paged decode at G 1,
+    Dh 64 timed.  Returns each run's launch counts, the refill readings,
+    the times, the peak and the yardsticks' entries."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pol = make_policy("bf16")
+    cfg = get_config(WHISPER)
+    params = T.init_model(cfg, seed=SEED, dtype=pol.param_dtype,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"{WHISPER} full width and depth: {cfg.n_enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.enc_seq} frames: {cfg.param_count() / 1e6:.1f} M params "
+        f"(the reference's count) made in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    for mode in ("paged", "paged_int8"):
+        c, st = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+        want = whisper_serve_launches(cfg, st)
+        got = {k: n for k, n in c.items() if n}
+        if got != want:
+            raise AssertionError(f"{WHISPER} {mode}: launches {got}, "
+                                 f"expected {want}")
+        if not (st.state_bytes and st.cache_bytes):
+            raise AssertionError(f"{mode}: state {st.state_bytes} B, cache "
+                                 f"{st.cache_bytes} B")
+        log(f"{WHISPER} {mode}: launches as derived; state_bytes "
+            f"{st.state_bytes} (the cross caches of {cfg.n_layers} layers, "
+            f"{BATCH} slots), cache_bytes {st.cache_bytes}")
+        launches[mode] = c
+        torch.cuda.empty_cache()
+    for mode in ("paged", "paged_int8"):
+        check_parity(path_parity(T, serve_step, ops, cfg, params, pol, mode,
+                                 extra_held=WHISPER_SERVE_HELD))
+    refill = whisper_refill(T, serve_step, cfg, params, pol)
+    times = whisper_times(T, serve_step, cfg, params, pol)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory ({WHISPER} bf16 serving) {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    pol32 = make_policy("f32")
+    c32 = cut_depth(cfg, WHISPER_F32_LAYERS)
+    params = T.init_model(c32, seed=SEED, dtype=pol32.param_dtype,
+                          device=DEVICE)
+    log(f"{WHISPER} f32 at {c32.n_enc_layers} encoder and {c32.n_layers} "
+        f"decoder layers: {c32.param_count() / 1e6:.1f} M params")
+    for mode in ("paged", "paged_int8"):
+        check_parity(path_parity(T, serve_step, ops, c32, params, pol32,
+                                 mode, extra_held=WHISPER_SERVE_HELD))
+    del params
+    torch.cuda.empty_cache()
+    timer = Timer()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 90)
+    yard = {}
+    for quant in (False, True):
+        name = f"paged_decode_whisper{'_int8' if quant else ''}"
+        yard[name] = paged_yardstick(ops, timer, gen, name, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.head_dim, quant,
+                                     900 + quant, WHISPER)
+    del timer
+    torch.cuda.empty_cache()
+    log(f"whisper serve phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "refill": refill, "times": times,
+            "peak_gib": peak, "entries": yard}
+
+
+def whisper_flash(ops, fa, timer) -> dict:
+    """The encoder's flash pair alone at WHISPER_ATTN, (4, 12, 1500, 64):
+    bidirectional over a ragged last tile of 92 queries and keys, in the
+    model's (B, S, H, Dh) layout, in bf16 (the ``wgmma`` + TMA kernels at
+    Dh 64) and f32: out and lse, dQ, dK and dV each held against the
+    plain version (TOL and CALL_REL_L2_BOUND), the forward and the
+    backward launched twice for the same bits; in bf16 timed beside the
+    plain version, SDPA's forward and backward (the library call) and the
+    bound.  Returns the bf16 entries ``flash_fwd_whisper`` and
+    ``flash_bwd_whisper``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 91)
+    b, h, s, dh = WHISPER_ATTN
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entries = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((b, s, h, dh), generator=gen,
+                                   device=DEVICE).to(dtype).transpose(1, 2)
+                       for _ in range(4))
+        tag = f"whisper flash {WHISPER_ATTN} {dtype} bidirectional"
+        out, lse = ops.flash_attention(q, k, v, causal=False)
+        want = ops.flash_attention(q, k, v, causal=False, impl="torch")
+        torch.cuda.synchronize()
+        fwd = [check_grad(f"{tag} {n}", g, w, dtype)
+               for g, w, n in zip((out, lse), want, ("out", "lse"))]
+        check_same_bits(f"{tag} forward", (out, lse),
+                        ops.flash_attention(q, k, v, causal=False))
+        del want
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+        want = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=False,
+                                       impl="torch")
+        torch.cuda.synchronize()
+        bwd = [check_grad(f"{tag} d{n}", g, w, dtype)
+               for g, w, n in zip(got, want, "qkv")]
+        check_same_bits(f"{tag} backward", got, fa.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=False))
+        del got, want
+        log(f"{tag}: forward max err {max(e for e, _ in fwd):.3e} (rel L2 "
+            f"{max(r for _, r in fwd):.3e}), backward max err "
+            f"{max(e for e, _ in bwd):.3e} (rel L2 "
+            f"{max(r for _, r in bwd):.3e}); forward and backward each two "
+            "launches the same bits")
+        if dtype == torch.bfloat16:
+            fwd_t = timer.times(lambda: ops.flash_attention(q, k, v,
+                                                            causal=False))
+            bwd_t = timer.times(lambda: fa.flash_attention_bwd(
+                q, k, v, out, lse, do, causal=False))
+            fwd_plain = timer.times(lambda: ops.flash_attention(
+                q, k, v, causal=False, impl="torch"), iters=3)
+            bwd_plain = timer.times(lambda: ops.flash_attention_bwd(
+                q, k, v, out, lse, do, causal=False, impl="torch"), iters=3)
+            lib_fwd = timer.times(lambda: sdpa(q, k, v))
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            sdpa_out = sdpa(qg, kg, vg)
+            lib_bwd = timer.times(lambda: torch.autograd.grad(
+                sdpa_out, (qg, kg, vg), do, retain_graph=True))
+            del sdpa_out, qg, kg, vg
+            fb = flash_fwd_bound(b, h, s, dh)
+            bb = flash_bwd_bound(b, h, s, dh)
+            log(f"{tag}: forward {spread(fwd_t)} ms, plain median "
+                f"{median(fwd_plain):.4f}, SDPA {spread(lib_fwd)}, bound "
+                f"{fb[0]:.4f} ms ({fb[1]}); backward {spread(bwd_t)} ms, "
+                f"plain median {median(bwd_plain):.4f}, SDPA backward "
+                f"{spread(lib_bwd)}, bound {bb[0]:.4f} ms ({bb[1]}) on "
+                f"{nvidia_smi()}")
+            entries["flash_fwd_whisper"] = entry(
+                "flash_fwd_whisper", "flash_fwd.cu", "flash_attention.py:132",
+                max(e for e, _ in fwd), median(fwd_t), median(fwd_plain),
+                *fb, median(lib_fwd))
+            entries["flash_bwd_whisper"] = entry(
+                "flash_bwd_whisper", "flash_bwd.cu", "flash_attention.py:272",
+                max(e for e, _ in bwd), median(bwd_t), median(bwd_plain),
+                *bb, median(lib_bwd))
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return entries
+
+
+def whisper_rows(ops, timer) -> dict:
+    """LayerNorm at rows of 768 and bias-GELU at rows of 3072, forward and
+    backward: small row counts (a partial block, one row) and the
+    encoder's training micro-batch (WHISPER_ROWS rows) in f32 and bf16,
+    each held against the plain version (the rel L2 bound too), the
+    backwards launched twice for the same bits; at the micro-batch in
+    bf16 timed beside the plain version, the bound and the library call
+    (``F.layer_norm``, ``native_layer_norm_backward``; bias-GELU has
+    none).  Returns the bf16 entries ``layernorm_whisper``,
+    ``layernorm_bwd_whisper``, ``bias_gelu_whisper`` and
+    ``bias_gelu_bwd_whisper``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 92)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE)
+    d, f = WHISPER_D, WHISPER_FF
+    entries, worst = {}, collections.defaultdict(float)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (1, 7, 333, WHISPER_ROWS):
+            x, dy = randn(rows, d).to(dtype), randn(rows, d).to(dtype)
+            sc = (1 + 0.1 * randn(d)).to(dtype)
+            bi = (0.1 * randn(d)).to(dtype)
+            tag = f"layernorm ({rows}, {d}) {dtype}"
+            got = ops.layernorm_fwd(x, sc, bi, eps=1e-6)
+            want = ops.layernorm_fwd(x, sc, bi, eps=1e-6, impl="torch")
+            torch.cuda.synchronize()
+            ln_err = max(check_grad(f"{tag} {n}", g, w, dtype)[0]
+                         for g, w, n in zip(got, want, ("y", "mean",
+                                                        "rstd")))
+            check_same_bits(tag, got, ops.layernorm_fwd(x, sc, bi,
+                                                        eps=1e-6))
+            _, mean, rstd = got
+            args = (dy, x, sc, mean, rstd)
+            got = ops.layernorm_bwd(*args)
+            lnb_err = held_bwd(f"{tag} backward", got,
+                               ops.layernorm_bwd(*args, impl="torch"), dtype,
+                               worst)
+            check_same_bits(f"{tag} backward", got, ops.layernorm_bwd(*args))
+            xg, dyg = randn(rows, f).to(dtype), randn(rows, f).to(dtype)
+            bg = randn(f).to(dtype)
+            gtag = f"bias_gelu ({rows}, {f}) {dtype}"
+            g_err = check_grad(gtag, ops.bias_gelu_fwd(xg, bg),
+                               ops.bias_gelu_fwd(xg, bg, impl="torch"),
+                               dtype)[0]
+            got = ops.bias_gelu_bwd(dyg, xg, bg)
+            gb_err = held_bwd(f"{gtag} backward", got, ops.bias_gelu_bwd(
+                dyg, xg, bg, impl="torch"), dtype, worst)
+            check_same_bits(f"{gtag} backward", got,
+                            ops.bias_gelu_bwd(dyg, xg, bg))
+            if rows != WHISPER_ROWS or dtype != torch.bfloat16:
+                continue
+            item = x.element_size()
+            runs = {
+                "layernorm_whisper": (
+                    lambda: ops.layernorm_fwd(x, sc, bi, eps=1e-6),
+                    lambda: ops.layernorm_fwd(x, sc, bi, eps=1e-6,
+                                              impl="torch"),
+                    lambda: torch.nn.functional.layer_norm(x, (d,), sc, bi,
+                                                           1e-6),
+                    bound(2 * x.numel() * item + 2 * d * item + 2 * rows * 4,
+                          8 * x.numel()), ln_err, "layernorm.cu",
+                    "layernorm.py:40"),
+                "layernorm_bwd_whisper": (
+                    lambda: ops.layernorm_bwd(*args),
+                    lambda: ops.layernorm_bwd(*args, impl="torch"),
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, x, [d], mean.view(rows, 1), rstd.view(rows, 1),
+                        sc, bi, [True, True, True]),
+                    bound(3 * x.numel() * item + 3 * d * item + 2 * rows * 4,
+                          13 * x.numel(), torch.float32), lnb_err,
+                    "layernorm.cu", "layernorm.py:40"),
+                "bias_gelu_whisper": (
+                    lambda: ops.bias_gelu_fwd(xg, bg),
+                    lambda: ops.bias_gelu_fwd(xg, bg, impl="torch"), None,
+                    bound(2 * xg.numel() * item + f * item, 20 * xg.numel()),
+                    g_err, "bias_gelu.cu", "bias_gelu.py:42"),
+                "bias_gelu_bwd_whisper": (
+                    lambda: ops.bias_gelu_bwd(dyg, xg, bg),
+                    lambda: ops.bias_gelu_bwd(dyg, xg, bg, impl="torch"),
+                    None, bound(3 * xg.numel() * item + 2 * f * item,
+                                21 * xg.numel(), torch.float32), gb_err,
+                    "bias_gelu.cu", "bias_gelu.py:42")}
+            for name, (run, plain, lib, bd, err, src, rep) in runs.items():
+                t = timer.times(run)
+                plain_ms = median(timer.times(plain, iters=5))
+                lib_ms = median(timer.times(lib)) if lib else None
+                log(f"{name} ({rows} rows) bf16: max err {err:.3e}, kernel "
+                    f"{spread(t)} ms, plain median {plain_ms:.4f}, library "
+                    + (f"{lib_ms:.4f}" if lib else "none (no single PyTorch "
+                       "call)") + f", bound {bd[0]:.4f} ms ({bd[1]}) on "
+                    f"{nvidia_smi()}")
+                entries[name] = entry(name, src, rep, err, median(t),
+                                      plain_ms, *bd, lib_ms)
+    log("whisper row kernels: every call held, every backward twice the "
+        "same bits (worst rel L2 of a backward output: " + ", ".join(
+            f"{dt} {r:.3e}" for dt, r in worst.items()) + ")")
+    return entries
+
+
+def whisper_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
+                        lm_batches) -> dict:
+    """whisper-small's training, whole at full width (LM_PATHS: 12 + 12
+    layers, 8 x 1024 tokens with their frames in 2 micro-batches): (a) the
+    CLI under LAMB for LM_STEPS steps (``model_train_run``: every launch
+    derived, ``train_launches``), losses finite and taken, the peak
+    logged; (b) one LAMB step kernels vs plain within LM_BOUND, in f32 at
+    WHISPER_F32_LAYERS + WHISPER_F32_LAYERS layers and in bf16 at full
+    depth, every flash, LayerNorm, bias-GELU and LAMB call held (each
+    path's batch with the trainer's frames, ``train.lm_stream``); (c) two
+    gradient steps of the CLI's model in the same bits (``step_bits``);
+    (d) the encoder's ragged flash pair alone (``whisper_flash``) and the
+    row kernels at 768 and 3072 (``whisper_rows``).  Returns the CLI run
+    and the kernel entries."""
+    t_phase = time.perf_counter()
+    run = model_train_run(ops, train, WHISPER)
+    cfg = run["cfg"]
+    depth, batch_n, seq, accum = LM_PATHS[WHISPER]
+
+    def batches(seed, vocab, b, s):
+        return train.lm_stream(cfg, seed, b, s)
+    for precision, depth_ in (("f32", WHISPER_F32_LAYERS), ("bf16", depth)):
+        check_train_parity(lm_train_parity(
+            ops, api, ts, TrainConfig, make_policy, batches,
+            path_cfg(train, WHISPER, depth_), precision,
+            geometry=(batch_n, seq, accum), held=WHISPER_TRAIN_HELD,
+            tag=WHISPER), LM_BOUND, WHISPER)
+        torch.cuda.empty_cache()
+    step_bits(api, ts, TrainConfig, make_policy, batches, cfg, WHISPER)
+    timer = Timer()
+    entries = whisper_flash(ops, fa, timer)
+    entries.update(whisper_rows(ops, timer))
+    del timer
+    torch.cuda.empty_cache()
+    log(f"whisper training phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"run": run, "entries": entries}
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -5495,6 +6019,12 @@ def main(argv=None) -> int:
                     cut_depth)
         log("jamba phase only: no other phase, no result")
         return 2
+    if only == "whisper":
+        del timer
+        whisper_phase(T, ops, serve_step, sched_mod, get_config, make_policy,
+                      cut_depth)
+        log("whisper serve phase only: no other phase, no result")
+        return 2
     train_mods = (train_cli, api, ts, TrainConfig, make_policy, lm_batches)
     if only == "variants_train":
         del timer
@@ -5515,6 +6045,11 @@ def main(argv=None) -> int:
         del timer
         jamba_train_phase(ops, *train_mods)
         log("jamba training phase only: no other phase, no result")
+        return 2
+    if only == "whisper_train":
+        del timer
+        whisper_train_phase(ops, fa, *train_mods)
+        log("whisper training phase only: no other phase, no result")
         return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
@@ -5549,6 +6084,11 @@ def main(argv=None) -> int:
                         make_policy, cut_depth)
     entries += [jamba["entries"][k] for k in (
         "flash_fwd_jamba", "paged_decode_jamba", "paged_decode_jamba_int8")]
+    torch.cuda.empty_cache()
+    whisper = whisper_phase(T, ops, serve_step, sched_mod, get_config,
+                            make_policy, cut_depth)
+    entries += [whisper["entries"][k] for k in (
+        "paged_decode_whisper", "paged_decode_whisper_int8")]
 
     torch.cuda.reset_peak_memory_stats()
     launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
@@ -5600,6 +6140,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     jtrain = jamba_train_phase(ops, *train_mods)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wtrain = whisper_train_phase(ops, fa, *train_mods)
+    entries += [wtrain["entries"][k] for k in (
+        "flash_fwd_whisper", "flash_bwd_whisper", "layernorm_whisper",
+        "layernorm_bwd_whisper", "bias_gelu_whisper",
+        "bias_gelu_bwd_whisper")]
 
     serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
                   "prefix_unshared", "cohort")
@@ -5694,6 +6241,34 @@ def main(argv=None) -> int:
     # jamba's training run (step 15): LAMB once a leaf group a step, on the
     # LM's row; nothing else launches on its path
     by_name["lamb_moments_lm"] += jtrain["counts"]["lamb_moments"]
+    # whisper, served (step 4e) and trained (step 16): the encoder's
+    # bidirectional flash pair at S 1500 on its own rows; the decoder's
+    # causal Dh-64 pair (12 heads, G 1) on granite's causal Dh-64 rows;
+    # its LayerNorms at 768 and bias-GELUs at 3072 on their own rows;
+    # paged decode at G 1, Dh 64 by page type; LAMB on the LM's row
+    w_runs = whisper["launches"]
+    w_train = wtrain["run"]["counts"]
+    enc_s = f"s{get_config(WHISPER).enc_seq}"
+    by_name["flash_fwd_whisper"] = (
+        sum(c[f"flash_fwd_{enc_s}"] for c in w_runs.values())
+        + w_train[f"flash_fwd_{enc_s}"])
+    by_name["flash_bwd_whisper"] = w_train[f"flash_bwd_{enc_s}"]
+    by_name["flash_fwd_dh64_causal"] += (
+        sum(c[f"flash_fwd_s{PREFILL_LEN}"] for c in w_runs.values())
+        + w_train[f"flash_fwd_s{LM_SEQ}"])
+    by_name["flash_bwd_dh64_causal"] += w_train[f"flash_bwd_s{LM_SEQ}"]
+    by_name["layernorm_whisper"] = (
+        sum(c["layernorm"] for c in w_runs.values()) + w_train["layernorm"])
+    by_name["layernorm_bwd_whisper"] = w_train["layernorm_bwd"]
+    by_name["bias_gelu_whisper"] = (
+        sum(c["bias_gelu"] for c in w_runs.values()) + w_train["bias_gelu"])
+    by_name["bias_gelu_bwd_whisper"] = w_train["bias_gelu_bwd"]
+    by_name["paged_decode_whisper"] = w_runs["paged"]["paged_decode"]
+    by_name["paged_decode_whisper_int8"] = \
+        w_runs["paged_int8"]["paged_decode"]
+    by_name["lamb_moments_lm"] += w_train["lamb_moments"]
+    log(f"{WHISPER}'s launches: serve " + ", ".join(
+        f"{r}: {c}" for r, c in w_runs.items()) + f"; train {w_train}")
     log("flash_fwd launches: serve " + " + ".join(
         f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
         + f", train {launches['train']['flash_fwd']}, dense decoder "

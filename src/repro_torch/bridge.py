@@ -7,7 +7,11 @@ reference has two layouts:
   ``block_pattern`` position, of dicts whose leaves carry a leading
   ``n_blocks`` axis (``jax.vmap(init_one)``).  Layer ``i`` of the port is
   block ``i // len(pattern)`` at position ``i % len(pattern)``, the order in
-  which the reference's scan runs them.
+  which the reference's scan runs them.  An encoder-decoder's
+  ``enc_blocks`` are laid out the same way over ``enc_block_pattern``
+  (whisper: one position, ``n_enc_layers`` stacked), and its ``enc_norm``,
+  ``enc_pos`` and each decoder layer's ``norm_cross`` and ``cross`` are
+  carried as any other leaf.
 * BERT (``bert.init_bert``): one dict whose leaves carry a leading
   ``n_layers`` axis.
 
@@ -47,36 +51,53 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device="cuda",
     """JAX parameter pytree (numpy leaves) -> the port's parameter dict.
     Takes both layouts of ``params["blocks"]`` (see the module
     docstring)."""
-    pattern = cfg.block_pattern
     stacked = np_params["blocks"]
     if isinstance(stacked, dict):   # BERT: one dict stacked over layers
         layers = [_index(stacked, i) for i in range(cfg.n_layers)]
-    elif len(stacked) != len(pattern):
-        raise ValueError(f"{len(stacked)} stacked block groups for a "
-                         f"{len(pattern)}-position block_pattern")
     else:
-        layers = [_index(stacked[pi], bi) for bi in range(cfg.n_blocks)
-                  for pi in range(len(pattern))]
+        layers = _unstack(stacked, cfg.block_pattern, cfg.n_layers)
+    lists = {"blocks": layers}
+    if cfg.is_encoder_decoder:
+        lists["enc_blocks"] = _unstack(np_params["enc_blocks"],
+                                       cfg.enc_block_pattern,
+                                       cfg.n_enc_layers)
     out = {k: _to_torch(v, device, dtype) for k, v in np_params.items()
-           if k != "blocks"}
-    out["blocks"] = [_to_torch(one, device, dtype) for one in layers]
+           if k not in lists}
+    for k, one in lists.items():
+        out[k] = [_to_torch(layer, device, dtype) for layer in one]
     return out
+
+
+def _unstack(stacked, pattern, n_layers):
+    """The per-layer dicts of one tuple of stacked dicts, one per position
+    of ``pattern``: layer i is block i // P at position i % P."""
+    npos = len(pattern)
+    if len(stacked) != npos:
+        raise ValueError(f"{len(stacked)} stacked block groups for a "
+                         f"{npos}-position block pattern")
+    return [_index(stacked[pi], bi) for bi in range(n_layers // npos)
+            for pi in range(npos)]
 
 
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The inverse of ``params_from_jax``: float32 numpy leaves with the
     blocks restacked as the JAX package lays them out (one stacked dict for
-    an encoder-only model, else one per pattern position)."""
-    npos = len(cfg.block_pattern)
-    layers = [_to_numpy(p) for p in params["blocks"]]
-    if cfg.is_encoder_only:
-        stacked = _stack(layers)
-    else:
-        stacked = tuple(
-            _stack([layers[bi * npos + pi] for bi in range(cfg.n_blocks)])
+    an encoder-only model, else one per pattern position; an
+    encoder-decoder's ``enc_blocks`` one per encoder pattern position)."""
+    lists = {"blocks": cfg.block_pattern}
+    if cfg.is_encoder_decoder:
+        lists["enc_blocks"] = cfg.enc_block_pattern
+    out = {k: _to_numpy(v) for k, v in params.items() if k not in lists}
+    for key, pattern in lists.items():
+        layers = [_to_numpy(p) for p in params[key]]
+        if cfg.is_encoder_only:
+            out[key] = _stack(layers)
+            continue
+        npos = len(pattern)
+        out[key] = tuple(
+            _stack([layers[bi * npos + pi]
+                    for bi in range(len(layers) // npos)])
             for pi in range(npos))
-    out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = stacked
     return out
 
 

@@ -2,8 +2,9 @@
 (copy of ``repro/configs/__init__.py`` for the architectures the port
 runs: deepseek-7b, rwkv6-1.6b, the dense decoder variants gemma2-27b,
 qwen1.5-32b and deepseek-coder-33b, the MoE decoders
-granite-moe-3b-a800m and qwen3-moe-30b-a3b and the hybrid
-jamba-1.5-large-398b, bert-large and bert-base for pretraining)."""
+granite-moe-3b-a800m and qwen3-moe-30b-a3b, the hybrid
+jamba-1.5-large-398b, the encoder-decoder whisper-small, and bert-large
+and bert-base for pretraining)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +13,8 @@ from repro_torch.configs import (bert_large, deepseek_7b,
                                  deepseek_coder_33b, gemma2_27b,
                                  granite_moe_3b_a800m,
                                  jamba_1p5_large_398b, qwen1p5_32b,
-                                 qwen3_moe_30b_a3b, rwkv6_1p6b)
+                                 qwen3_moe_30b_a3b, rwkv6_1p6b,
+                                 whisper_small)
 from repro_torch.configs.base import (DecodeCaps, InputShape, ModelConfig,
                                       TrainConfig)
 
@@ -22,6 +24,7 @@ ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, rwkv6_1p6b.CONFIG,
                                 granite_moe_3b_a800m.CONFIG,
                                 qwen3_moe_30b_a3b.CONFIG,
                                 jamba_1p5_large_398b.CONFIG,
+                                whisper_small.CONFIG,
                                 bert_large.CONFIG, bert_large.BERT_BASE]}
 
 
@@ -55,6 +58,8 @@ def smoke_variant(cfg: ModelConfig, *, d_model: int = 256,
         else 0)
     if cfg.n_experts:
         upd.update(n_experts=4, top_k=2, moe_d_ff=d_model * 2)
+    if cfg.is_encoder_decoder:
+        upd.update(n_enc_layers=2, enc_seq=16, max_position=4096)
     if cfg.max_position and not cfg.is_encoder_decoder:
         upd.update(max_position=512)   # learned positions (BERT)
     return dataclasses.replace(cfg, **upd)
@@ -66,7 +71,11 @@ def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     of its 8-layer block: (attn, dense), (mamba, moe), (mamba, dense),
     (mamba, moe)), else whole blocks: past one block, a depth that is not
     a multiple of it raises ``ValueError`` (``ModelConfig`` refuses an
-    ``n_layers`` that does not tile its block pattern)."""
+    ``n_layers`` that does not tile its block pattern).  An
+    encoder-decoder's encoder is cut to the same depth (whisper-small at 2:
+    2 encoder and 2 decoder layers)."""
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
     if n_layers < len(cfg.block_pattern):
         return dataclasses.replace(cfg, n_layers=n_layers,
                                    block_pattern=cfg.block_pattern[:n_layers])

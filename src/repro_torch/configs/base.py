@@ -161,8 +161,12 @@ class ModelConfig:
         leaves out a_log's d_inner x N); an RWKV-6 layer counts the time mix (r, k, v, g
         and output projections, the mix and decay LoRAs, the bias and mix
         vectors) and the channel mix together, as the reference's
-        ``rwkv_params`` does.  Like the reference's, the count leaves out
-        the query/key norms' 2 Dh a layer."""
+        ``rwkv_params`` does.  An encoder-decoder adds, as the reference's
+        does, each encoder layer (2 d for its norms, attention and the MLP)
+        and each decoder layer's cross-attention projections; like the
+        reference's, it leaves out the encoder's positions and final norm
+        and the cross sublayer's norm.  The MLP biases (the GELU MLP's) and
+        the query/key norms' 2 Dh a layer are left out too, as there."""
         d, v = self.d_model, self.vocab_size
         total = v * d + d
         if self.max_position:
@@ -194,6 +198,9 @@ class ModelConfig:
                 e = self.top_k if active_only else self.n_experts
                 total += (e * 3 * d * self.moe_d_ff
                           + d * self.n_experts)
+        if self.is_encoder_decoder:
+            total += self.n_enc_layers * (2 * d + attn + mlp)
+            total += self.n_layers * attn
         return total
 
 

@@ -296,16 +296,38 @@ def wkv6_vjp(r, k, v, logw, u, s0, *, chunk: int = 64,
     return _WKV6.apply(r, k, v, logw, u, s0, int(chunk), impl)
 
 
+# the rows of ``_norm``'s first level
+NORM_ROW = 1024
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """||x|| of a float32 tensor in two levels: the norms of its rows of
+    NORM_ROW elements (and of the tail), then the norm of those in
+    float64, returned as a 0-d float32 tensor.  One float32 accumulator
+    over a whole leaf loses digits: on the CPU ``torch.linalg.vector_norm``
+    of a LAMB update over whisper's 1 M-element position table (a few
+    thousand entries near 1, the rest ~1e-3) came out 5e-4 low, and the
+    trust ratio with it; by rows of 1024 it is within 1e-7.  No copy of x
+    is made: the rows are a view."""
+    x = x.reshape(-1)
+    rows = x.numel() // NORM_ROW
+    parts = [torch.linalg.vector_norm(
+        x[:rows * NORM_ROW].view(rows, NORM_ROW), dim=1)] if rows else []
+    if x.numel() % NORM_ROW:
+        parts.append(torch.linalg.vector_norm(x[rows * NORM_ROW:])[None])
+    return torch.linalg.vector_norm(torch.cat(parts).double()).float()
+
+
 def lamb_leaf_update(w, g, m, v, *, lr, step: int, b1=0.9, b2=0.999,
                      eps=1e-6, wd=0.01, impl: Optional[str] = None):
     """Full LAMB step of one leaf (``repro/kernels/ops.py``
     ``lamb_leaf_update``): the moment kernel, then the trust ratio
-    ||w|| / ||update|| from two torch norms and w - lr * trust * update.
-    Returns (w', m', v')."""
+    ||w|| / ||update|| from two norms (``_norm``) and w - lr * trust *
+    update.  Returns (w', m', v')."""
     m2, v2, upd = lamb_moments(w, g, m, v, step=step, b1=b1, b2=b2,
                                      eps=eps, wd=wd, impl=impl)
-    wnorm = torch.linalg.vector_norm(w.float())
-    unorm = torch.linalg.vector_norm(upd)
+    wnorm = _norm(w.float())
+    unorm = _norm(upd)
     one = torch.ones_like(wnorm)
     trust = torch.where(wnorm > 0,
                         torch.where(unorm > 0, wnorm / unorm, one), one)

@@ -3,7 +3,7 @@ one prefill and of steady-state decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--arch deepseek-7b|rwkv6-1.6b|granite-moe-3b-a800m|\
-              qwen3-moe-30b-a3b|jamba-1.5-large-398b] \
+              qwen3-moe-30b-a3b|jamba-1.5-large-398b|whisper-small] \
       [--cache-mode paged|paged_int8] \
       [--moe-impl dense|a2a|replicated] [--steps 8] [--batch 4] \
       [--full-width [--layers N]]
@@ -13,11 +13,12 @@ Builds the model (full width and depth with ``--full-width``, at
 one block keep a prefix of the block pattern: jamba at ``--layers 4`` is
 (attn, dense), (mamba, moe), (mamba, dense), (mamba, moe)) in bf16 with
 seeded random weights and runs the geometry of ``chip_smoke.py``'s serve
-phases at ``--batch`` slots (default 4).  deepseek-7b, the MoE decoders
-and jamba (its mamba rows beside the paged attention layer): fills
-the slots with 1024-token prompts through ``prefill_into_slot``, in
-``--cache-mode``, the MoE layers under ``--moe-impl`` (default
-``dense``, the serving default).  rwkv6-1.6b: the raw mode's unmasked
+phases at ``--batch`` slots (default 4).  deepseek-7b, the MoE decoders,
+jamba (its mamba rows beside the paged attention layer) and whisper-small
+(each slot's cross caches beside it, filled from the slot's own frames
+at its admission): fills the slots with 1024-token prompts through
+``prefill_into_slot``, in ``--cache-mode``, the MoE layers under
+``--moe-impl`` (default ``dense``, the serving default).  rwkv6-1.6b: the raw mode's unmasked
 prefill of batch x 1024 tokens (24 ``wkv6`` launches), all on one state.
 Then ``--steps`` decode steps of the slots.  For each phase it prints one JSON line: wall
 time (host clock around an unprofiled loop that ends in a synchronize),
@@ -35,12 +36,17 @@ the dispatch and combine (``moe._dense_combine``, ``moe._group_local``,
 (``mamba._in_proj``), causal conv (``mamba._causal_conv``), selective
 scan (``mamba._selective_scan``: x_proj, dt, the recurrence and the
 contraction with C) and gated out-projection (``mamba._out_proj``), and
-a dense layer's MLP (``layers.apply_mlp``), each
-the device time of the kernels launched
+a dense layer's MLP (``layers.apply_mlp``), and an encoder-decoder's
+encoder (``transformer._encode``: its layers and final norm) and cross
+sublayers (``transformer._apply_cross``: the norm and the cross-attention),
+each the device time of the kernels launched
 inside it, from a third loop profiled with those functions wrapped in
 ``record_function`` spans; the rest of the busy time (norms, embedding,
-the LM head) beside them.  The spans' own trace events stay out of the
-busy time of the two lines before.
+the LM head) beside them.  Spans do not nest: a call inside an open span
+(the encoder's attention and MLP, the cross sublayer's attention) counts
+in the outer one.  An encoder-decoder's prefill gets the same split
+(``prefill_split``): the encoder's cost at each admission.  The spans'
+own trace events stay out of the busy time of the lines before.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -170,7 +176,9 @@ SPANS = {"attention": ((L, "apply_attention"),),
          "mamba_conv": ((MB, "_causal_conv"),),
          "mamba_scan": ((MB, "_selective_scan"),),
          "mamba_out_proj": ((MB, "_out_proj"),),
-         "mlp": ((L, "apply_mlp"),)}
+         "mlp": ((L, "apply_mlp"),),
+         "encoder": ((T, "_encode"),),
+         "cross_attention": ((T, "_apply_cross"),)}
 SPAN_PREFIX = "profile_serve::"
 
 
@@ -178,14 +186,22 @@ SPAN_PREFIX = "profile_serve::"
 def _spanned():
     """While active, each function of ``SPANS`` runs inside a
     ``record_function`` span of its name; the modules' callers look them
-    up at call time, so every call is wrapped."""
+    up at call time, so every call is wrapped.  A call made inside an open
+    span opens none of its own: its kernels count in the outer span."""
     saved = []
+    open_spans = []
 
     def wrap(span, fn):
         @functools.wraps(fn)
         def call(*a, **k):
-            with record_function(SPAN_PREFIX + span):
+            if open_spans:
                 return fn(*a, **k)
+            open_spans.append(span)
+            try:
+                with record_function(SPAN_PREFIX + span):
+                    return fn(*a, **k)
+            finally:
+                open_spans.pop()
         return call
 
     for span, targets in SPANS.items():
@@ -231,19 +247,28 @@ def _serve_paged(cfg, pol, params, args):
                                num_pages=1 + args.batch * mp,
                                quantized=args.cache_mode == "paged_int8")
     state = T.init_decode_state(cfg, args.batch, max_len, pol.compute_dtype,
-                                paged=paged, device="cuda")
+                                paged=paged, device="cuda",
+                                enc_len=cfg.enc_seq
+                                if cfg.is_encoder_decoder else 0)
     T.set_block_tables(state, 1 + np.arange(args.batch * mp, dtype=np.int32)
                        .reshape(args.batch, mp))
     toks = _prompts(cfg, args.batch)
+    frames = _frames(cfg, args.batch)
+
+    def prefill(slot):
+        prefill_into_slot(params, toks[slot:slot + 1], PROMPT_LEN, state,
+                          slot, cfg, pol, moe_impl=args.moe_impl,
+                          enc_frames=None if frames is None
+                          else frames[slot:slot + 1])
     for slot in range(1, args.batch) if args.batch > 1 else (0,):
-        prefill_into_slot(params, toks[slot:slot + 1], PROMPT_LEN,
-                          state, slot, cfg, pol, moe_impl=args.moe_impl)
+        prefill(slot)
     # slot 0's prefill is the measured one (the others, or at batch 1 a
     # first prefill of slot 0, warmed up the path); prefilling it again
-    # rewrites the same pages
-    _phase("prefill", lambda: prefill_into_slot(
-        params, toks[:1], PROMPT_LEN, state, 0, cfg, pol,
-        moe_impl=args.moe_impl), 3)
+    # rewrites the same pages (and cross caches)
+    res = _phase("prefill", lambda: prefill(0), 3)
+    if cfg.is_encoder_decoder:
+        _split("prefill_split", lambda: prefill(0), 3,
+               res["device_busy_ms"])
     state["pos"].fill_(PROMPT_LEN)
     return state
 
@@ -260,6 +285,16 @@ def _serve_rwkv(cfg, pol, params, args):
     return state
 
 
+def _frames(cfg, batch):
+    """An encoder-decoder's frames, one (enc_seq, d_model) row a slot, on
+    the card; None for any other model."""
+    if not cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng(SEED + 1)
+    return torch.from_numpy((0.1 * rng.standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model))).astype(np.float32)).cuda()
+
+
 def _prompts(cfg, batch):
     rng = np.random.default_rng(SEED)
     return torch.from_numpy(rng.integers(
@@ -271,7 +306,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="deepseek-7b",
                     choices=["deepseek-7b", "rwkv6-1.6b",
                              "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                             "jamba-1.5-large-398b"])
+                             "jamba-1.5-large-398b", "whisper-small"])
     ap.add_argument("--full-width", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the full-width model (default: the "

@@ -34,13 +34,16 @@ rwkv6-1.6b whole (24 layers), 8 x 1024; the MoE decoders on the capacity
 path (``TrainConfig.moe_impl`` "a2a"), granite-moe-3b-a800m at 24 of its
 32 layers and qwen3-moe-30b-a3b at 2 of its 48, 8 x 1024; the hybrid
 jamba-1.5-large-398b at its (mamba, dense) layer alone (block-pattern
-position 2, ``launch/train.py --full --positions 2``), 8 x 1024.
+position 2, ``launch/train.py --full --positions 2``), 8 x 1024; the
+encoder-decoder whisper-small whole (12 encoder and 12 decoder layers),
+8 x 1024 tokens with their frames (8 x 1500).
 ``--positions`` (with ``--full-width``, a decoder) replaces the path's
-depth by one block of those positions.  An MoE or a mamba model's
-step gets one more line, ``train_step_lm_split``: the device ms of
+depth by one block of those positions.  An MoE, a mamba or an encoder-decoder
+model's step gets one more line, ``train_step_lm_split``: the device ms of
 attention, the router, the expert products and the dispatch and combine,
 mamba's in-projection, conv, selective scan (x_proj, dt and the scan's
-forward) and out-projection, and the dense MLP, as ``profile_serve.py``'s
+forward) and out-projection, the dense MLP, and the encoder and the cross
+sublayers, as ``profile_serve.py``'s
 ``decode_step_split`` takes them (the kernels launched inside
 ``record_function`` spans around those functions, in a third profiled
 loop): the forward's and the recompute's kernels; the backward's run on
@@ -77,7 +80,8 @@ LM_PATHS = {"deepseek-7b": (4, 8, 1024, 2), "gemma2-27b": (1, 2, 8192, 2),
             "rwkv6-1.6b": (24, 8, 1024, 2),
             "granite-moe-3b-a800m": (24, 8, 1024, 2),
             "qwen3-moe-30b-a3b": (2, 8, 1024, 2),
-            "jamba-1.5-large-398b": ((2,), 8, 1024, 2)}
+            "jamba-1.5-large-398b": ((2,), 8, 1024, 2),
+            "whisper-small": (12, 8, 1024, 2)}
 
 
 def depth_flags(depth) -> list:
@@ -145,7 +149,8 @@ def main(argv=None):
         step()   # warm-up: cuBLAS plans, allocator
         res = _phase(f"train_step_{name}", step, args.steps,
                      extra=_backward_fns)
-        if cfg.has_moe or any(m == "mamba" for m, _ in cfg.block_pattern):
+        if cfg.has_moe or cfg.is_encoder_decoder or any(
+                m == "mamba" for m, _ in cfg.block_pattern):
             _split(f"train_step_{name}_split", step, args.steps,
                    res["device_busy_ms"], extra={
                        "mamba_scan_backward_ms":

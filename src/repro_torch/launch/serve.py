@@ -4,7 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch deepseek-7b|rwkv6-1.6b|gemma2-27b|qwen1.5-32b|\
               deepseek-coder-33b|granite-moe-3b-a800m|qwen3-moe-30b-a3b|\
-              jamba-1.5-large-398b] \
+              jamba-1.5-large-398b|whisper-small] \
       [--moe-impl dense|a2a|replicated] [--batch 4] [--prompt-len 32] \
       [--new-tokens 16] [--mode raw|cohort|continuous] \
       [--cache-mode contiguous|paged|paged_int8] \
@@ -42,8 +42,13 @@ prompt longer than 128 tokens must be a multiple of 128), its slot
 prefills the masked sequential one; cohort mode and ``--prefix-cache``
 refuse it, as they refuse rwkv6-1.6b.  At ``--full-width`` its 398 B
 parameters do not fit one card (``chip_smoke.py`` and
-``profile_serve.py --layers 4`` serve its first 4 layers).
-Cross-attention and vision architectures are not ported yet.
+``profile_serve.py --layers 4`` serve its first 4 layers).  The
+encoder-decoder whisper-small serves in raw and continuous modes, in any
+``--cache-mode``: every request brings its own frame embeddings (enc_seq,
+d_model), 0.1 times a standard normal drawn from the workload's seed; its
+prefill (a slot's admission) runs the encoder over them and fills the
+slot's cross caches, which its decode steps read; cohort mode and
+``--prefix-cache`` refuse it.  Vision architectures are not ported yet.
 ``--prefix-cache``
 (continuous, paged cache modes) shares cached prompt-prefix pages across
 slots: the workload's prompts then start with one of ``--prefix-groups``
@@ -114,7 +119,8 @@ def run_scheduler(args, cfg, pol, params):
             prompt = np.concatenate([head, prompt])[: args.prompt_len]
         sched.submit(Request(
             rid=i, prompt=prompt,
-            max_new_tokens=int(rng.integers(2, args.new_tokens + 1))))
+            max_new_tokens=int(rng.integers(2, args.new_tokens + 1)),
+            enc_frames=enc_frames(cfg, rng)))
     done = sched.run()
     st = sched.stats
     logger.info("%s: %d requests done, %d useful tokens, %d wasted slots",
@@ -126,8 +132,9 @@ def run_scheduler(args, cfg, pol, params):
     if args.mode == "cohort":
         logger.info("cohorts %d", st.cohorts)
     else:
-        logger.info("KV cache bytes %d (%s), recurrent state bytes %d",
-                    st.cache_bytes, args.cache_mode, st.state_bytes)
+        logger.info("KV cache bytes %d (%s), per-slot state bytes %d "
+                    "(recurrent rows, cross caches)", st.cache_bytes,
+                    args.cache_mode, st.state_bytes)
     alloc = getattr(sched, "allocator", None)
     if alloc is not None:
         logger.info("paged cache: %d-page pool, %d preemptions, %d pages "
@@ -149,16 +156,32 @@ def run_scheduler(args, cfg, pol, params):
     return sched
 
 
+def enc_frames(cfg, rng, batch=None):
+    """An encoder-decoder request's frame embeddings, 0.1 times a standard
+    normal (enc_seq, d_model) float32 from ``rng`` ((batch, enc_seq,
+    d_model) with ``batch``); None for any other model."""
+    if not cfg.is_encoder_decoder:
+        return None
+    shape = (cfg.enc_seq, cfg.d_model) if batch is None else \
+        (batch, cfg.enc_seq, cfg.d_model)
+    return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+
 def run_raw(args, cfg, pol, params):
     b, s = args.batch, args.prompt_len
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            dtype=torch.int32).to(args.device)
+    frames = enc_frames(cfg, np.random.default_rng(SEED + 1), b)
+    enc_len = cfg.enc_seq if cfg.is_encoder_decoder else 0
     state = T.init_decode_state(cfg, b, s + args.new_tokens,
-                                pol.compute_dtype, device=args.device)
+                                pol.compute_dtype, device=args.device,
+                                enc_len=enc_len)
     t0 = time.perf_counter()
-    logits, state = T.prefill(params, prompt, cfg, pol, state=state,
-                              moe_impl=args.moe_impl)
+    logits, state = T.prefill(
+        params, prompt, cfg, pol, state=state, moe_impl=args.moe_impl,
+        enc_frames=None if frames is None
+        else torch.from_numpy(frames).to(args.device))
     _sync(args.device)
     t_prefill = time.perf_counter() - t0
     logger.info("prefill: %d x %d tokens in %.3fs (%.0f tok/s)", b, s,
@@ -194,10 +217,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["deepseek-7b", "rwkv6-1.6b", "gemma2-27b",
                              "qwen1.5-32b", "deepseek-coder-33b",
                              "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                             "jamba-1.5-large-398b"],
-                    help="the architectures the port serves "
-                         "(cross-attention and vision ones are not ported "
-                         "yet)")
+                             "jamba-1.5-large-398b", "whisper-small"],
+                    help="the architectures the port serves (vision ones "
+                         "are not ported yet)")
     ap.add_argument("--moe-impl", default="dense",
                     choices=["dense", "a2a", "replicated"],
                     help="an MoE model's expert path: every expert on "

@@ -39,7 +39,12 @@ S: wkv6's chunk), and the MoE decoders granite-moe-3b-a800m (40 experts
 top-8, tied embeddings) and qwen3-moe-30b-a3b (128 experts top-8,
 query/key norms), and the hybrid jamba-1.5-large-398b (attention, mamba
 and MoE layers in an 8-layer block; mamba's selective scan takes its
-backward from ``models/mamba.py`` ``_SelectiveScan``).  An MoE model's
+backward from ``models/mamba.py`` ``_SelectiveScan``), and the
+encoder-decoder whisper-small (12 bidirectional encoder layers over 1500
+frame embeddings, 12 decoder layers with cross-attention; each batch
+carries ``frames``, the reference's rule: 0.1 times a standard normal
+(batch, enc_seq, d_model) from ``default_rng(0)``, the same every step,
+``FramesStream``).  An MoE model's
 loss adds ``router_aux_coef`` times the router's aux loss (the
 reference's: each block's last pattern position, summed over the
 blocks), logged as ``router aux`` in each step line;
@@ -55,7 +60,8 @@ versions.  Weights are random, drawn from ``--seed``.
 
 One option the reference lacks, ``--layers N``: the model at depth N (full
 width with ``--full``), a multiple of the block pattern's length or fewer
-layers than it (gemma2's ``--layers 1`` is its first, local layer alone).
+layers than it (gemma2's ``--layers 1`` is its first, local layer alone;
+an encoder-decoder's encoder is cut to N layers too).
 deepseek-7b at its 30 layers is ~6.9 B parameters, and a training state
 on one card needs ~18 bytes a parameter (fp32 master, m, v and gradient
 buffer, a bf16 compute copy), ~124 GB against the H100's 80 GB; the
@@ -94,6 +100,7 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import cut_positions, get_config, smoke_variant
@@ -111,6 +118,40 @@ from repro_torch.train.trainer import train_loop
 from repro_torch.utils import tree_count
 
 logger = logging.getLogger("repro_torch.train")
+
+
+class FramesStream:
+    """An encoder-decoder's batches: the LM stream's tokens and ``frames``
+    (batch, enc_seq, d_model) float32, drawn as the reference's trainer
+    draws them, ``0.1 * default_rng(0).standard_normal(...)`` every batch
+    (the stub front end's output; the same frames each step).  The resume
+    cursor is the token stream's."""
+
+    def __init__(self, inner, cfg, batch: int):
+        self.inner = inner
+        # drawn once: the reference draws the same array every batch
+        self.frames = (0.1 * np.random.default_rng(0).standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model))).astype(np.float32)
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state):
+        self.inner.load_state_dict(state)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return {"tokens": next(self.inner)["tokens"], "frames": self.frames}
+
+
+def lm_stream(cfg, seed: int, batch: int, seq: int):
+    """The trainer's batches of ``cfg``: ``lm_batches`` (tokens (batch,
+    seq + 1)), for an encoder-decoder wrapped in ``FramesStream``."""
+    inner = lm_batches(seed, cfg.vocab_size, batch, seq)
+    return FramesStream(inner, cfg, batch) if cfg.is_encoder_decoder \
+        else inner
 
 
 def parse_args(argv=None):
@@ -221,7 +262,9 @@ def model_config(args):
                              "a positive multiple of them")
         cfg = dataclasses.replace(
             cfg, n_layers=args.layers,
-            block_pattern=tuple(pattern[:args.layers]))
+            block_pattern=tuple(pattern[:args.layers]),
+            **({"n_enc_layers": args.layers} if cfg.is_encoder_decoder
+               else {}))
     try:
         api.check_trainable(cfg)
     except NotImplementedError as e:
@@ -286,7 +329,7 @@ def _train(args, cfg, mesh):
                                  policy=policy)
 
     def stream():
-        return lm_batches(args.seed, cfg.vocab_size, args.batch, args.seq)
+        return lm_stream(cfg, args.seed, args.batch, args.seq)
 
     fingerprint = (f"{cfg.arch_id}:p={args.precision}:b={args.batch}x"
                    f"{args.seq}:opt={args.optimizer}:accum={args.accum}:"

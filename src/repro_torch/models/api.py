@@ -12,8 +12,10 @@ mamba (the hybrid jamba; its selective scan's backward is
 ``mamba._SelectiveScan``) and Mixture-of-Experts MLPs, whose loss adds the
 router's aux loss as the reference's does (``lm_train_loss``; each
 block's last pattern position, ``transformer.apply_lm``; ``moe_impl``
-picks the expert path).  Encoder-decoder and vision models are refused
-(``check_trainable``), naming their slice.
+picks the expert path), and the encoder-decoder whisper-small, whose
+batches carry ``frames`` (B, enc_seq, d_model) float32, the stub front
+end's frame embeddings, which ``lm_train_loss`` hands to the encoder.
+Vision models are refused (``check_trainable``), naming their slice.
 The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
@@ -45,8 +47,8 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder must be one ``transformer.check_supported`` runs (whisper and
-    qwen2-vl are not)."""
+    decoder or an encoder-decoder must be one
+    ``transformer.check_supported`` runs (qwen2-vl is not)."""
     if cfg.is_encoder_only:
         return
     T.check_supported(cfg)
@@ -87,13 +89,16 @@ def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
     ``log_softmax`` of the logits in fp32, the mean NLL (``_MeanNLL``);
     an MoE model adds ``aux_coef`` (default ``cfg.router_aux_coef``) times
     the router's aux loss, that of each block's last pattern position
-    summed over the blocks (``transformer.apply_lm``).  Returns (loss,
+    summed over the blocks (``transformer.apply_lm``); an encoder-decoder
+    runs its encoder over ``batch["frames"]``.  Returns (loss,
     {"lm_loss", "router_aux"}), 0-d float32 tensors; ``router_aux`` is 0
     for a model without MoE layers."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
-    logits, aux = T.apply_lm(params, inputs, cfg, policy, remat=remat,
-                             moe_impl=moe_impl, return_aux=True, impl=impl)
+    frames = batch["frames"] if cfg.is_encoder_decoder else None
+    logits, aux = T.apply_lm(params, inputs, cfg, policy, enc_frames=frames,
+                             remat=remat, moe_impl=moe_impl, return_aux=True,
+                             impl=impl)
     nll = _MeanNLL.apply(logits.float(), labels)
     loss = nll
     if cfg.has_moe:
@@ -130,11 +135,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
 def train_batch_struct(cfg: ModelConfig, shape: InputShape
                        ) -> Dict[str, BatchField]:
     """BERT: tokens, type ids, MLM positions and labels, NSP labels.  A
-    decoder: tokens (B, S + 1), the inputs and the shifted labels."""
+    decoder: tokens (B, S + 1), the inputs and the shifted labels; an
+    encoder-decoder also its frames (B, enc_seq, d_model) float32."""
     check_trainable(cfg)
     b, s = shape.global_batch, shape.seq_len
     if not cfg.is_encoder_only:
-        return {"tokens": BatchField((b, s + 1))}
+        out = {"tokens": BatchField((b, s + 1))}
+        if cfg.is_encoder_decoder:
+            out["frames"] = BatchField((b, cfg.enc_seq, cfg.d_model),
+                                       np.float32)
+        return out
     p = mlm_positions_count(s)
     return {"tokens": BatchField((b, s)), "type_ids": BatchField((b, s)),
             "mlm_positions": BatchField((b, p)),
@@ -145,12 +155,15 @@ def make_synth_batch(seed: int, cfg: ModelConfig, shape: InputShape
                      ) -> Dict[str, np.ndarray]:
     """A random batch with the schema's statistics, as the reference's:
     positions 0 .. P-1, type ids 0, random tokens, labels and NSP labels
-    (a decoder's: random tokens).  Drawn with numpy (the values differ
-    from ``jax.random``'s)."""
+    (a decoder's: random tokens; an encoder-decoder's frames 0.1 times a
+    standard normal).  Drawn with numpy (the values differ from
+    ``jax.random``'s)."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, f in sorted(train_batch_struct(cfg, shape).items()):
-        if name == "nsp_labels":
+        if f.dtype == np.float32:
+            out[name] = 0.1 * rng.standard_normal(f.shape)
+        elif name == "nsp_labels":
             out[name] = rng.integers(0, 2, f.shape)
         elif name == "mlm_positions":
             out[name] = np.broadcast_to(np.arange(f.shape[-1]), f.shape)
@@ -163,7 +176,12 @@ def make_synth_batch(seed: int, cfg: ModelConfig, shape: InputShape
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """numpy batch -> int64 tensors on ``device`` (indices for gathers)."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device=device,
-                                                  dtype=torch.int64)
-            for k, v in batch.items()}
+    """numpy batch -> tensors on ``device``: integer fields as int64
+    (indices for gathers), floating ones (an encoder-decoder's frames) as
+    float32."""
+    def one(v):
+        v = np.asarray(v)
+        dtype = torch.float32 if np.issubdtype(v.dtype, np.floating) \
+            else torch.int64
+        return torch.from_numpy(v).to(device=device, dtype=dtype)
+    return {k: one(v) for k, v in batch.items()}

@@ -2,9 +2,11 @@
 ``repro/models/layers.py``): RMSNorm and LayerNorm, RoPE, causal,
 sliding-window and bidirectional attention (QKV biases and the logit
 softcap included) with the decoder's contiguous, ring and paged KV caches,
-query/key norms (qwen3-moe), the SwiGLU, GeGLU and GELU MLPs, and the
-token embedding with learned positions or the sqrt(d_model) scale.
-M-RoPE positions belong to a later slice (qwen2-vl) and raise.
+cross-attention over an encoder's output or its per-slot cross cache
+(whisper), query/key norms (qwen3-moe), the SwiGLU, GeGLU and GELU MLPs,
+and the token embedding with learned positions (from a scalar or a
+per-slot offset) or the sqrt(d_model) scale.  M-RoPE positions belong to
+a later slice (qwen2-vl) and raise.
 
 Dtype discipline as in the reference: matmuls run in
 ``policy.compute_dtype``; norms, softmax and logits run in
@@ -231,16 +233,45 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                            softcap=softcap)
 
 
+def _project_kv(params: Params, src: torch.Tensor, cfg: ModelConfig,
+                cdt) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V (B, S, KV, Dh) of ``src`` (B, S, d) in ``cdt``, with the
+    K/V biases and the key norm where the config has them."""
+    b, s, d = src.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    sc = src.to(cdt).reshape(b * s, d)
+    k = (sc @ params["wk"].to(cdt).reshape(d, kv * dh)).reshape(b, s, kv, dh)
+    v = (sc @ params["wv"].to(cdt).reshape(d, kv * dh)).reshape(b, s, kv, dh)
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(cdt)
+        v = v + params["bv"].to(cdt)
+    if cfg.qk_norm:
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+    return k, v
+
+
 def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
                     policy: Policy, *, mixer_kind: str = "attn",
                     positions: Optional[torch.Tensor] = None,
+                    kv_source: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     cache_pos: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None,
+                    static_kv: bool = False,
                     return_cache: bool = False,
                     impl: Optional[str] = None):
-    """Self-attention with an optional KV cache.  Returns (y,
-    cache_or_None).
+    """Self-attention with an optional KV cache, or cross-attention.
+    Returns (y, cache_or_None).
+
+    * ``static_kv=True``: cross-attention (the reference's form): the
+      queries over K and V projected from ``kv_source``, the encoder's
+      output (B, Se, d), in a prefill or a training step, or read verbatim
+      from ``cache`` {"k", "v"} (B, Se, KV, Dh) in a decode step, which
+      never writes it.  No mask, no RoPE; the plain ``naive_attention`` in
+      both forms, as in the reference (no Pallas kernel there: the (Sq,
+      Se) scores with Sq != Se).  With ``return_cache`` the cache is the K
+      and V just projected (in the compute dtype; the caller writes them
+      into its cross cache), or the cache it read.
 
     * ``mixer_kind="attn_bidir"`` (the encoder): no cache, no mask, through
       the flash forward and backward kernels at every length
@@ -286,23 +317,31 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     xc = x.to(cdt).reshape(b * s, d)
     q = (xc @ params["wq"].to(cdt).reshape(d, h * dh)).reshape(b, s, h, dh)
-    k = (xc @ params["wk"].to(cdt).reshape(d, kv * dh)).reshape(b, s, kv, dh)
-    v = (xc @ params["wv"].to(cdt).reshape(d, kv * dh)).reshape(b, s, kv, dh)
+    if static_kv and kv_source is None:
+        if cache is None:
+            raise ValueError("cross-attention needs the encoder output or a "
+                             "cross cache")
+        k, v = cache["k"], cache["v"]
+    else:
+        k, v = _project_kv(params, x if kv_source is None else kv_source,
+                           cfg, cdt)
     if cfg.qkv_bias:
         q = q + params["bq"].to(cdt)
-        k = k + params["bk"].to(cdt)
-        v = v + params["bv"].to(cdt)
     if cfg.qk_norm:
         q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
-    if cfg.pos_kind == "rope":
+    if cfg.pos_kind == "rope" and not static_kv:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if mixer_kind == "attn_bidir":
+    if static_kv:
+        if return_cache:
+            new_cache = {"k": k, "v": v} if kv_source is not None else cache
+        out = naive_attention(q, k, v, causal=False, softcap=softcap,
+                              reduce_dtype=policy.reduce_dtype)
+    elif mixer_kind == "attn_bidir":
         if cache is not None or return_cache:
             raise ValueError("bidirectional attention keeps no KV cache")
         t = lambda z: z.transpose(1, 2)  # (B,S,H,D) <-> (B,H,S,D) views
@@ -608,11 +647,15 @@ def init_embedding(cfg: ModelConfig, generator: torch.Generator, *,
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                 policy: Policy) -> torch.Tensor:
+                 policy: Policy, *, pos_offset=0) -> torch.Tensor:
     """Token embedding in the compute dtype, times sqrt(d_model) rounded
     to the compute dtype first (``cfg.scale_embeddings``, gemma2: 67.88 is
     68.0 in bf16, as in the reference), plus the learned position
-    embedding of positions 0 .. S-1 (``cfg.pos_kind == "learned"``)."""
+    embedding (``cfg.pos_kind == "learned"``) of positions ``pos_offset``
+    .. ``pos_offset`` + S - 1: ``pos_offset`` a Python int (a slice of the
+    table: training and prefill take 0), a 0-d tensor, or a (B,) tensor
+    giving each batch row its own offset (continuous-batching decode, each
+    slot at its own position)."""
     x = F.embedding(tokens.long(), params["tok"]).to(policy.compute_dtype)
     if cfg.scale_embeddings:
         # the scale rounded on the host (a Python float of its bits): a
@@ -620,5 +663,12 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
     if cfg.pos_kind == "learned":
         s = tokens.shape[-1]
-        x = x + params["pos"][:s].to(x.dtype)
+        if isinstance(pos_offset, int):
+            pos = params["pos"][pos_offset:pos_offset + s]
+        else:
+            off = torch.as_tensor(pos_offset, device=x.device).long()
+            ids = torch.arange(s, device=x.device)
+            # 0-d -> (S,); (B,) -> (B, S); both broadcast against (B, S, d)
+            pos = params["pos"][(off[:, None] if off.ndim else off) + ids]
+        x = x + pos.to(x.dtype)
     return x

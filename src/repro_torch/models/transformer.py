@@ -1,7 +1,8 @@
-"""Decoder-only LM (port of ``repro/models/transformer.py`` for
-attention layers -- full, sliding-window local and global, with or without
-query/key norms -- and mamba layers, each under a dense or a
-Mixture-of-Experts MLP, and RWKV-6 layers).
+"""Decoder LM and encoder-decoder (port of ``repro/models/transformer.py``
+for attention layers -- full, sliding-window local and global, with or
+without query/key norms -- and mamba layers, each under a dense or a
+Mixture-of-Experts MLP, RWKV-6 layers, and whisper's bidirectional
+encoder with cross-attention in every decoder layer).
 
 The reference stacks the blocks' weights on a leading axis and runs them
 with ``lax.scan``; here each layer is its own dict of tensors in a list and
@@ -25,6 +26,10 @@ Parameters are a plain dict::
                       (``models/moe.py``)
     rwkv layer = {"norm1", "mixer": time mix, "norm2", "mlp": channel mix}
                  (``models/rwkv.py``; norms are LayerNorms with a bias)
+    encoder-decoder (whisper): every decoder layer adds {"norm_cross",
+        "cross": {"wq", "wk", "wv", "wo"}}, and the model {"enc_blocks":
+        [layer, ...] (bidirectional attention, ``cfg.enc_block_pattern``),
+        "enc_norm", "enc_pos" (enc_seq, d)}
 
 A tied model (``cfg.tie_embeddings``, gemma2) has no ``lm_head``: the
 logits are taken against ``embed.tok`` transposed.  ``cfg.post_block_norm``
@@ -40,7 +45,10 @@ jamba's 8-position block counts position 7's MoE layer and not those at 1,
 3 and 5; ``apply_lm(return_aux=True)`` returns it.
 
 The decode state is ``{"pos": (B,) int32, "blocks": [layer state, ...]}``
-with ``{"cache": ...}`` for an attention layer, ``{"conv", "ssm"}`` (fp32)
+with ``{"cache": ...}`` for an attention layer (and an encoder-decoder's
+``"cross": {"k", "v"}`` (B, enc_len, KV, Dh), contiguous whatever the
+self-attention cache: a prefill writes the encoder's K and V there, a
+decode step reads them), ``{"conv", "ssm"}`` (fp32)
 for a mamba layer and ``{"tm_shift", "wkv", "cm_shift"}`` (fp32) for an
 rwkv layer.  A local (sliding-window) layer's
 contiguous cache is a ring of ``min(max_len, sliding_window)`` rows: decode
@@ -52,8 +60,13 @@ tensor: one logical allocation per slot serves all of them (the reference
 keeps one stacked copy per block); a hybrid's mamba layers keep their
 per-slot rows beside the pool, outside the table.
 
-Cross-attention, M-RoPE and vision layers belong to later slices and raise
-``NotImplementedError``.
+An encoder-decoder (whisper-small) runs its encoder over the request's
+frame embeddings plus ``enc_pos`` and ``enc_norm`` (``_encode``) in
+``apply_lm`` and ``prefill``; each decoder layer's cross sublayer sits
+between its self-attention and its MLP, over the encoder's output or, in
+a decode step, the cross cache; learned decoder positions are embedded at
+each slot's own ``state["pos"]`` in a decode step.  M-RoPE and vision
+layers belong to a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -73,6 +86,7 @@ from repro_torch.models import rwkv as RW
 LAYER_KINDS = (("attn", "dense"), ("attn_local", "dense"),
                ("attn_global", "dense"), ("attn", "moe"),
                ("mamba", "dense"), ("mamba", "moe"), ("rwkv", "rwkv_cm"))
+ENC_LAYER_KINDS = (("attn_bidir", "dense"),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +106,24 @@ def check_supported(cfg: ModelConfig) -> None:
         if tuple(kind) not in LAYER_KINDS:
             raise NotImplementedError(
                 f"{kind} layers: the port runs {LAYER_KINDS}")
-    if cfg.is_encoder_decoder or cfg.is_encoder_only:
-        raise NotImplementedError(
-            "encoder-decoder models (cross-attention) come with a later "
-            "family slice; encoder-only models are BERT (models/bert.py)")
+    if cfg.is_encoder_only:
+        raise NotImplementedError("encoder-only models are BERT "
+                                  "(models/bert.py)")
+    if cfg.is_encoder_decoder:
+        for kind in cfg.enc_block_pattern:
+            if tuple(kind) not in ENC_LAYER_KINDS:
+                raise NotImplementedError(
+                    f"{kind} encoder layers: the port runs "
+                    f"{ENC_LAYER_KINDS}")
     if cfg.n_vision_tokens or cfg.pos_kind == "mrope":
         raise NotImplementedError("vision stubs and M-RoPE positions come "
                                   "with a later family slice")
+
+
+def enc_layer_kinds(cfg: ModelConfig):
+    """The encoder's (mixer, mlp) per layer, ``n_enc_layers`` of them."""
+    pattern = tuple(cfg.enc_block_pattern)
+    return pattern * (cfg.n_enc_layers // len(pattern))
 
 
 # ---------------------------------------------------------------------------
@@ -131,19 +156,35 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
         if cfg.post_block_norm:
             layer.update(postnorm1=L.init_norm(cfg, **kw),
                          postnorm2=L.init_norm(cfg, **kw))
+        if cfg.is_encoder_decoder:
+            layer.update(norm_cross=L.init_norm(cfg, **kw),
+                         cross=L.init_attention(cfg, gen, **kw))
         params["blocks"].append(layer)
     params["final_norm"] = L.init_norm(cfg, **kw)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.trunc_normal((cfg.d_model, cfg.vocab_size),
                                            gen, **kw)
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = [
+            {"norm1": L.init_norm(cfg, **kw),
+             "mixer": L.init_attention(cfg, gen, **kw),
+             "norm2": L.init_norm(cfg, **kw),
+             "mlp": L.init_mlp(cfg, gen, **kw)}
+            for _ in enc_layer_kinds(cfg)]
+        params["enc_norm"] = L.init_norm(cfg, **kw)
+        params["enc_pos"] = L.trunc_normal((cfg.enc_seq, cfg.d_model), gen,
+                                           **kw)
     return params
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16,
                       paged: Optional[PagedCacheConfig] = None,
-                      device="cuda") -> dict:
+                      device="cuda", enc_len: int = 0) -> dict:
     """Per-layer decode state with per-slot positions ``pos`` (B,).
+    ``enc_len`` > 0 (an encoder-decoder) adds each attention layer's
+    contiguous cross cache {"k", "v"} (B, enc_len, KV, Dh) in
+    ``cache_dtype``, beside a contiguous or a paged self-attention cache.
     ``paged`` replaces each slot's contiguous (max_len, KV, Dh) stripe with
     the global page pool and one block table shared by all layers; a
     sliding-window ring cannot be paged and raises ``ValueError``.  A local
@@ -181,6 +222,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             cache = L.init_attention_cache(cfg, batch, rows, cache_dtype,
                                            device=device)
         blocks.append({"cache": cache})
+        if enc_len:
+            blocks[-1]["cross"] = L.init_attention_cache(
+                cfg, batch, enc_len, cache_dtype, device=device)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "blocks": blocks}
 
@@ -269,19 +313,45 @@ def _apply_mamba_mixer(p, h, cfg: ModelConfig, policy: Policy, *,
     return y
 
 
+def _apply_cross(p, x, cfg: ModelConfig, policy: Policy, *, enc_out=None,
+                 state=None, impl: Optional[str] = None):
+    """The cross sublayer of an encoder-decoder's decoder layer: its norm,
+    then attention over the encoder's output ``enc_out`` (a prefill or a
+    training step; a prefill writes the K and V it projects into the
+    state's cross cache, in place: ``init_decode_state(enc_len=)``) or,
+    without it, over the state's cross cache (a decode step, which never
+    writes it).  Returns x with the sublayer's output added."""
+    h = L.apply_norm(p["norm_cross"], x, cfg, policy, impl=impl)
+    ccache = state.get("cross") if state is not None else None
+    keep = state is not None and enc_out is not None
+    if keep and ccache is None:
+        raise ValueError("a prefill of an encoder-decoder needs the state's "
+                         "cross caches: init_decode_state(enc_len=enc_seq)")
+    y, nc = L.apply_attention(p["cross"], h, cfg, policy, kv_source=enc_out,
+                              cache=ccache, static_kv=True,
+                              return_cache=keep)
+    if keep:
+        ccache["k"].copy_(nc["k"])
+        ccache["v"].copy_(nc["v"])
+    return x + y.to(x.dtype)
+
+
 def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
                  mlp: str, *, state=None, decode_pos=None, valid_len=None,
-                 moe_impl: str = "a2a", impl: Optional[str] = None):
-    """One layer; returns (x, the MoE router's aux loss or None)."""
+                 enc_out=None, moe_impl: str = "a2a",
+                 impl: Optional[str] = None):
+    """One layer; returns (x, the MoE router's aux loss or None).  An
+    encoder-decoder's decoder layer (``"cross" in p``) runs its cross
+    sublayer (``_apply_cross``) between the mixer and the MLP."""
     if mixer == "rwkv":
         return _apply_rwkv_layer(p, x, cfg, policy, state=state,
                                  valid_len=valid_len, impl=impl), None
     def post(y, which):   # gemma2's norm of a sublayer's output
         if cfg.post_block_norm:
-            return L.apply_norm(p[which], y, cfg, policy)
+            return L.apply_norm(p[which], y, cfg, policy, impl=impl)
         return y
 
-    h = L.apply_norm(p["norm1"], x, cfg, policy)
+    h = L.apply_norm(p["norm1"], x, cfg, policy, impl=impl)
     cache = state.get("cache") if state is not None else None
     if mixer == "mamba":
         y = _apply_mamba_mixer(p["mixer"], h, cfg, policy, state=state,
@@ -309,12 +379,15 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
         if state is not None:
             _fit_cache(nc, state, valid_len)
     x = x + post(y, "postnorm1").to(x.dtype)
-    h = L.apply_norm(p["norm2"], x, cfg, policy)
+    if "cross" in p:
+        x = _apply_cross(p, x, cfg, policy, enc_out=enc_out, state=state,
+                         impl=impl)
+    h = L.apply_norm(p["norm2"], x, cfg, policy, impl=impl)
     aux = None
     if mlp == "moe":
         y, aux = MOE.moe_apply(p["mlp"], h, cfg, policy, impl=moe_impl)
     else:
-        y = L.apply_mlp(p["mlp"], h, cfg, policy)
+        y = L.apply_mlp(p["mlp"], h, cfg, policy, impl=impl)
     return x + post(y, "postnorm2").to(x.dtype), aux
 
 
@@ -336,8 +409,29 @@ def _lm_logits(params, x, cfg: ModelConfig, policy: Policy):
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _encode(params, enc_frames, cfg: ModelConfig, policy: Policy, *,
+            remat: bool = False, impl: Optional[str] = None):
+    """An encoder-decoder's encoder: the frame embeddings (B, enc_seq, d)
+    plus ``enc_pos``, in the compute dtype, through the encoder layers
+    (bidirectional attention, each recomputed in the backward under
+    ``remat``) and ``enc_norm``.  Returns the encoder's output, the K and
+    V source of every cross sublayer."""
+    if enc_frames is None:
+        raise ValueError(f"{cfg.arch_id} is an encoder-decoder: it needs "
+                         "enc_frames (B, enc_seq, d_model)")
+    cdt = policy.compute_dtype
+    e = enc_frames.to(cdt) + params["enc_pos"].to(cdt)[None]
+    for p, (mixer, mlp) in zip(params["enc_blocks"], enc_layer_kinds(cfg)):
+        if remat:
+            e, _ = checkpoint(_apply_layer, p, e, cfg, policy, mixer, mlp,
+                              impl=impl, use_reentrant=False)
+        else:
+            e, _ = _apply_layer(p, e, cfg, policy, mixer, mlp, impl=impl)
+    return L.apply_norm(params["enc_norm"], e, cfg, policy, impl=impl)
+
+
 def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
-             remat: bool = False, moe_impl: str = "a2a",
+             enc_frames=None, remat: bool = False, moe_impl: str = "a2a",
              return_aux: bool = False, impl: Optional[str] = None):
     """Full forward of (B, S) tokens -> logits (B, S, V), for training and
     scoring; with ``return_aux`` (logits, aux), aux the MoE router's loss
@@ -353,19 +447,25 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
     the recompute exactly the routers the reference's reaches, those of
     each block's last position.  The recompute runs the forward's
     operations on the same inputs, each deterministic (``models/moe.py``),
-    so it routes and dispatches every token as the forward did."""
+    so it routes and dispatches every token as the forward did.  An
+    encoder-decoder takes ``enc_frames`` (B, enc_seq, d) and runs the
+    encoder first (``_encode``, its layers recomputed too under
+    ``remat``)."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    enc_out = (_encode(params, enc_frames, cfg, policy, remat=remat,
+                       impl=impl) if cfg.is_encoder_decoder else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     last = len(cfg.block_pattern) - 1
     for i, (p, (mixer, mlp)) in enumerate(zip(params["blocks"],
                                               cfg.layer_kinds())):
         if remat:
             x, a = checkpoint(_apply_layer, p, x, cfg, policy, mixer, mlp,
-                              moe_impl=moe_impl, impl=impl,
+                              enc_out=enc_out, moe_impl=moe_impl, impl=impl,
                               use_reentrant=False)
         else:
             x, a = _apply_layer(p, x, cfg, policy, mixer, mlp,
-                                moe_impl=moe_impl, impl=impl)
+                                enc_out=enc_out, moe_impl=moe_impl,
+                                impl=impl)
         if a is not None and i % len(cfg.block_pattern) == last:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
@@ -374,19 +474,24 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
 
 
 def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
-            lengths=None, moe_impl: str = "a2a",
+            lengths=None, enc_frames=None, moe_impl: str = "a2a",
             impl: Optional[str] = None):
     """Run the prompt (B, S) through the model, filling ``state`` in place.
     Returns (last-token logits (B, V), state).  ``lengths`` (B,) are the
     true lengths of right-padded prompts: logits are taken at
     ``lengths - 1`` and decode resumes at ``lengths``; rwkv and mamba
     layers then run their masked sequential scans, without ``lengths``
-    the chunked ones (``kops.wkv6``, ``mamba._ssm_chunked``)."""
+    the chunked ones (``kops.wkv6``, ``mamba._ssm_chunked``).  An
+    encoder-decoder runs its encoder over ``enc_frames`` (B, enc_seq, d)
+    and fills each layer's cross cache from the encoder's output."""
     x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    enc_out = (_encode(params, enc_frames, cfg, policy, impl=impl)
+               if cfg.is_encoder_decoder else None)
     for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
                                    cfg.layer_kinds()):
         x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,
-                            valid_len=lengths, moe_impl=moe_impl, impl=impl)
+                            valid_len=lengths, enc_out=enc_out,
+                            moe_impl=moe_impl, impl=impl)
     b, s = tokens.shape
     if lengths is None:
         x_last = x[:, -1:]
@@ -421,7 +526,7 @@ def prefill_suffix(params, tokens, start, length, cfg: ModelConfig,
     b = tokens.shape[0]
     dev = tokens.device
     pos0 = torch.as_tensor(start, device=dev).to(torch.int32).reshape(())
-    x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    x = L.embed_tokens(params["embed"], tokens, cfg, policy, pos_offset=pos0)
     for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
                                    cfg.layer_kinds()):
         x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,
@@ -451,10 +556,12 @@ def copy_page(state: dict, src, dst, valid) -> dict:
 def decode_step(params, token, state, cfg: ModelConfig, policy: Policy, *,
                 moe_impl: str = "replicated", impl: Optional[str] = None):
     """One decode step for every slot.  token: (B, 1).  Each slot writes at
-    and advances from its own ``state["pos"]``.  Returns (logits (B, V),
-    state) with the state updated in place."""
+    and advances from its own ``state["pos"]``, where learned positions
+    embed it too.  An encoder-decoder's cross sublayers read the state's
+    cross caches.  Returns (logits (B, V), state) with the state updated
+    in place."""
     pos = state["pos"]
-    x = L.embed_tokens(params["embed"], token, cfg, policy)
+    x = L.embed_tokens(params["embed"], token, cfg, policy, pos_offset=pos)
     for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
                                    cfg.layer_kinds()):
         x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,

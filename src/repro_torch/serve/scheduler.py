@@ -31,7 +31,10 @@ all (``cache_bytes`` 0); its per-slot state is the fixed-size recurrent
 rows (``state_bytes``), and every admission runs the masked sequential
 scan.  gemma2-27b's local layers keep sliding-window rings, which cannot
 be paged either: it serves in ``"contiguous"`` mode with a prefill bucket
-no wider than its window.  An MoE model's layers run ``moe_impl``
+no wider than its window.  An encoder-decoder (whisper-small) needs each
+request's ``enc_frames``: its admission runs the encoder and fills the
+slot's cross caches, beside its self-attention KV in any cache mode; the
+prefix cache and the cohort scheduler refuse it.  An MoE model's layers run ``moe_impl``
 (default ``"dense"``, as the reference's schedulers: every expert on every
 token, so a token's output does not depend on what shares its batch).
 
@@ -60,6 +63,9 @@ class Request:
     max_new_tokens: int = 32
     arrival_s: float = 0.0       # offset from run start (trace replay)
     deadline_s: Optional[float] = None  # wall-clock budget from arrival
+    enc_frames: Optional[np.ndarray] = None  # (enc_seq, d_model): an
+    #                              encoder-decoder's input (whisper),
+    #                              required there, encoded at admission
     output: Optional[np.ndarray] = None
     first_token_s: float = 0.0   # arrival -> first generated token
     latency_s: float = 0.0       # arrival -> completion
@@ -315,7 +321,15 @@ class CohortScheduler(_SchedulerBase):
     a short cohort is filled with dummy slots (``cohort[0].prompt``, budget
     0).  The cache is bf16 whatever the policy, as the reference's default
     ``cache_dtype``.  Latency counts from ``arrival_s``, so the wait for
-    earlier cohorts is included."""
+    earlier cohorts is included.  An encoder-decoder is refused
+    (``ValueError``): a cohort has no per-request frames."""
+
+    def __init__(self, params, cfg: ModelConfig, policy: Policy, **kw):
+        if cfg.decode_caps.cross_cache:
+            raise ValueError(f"{cfg.arch_id}: the cohort scheduler has no "
+                             "per-request encoder frames; serve an "
+                             "encoder-decoder with ContinuousScheduler")
+        super().__init__(params, cfg, policy, **kw)
 
     def _pad_prompts(self, reqs: List[Request]):
         plen = max(len(r.prompt) for r in reqs)
@@ -476,6 +490,12 @@ class ContinuousScheduler(_SchedulerBase):
         self.stats.state_bytes = self.adapter.state_bytes()
 
     def submit(self, req: Request):
+        if self.cfg.decode_caps.cross_cache and req.enc_frames is None:
+            raise ValueError(
+                f"request {req.rid}: {self.cfg.arch_id} is an "
+                "encoder-decoder; submit() needs enc_frames (enc_seq, "
+                "d_model) to fill the slot's cross-attention cache at "
+                "admission")
         need = min(len(req.prompt), self.prefill_len) + req.max_new_tokens
         if need > self.max_len:
             raise ValueError(
@@ -653,8 +673,12 @@ class ContinuousScheduler(_SchedulerBase):
                                     self.device), length - covered, i,
                                 start=covered)
                         else:
+                            frames = None if req.enc_frames is None else \
+                                torch.as_tensor(np.asarray(
+                                    req.enc_frames, np.float32)
+                                )[None].to(self.device)
                             logits, state = self.adapter.prefill(
-                                state, toks, length, i)
+                                state, toks, length, i, enc_frames=frames)
                         self.stats.prefill_tokens += length - covered
                         self.stats.prefills += 1
                         if not bool(torch.isfinite(logits).all()):

@@ -24,6 +24,11 @@ cover [start, start + ceil(P / page_size) * page_size); pages below
 ``start`` -- shared, possibly read by sibling slots -- are never
 rewritten.
 
+An encoder-decoder (whisper) runs its encoder over the request's frames
+at admission and writes the encoder's K and V into its slot's rows of
+every layer's ``cross`` cache, the slot's view of it, and nothing else;
+it has no suffix mode (frames are not in the prefix cache's token hash).
+
 An MoE model's layers run ``moe_impl``; the serving default is
 ``"dense"``, as the reference's.  Under the capacity path (``"a2a"``)
 the slot prefill routes the bucket's P tokens, pads included, as the
@@ -54,12 +59,13 @@ def cache_extent(state: dict) -> Optional[int]:
 
 def slot_view(state: dict, slot: int) -> dict:
     """A one-row decode state whose tensors are views of ``slot``'s rows of
-    the live ``state`` (page pools are shared whole; recurrent rows are
-    views too)."""
+    the live ``state`` (page pools are shared whole; recurrent rows and
+    cross caches are views too)."""
     rows = slice(slot, slot + 1)
     blocks = []
     for st in state["blocks"]:
-        row = {k: t[rows] for k, t in st.items() if k != "cache"}
+        row = {k: ({n: x[rows] for n, x in t.items()} if isinstance(t, dict)
+                   else t[rows]) for k, t in st.items() if k != "cache"}
         c = st.get("cache")
         if c is not None and "k_pages" in c:
             row["cache"] = dict(c, block_table=c["block_table"][rows])
@@ -141,7 +147,7 @@ def _prefill_suffix_into_slot(params, tokens, length: int, state: dict,
 def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
                       cfg: ModelConfig, policy: Policy, *,
                       start: Optional[int] = None, moe_impl: str = "dense",
-                      impl: Optional[str] = None):
+                      enc_frames=None, impl: Optional[str] = None):
     """Prefill ONE right-padded request (1, P) of true length ``length``
     into live slot ``slot``; neighbouring slots are untouched.  A paged
     state needs the slot's block-table row written first.  P may not exceed
@@ -152,10 +158,18 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
     ``start`` (paged states only, page-aligned): the slot's table already
     maps ``start`` cached positions; ``tokens`` holds only the uncached
     suffix, of true length ``length``, and ``start + P`` must lie within
-    the cache extent."""
+    the cache extent.
+
+    ``enc_frames`` (1, enc_seq, d_model): an encoder-decoder's request
+    frames, required there (``ValueError`` without them, and with
+    ``start``)."""
     b1, p = tokens.shape
     if b1 != 1:
         raise ValueError("prefill_into_slot takes a single request")
+    if cfg.is_encoder_decoder and (enc_frames is None or start is not None):
+        raise ValueError(f"{cfg.arch_id}: an encoder-decoder slot prefill "
+                         "takes the request's enc_frames and no suffix start "
+                         "(no prefix resume)")
     extent = cache_extent(state)
     if extent is not None and p > extent:
         raise ValueError(f"prefill bucket {p} exceeds the cache extent "
@@ -173,33 +187,38 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
     row = slot_view(state, slot)
     for st in row["blocks"]:
         # a fresh row, as the reference's: decode steps over the whole
-        # batch advance an empty slot's recurrent rows too
+        # batch advance an empty slot's recurrent rows too (a cross cache
+        # is overwritten whole by the prefill)
         for key, t in st.items():
-            if key != "cache":
+            if key not in ("cache", "cross"):
                 t.zero_()
     lengths = torch.tensor([length], dtype=torch.int32,
                            device=state["pos"].device)
     logits, _ = T.prefill(params, tokens, cfg, policy, state=row,
-                          lengths=lengths, moe_impl=moe_impl, impl=impl)
+                          lengths=lengths, enc_frames=enc_frames,
+                          moe_impl=moe_impl, impl=impl)
     return logits[0], state
 
 
 def greedy_generate(params, prompt, cfg: ModelConfig, policy: Policy, *,
                     max_new: int = 16, max_len: int = 256,
-                    moe_impl: str = "dense"):
+                    moe_impl: str = "dense", enc_frames=None):
     """Greedy generation of ``max_new`` tokens for a (B, S) prompt with a
     float32 contiguous cache.  Returns (B, max_new) token ids.  A recurrent
     architecture (``needs_exact_prefill``) prefills with full-width
     ``lengths``, so it takes the masked sequential scan that
     ``prefill_into_slot`` takes, as the reference does: the scheduler's
-    outputs are comparable with these token for token."""
+    outputs are comparable with these token for token.  An encoder-decoder
+    takes ``enc_frames`` (B, enc_seq, d_model)."""
     b, s = prompt.shape
+    enc_len = cfg.enc_seq if cfg.is_encoder_decoder else 0
     state = T.init_decode_state(cfg, b, max_len, torch.float32,
-                                device=prompt.device)
+                                device=prompt.device, enc_len=enc_len)
     lengths = (torch.full((b,), s, dtype=torch.int32, device=prompt.device)
                if cfg.decode_caps.needs_exact_prefill else None)
     logits, state = T.prefill(params, prompt, cfg, policy, state=state,
-                              lengths=lengths, moe_impl=moe_impl)
+                              lengths=lengths, enc_frames=enc_frames,
+                              moe_impl=moe_impl)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     for _ in range(max_new - 1):

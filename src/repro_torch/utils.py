@@ -6,7 +6,8 @@ sorted key order, as ``jax.tree_util`` flattens them, so sums over leaves
 run in the reference's order.
 
 ``LeafGroups`` lays a parameter tree out as the reference stacks it.  The
-reference keeps each leaf of ``params["blocks"]`` stacked over the layers
+reference keeps each leaf of ``params["blocks"]`` (and an encoder-decoder's
+``params["enc_blocks"]``) stacked over the layers
 (one (L, ...) array per leaf name and block-pattern position); the port
 keeps a list of per-layer dicts.  A group is one leaf name: the leaf of
 every layer at one pattern position for a block leaf, the one leaf
@@ -74,59 +75,78 @@ def all_finite(tree) -> torch.Tensor:
 class LeafGroups:
     """The grouping of a parameter tree's leaves by name (see the module
     docstring).  ``paths`` are in the reference's flatten order.  A block
-    leaf's path starts with "blocks" and names no layer; for a decoder
+    leaf's path starts with its list's key, "blocks" (or an
+    encoder-decoder's "enc_blocks"), and names no layer; for a decoder
     ``cfg`` whose block pattern has P > 1 positions (gemma2's local and
     global layers: 2) it names the position, ``("blocks", "1", "mixer",
     "wq")``, since the reference stacks each position's layers apart:
     layer i is block i // P at position i % P.  (Positions sort as the
     reference's tuple while there are at most 10: jamba's 8 are the
-    most.)  Without ``cfg`` (BERT, or a tree that is no model) the blocks
-    are one position."""
+    most.)  The encoder's layers are grouped over ``cfg.enc_block_pattern``
+    in the same way (whisper's 12 ``enc_blocks/0/mixer/wq`` are one group
+    and one LAMB trust ratio).  Without ``cfg`` (BERT, or a tree that is
+    no model) the blocks are one position."""
+
+    LISTS = ("blocks", "enc_blocks")
 
     def __init__(self, tree: dict, cfg=None):
         # a decoder's tree (transformer.init_model: ... "final_norm",
-        # "lm_head") is stacked by the reference per block_pattern position
-        # (a tuple of dicts), BERT's in one dict; a decoder of one position
-        # has its block leaves named under position 0 ("blocks/0/mixer/wq")
-        self._block_name = ("blocks", "0") if "final_norm" in tree \
-            else ("blocks",)
-        self.positions = positions = (
-            1 if cfg is None or cfg.is_encoder_only
-            else len(cfg.block_pattern))
+        # "lm_head") is stacked by the reference per pattern position (a
+        # tuple of dicts), BERT's in one dict; a decoder's list of one
+        # position has its leaves named under position 0
+        # ("blocks/0/mixer/wq", "enc_blocks/0/mixer/wq")
+        self._named_position = "final_norm" in tree
+        self.positions: Dict[str, int] = {}
+        self._n_layers: Dict[str, int] = {}
+        for key in self.LISTS:
+            if key not in tree:
+                continue
+            if cfg is None or cfg.is_encoder_only:
+                self.positions[key] = 1
+            else:
+                self.positions[key] = len(cfg.enc_block_pattern
+                                          if key == "enc_blocks"
+                                          else cfg.block_pattern)
         self.shapes: Dict[Path, torch.Size] = {}
         self.layers: Dict[Path, int] = {}     # 0 for a leaf outside blocks
         for path, leaf in _walk(tree, ()):
-            if path[0] == "blocks":
+            if path[0] in self.positions:
                 continue
             self.shapes[path] = leaf.shape
             self.layers[path] = 0
-        blocks = tree.get("blocks", [])
-        if len(blocks) % positions:
-            raise ValueError(f"{len(blocks)} layers do not tile a "
-                             f"{positions}-position block pattern")
-        for i, layer in enumerate(blocks):
-            for path, leaf in _walk(layer, self._prefix(i % positions)):
-                if self.shapes.setdefault(path, leaf.shape) != leaf.shape:
-                    raise ValueError(f"{path}: layers differ in shape")
-                self.layers[path] = len(blocks) // positions
+        for key, positions in self.positions.items():
+            layers = tree[key]
+            if len(layers) % positions:
+                raise ValueError(f"{len(layers)} {key} layers do not tile a "
+                                 f"{positions}-position block pattern")
+            self._n_layers[key] = len(layers)
+            for i, layer in enumerate(layers):
+                for path, leaf in _walk(layer, self._prefix(key,
+                                                            i % positions)):
+                    if self.shapes.setdefault(path, leaf.shape) != \
+                            leaf.shape:
+                        raise ValueError(f"{path}: layers differ in shape")
+                    self.layers[path] = len(layers) // positions
         self.paths: List[Path] = sorted(self.shapes)
 
-    def _prefix(self, pos: int) -> Path:
-        return ("blocks",) if self.positions == 1 else ("blocks", str(pos))
+    def _prefix(self, key: str, pos: int) -> Path:
+        return (key,) if self.positions[key] == 1 else (key, str(pos))
 
     def _split(self, path: Path) -> Tuple[int, Path]:
         """(position, the leaf's path inside its layer) of a block path."""
-        if self.positions == 1:
+        if self.positions[path[0]] == 1:
             return 0, path[1:]
         return int(path[1]), path[2:]
 
     def name(self, path: Path) -> str:
         """The reference's key path of a group's (stacked) leaf, as its
         checkpoints name it: ``blocks/mixer/wq`` for BERT,
-        ``blocks/<position>/mixer/wq`` for a decoder, ``embed/tok``
-        outside the blocks."""
-        if self.layers[path] and self.positions == 1:
-            path = self._block_name + path[1:]
+        ``blocks/<position>/mixer/wq`` for a decoder (and
+        ``enc_blocks/<position>/...`` for an encoder-decoder's encoder),
+        ``embed/tok`` outside the blocks."""
+        if self.layers[path] and self._named_position and \
+                self.positions[path[0]] == 1:
+            path = (path[0], "0") + path[1:]
         return "/".join(path)
 
     def numel(self, path: Path) -> int:
@@ -143,17 +163,16 @@ class LeafGroups:
 
     def tree(self, flats: Dict[Path, torch.Tensor]) -> dict:
         """The parameter tree whose leaves are views of ``flats``."""
-        out: dict = {}
-        n_layers = max(self.layers.values(), default=0) * self.positions
-        if n_layers:
-            out["blocks"] = [{} for _ in range(n_layers)]
+        out: dict = {key: [{} for _ in range(n)]
+                     for key, n in self._n_layers.items() if n}
         for path in self.paths:
             flat, shape = flats[path], self.shapes[path]
             if self.layers[path]:
+                key, positions = path[0], self.positions[path[0]]
                 pos, leaf = self._split(path)
                 per = flat.view(self.layers[path], -1)
                 for i in range(self.layers[path]):
-                    _set(out["blocks"][i * self.positions + pos], leaf,
+                    _set(out[key][i * positions + pos], leaf,
                          per[i].view(shape))
             else:
                 _set(out, path, flat.view(shape))
@@ -170,8 +189,8 @@ class LeafGroups:
     def _leaves(self, tree: dict, path: Path) -> List[torch.Tensor]:
         if self.layers[path]:
             pos, leaf = self._split(path)
-            return [_get(layer, leaf)
-                    for layer in tree["blocks"][pos::self.positions]]
+            return [_get(layer, leaf) for layer in
+                    tree[path[0]][pos::self.positions[path[0]]]]
         return [_get(tree, path)]
 
 

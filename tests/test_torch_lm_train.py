@@ -149,8 +149,11 @@ def test_model_forward_and_gradient_through_the_flash_route(monkeypatch):
 
 def test_decoder_training_refuses_what_later_slices_bring():
     """A model with MoE layers trains now (its loss, parameters and batch
-    schema are the trainer's: the loss adds the router's aux loss); an
-    encoder-decoder model is refused, naming what it waits for."""
+    schema are the trainer's: the loss adds the router's aux loss), and so
+    does an encoder-decoder (whisper-small's smoke variant, its batch with
+    frames; tests/test_torch_whisper_train.py holds it against the
+    reference); a model with a vision stub is refused, naming what it
+    waits for."""
     pol = amp.make_policy("f32")
     moe = smoke_variant(get_config("deepseek-7b"))
     moe = dataclasses.replace(moe, block_pattern=(("attn", "moe"),),
@@ -165,6 +168,13 @@ def test_decoder_training_refuses_what_later_slices_bring():
     assert float(loss) == pytest.approx(
         float(metrics["lm_loss"]) + moe.router_aux_coef
         * float(metrics["router_aux"]), rel=1e-6)
-    whisper_like = dataclasses.replace(CFG, is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        api.make_loss_fn(whisper_like, pol)
+    whisper = smoke_variant(get_config("whisper-small"))
+    shape = InputShape("t", 16, 2, "train")
+    batch = api.to_device(api.make_synth_batch(0, whisper, shape), "cpu")
+    assert batch["frames"].shape == (2, whisper.enc_seq, whisper.d_model)
+    loss, _ = api.make_loss_fn(whisper, pol)(
+        api.init_params(whisper, device="cpu"), batch)
+    assert np.isfinite(float(loss))
+    vision_like = dataclasses.replace(CFG, n_vision_tokens=8)
+    with pytest.raises(NotImplementedError, match="vision"):
+        api.make_loss_fn(vision_like, pol)
