@@ -147,6 +147,23 @@
    prefill and the decode step timed; then paged decode at G 1, Dh 64
    (bf16 and int8 pages) held and timed, its two rows in the kernel JSON
    line.
+4f. The vision-language qwen2-vl-7b whole at full width (28 layers, d
+   3584, 28 query heads over 4 KV heads at Dh 128, QKV biases drawn from a
+   seed, M-RoPE sections (16, 24, 24)), bf16 weights seeded on the card:
+   the serve CLI's raw mode (4 prompts of 1024 tokens, the first 256
+   positions the vision embeddings, 16 decode steps; the causal flash
+   forward once a layer, every call held); the same prefill and 16 steps
+   kernels vs plain within ``LOGIT_REL_L2_BOUND`` (the same prompts
+   without the vision embeddings must move the prefill's logits), and a
+   prefill at distinct (temporal, height, width) triples (one 16 x 16
+   image, then text) plus 4 steps likewise (arange triples must move its
+   logits); deepseek's trace text-only through ``ContinuousScheduler`` in
+   "paged" and "paged_int8", every launch derived (paged decode at G 7
+   over 4 KV heads only), no page leaked; ``path_parity`` in both modes;
+   ``prefix_cache=True`` refused; all the holds again in f32 at 2 layers;
+   then the causal flash forward at (1, 28, 1024, 128) over 4 KV heads
+   and paged decode at G 7 over 4 KV heads (bf16 and int8 pages) held and
+   timed, three rows of the kernel JSON line.
 5. Training kernel phase: the kernels of the BERT training path against
    their plain versions -- the flash backward (pre-pass, main pass and, in
    16 bits over more than one 128-key tile, the post-pass that adds the dQ
@@ -231,10 +248,11 @@
    at full width), which is checked for and removed.
 9. Resume phase: the fault-tolerant runtime through the real CLI, three
    processes of ``python -m repro_torch.launch.pretrain_bert --full-width
-   --batch 128 --accum 2 --steps 13`` in bf16 (12 phase-1 steps with
-   checkpoints at 10 and 12, 1 phase-2 step, every loss logged): an
-   uninterrupted run; a run with ``REPRO_FAULTS=crash_at=11``, which must
-   exit 43 with phase 1's newest valid checkpoint at step 10; and a
+   --layers 4 --batch 128 --accum 2 --steps 13`` in bf16 (bert-large's
+   width at 4 of its 24 layers; 12 phase-1 steps with checkpoints at 10
+   and 12, 1 phase-2 step, every loss logged): an uninterrupted run and,
+   at the same time, a run with ``REPRO_FAULTS=crash_at=11``, which must
+   exit 43 with phase 1's newest valid checkpoint at step 10; then a
    ``--resume`` run in its workdir, which must restore step 10, replay 11
    and 12 and run phase 2.  Every loss of the crashed and resumed runs
    must have the uninterrupted run's float32 bits (``float.hex``), and
@@ -394,7 +412,25 @@
    backwards twice the same bits, timed at 6000 rows.  Six rows join the
    kernel JSON line; the decoder's causal pair joins granite's causal
    Dh-64 rows, LAMB the LM's.
-17. Prints one JSON line of kernel results, then, as the last line,
+17. Training qwen2-vl-7b at full width, 4 of its 28 layers (``LM_PATHS``:
+   8 x 1024 tokens, the first 256 positions of each the trainer's vision
+   embeddings, 2 micro-batches): (a) ``launch/train.py`` under LAMB, 4
+   steps of bf16, in process: every loss finite and no step skipped, the
+   launches exactly ``train_launches``, the peak and step walls logged;
+   (b) one LAMB step kernels vs plain within LM_BOUND in f32 at 2 layers
+   and in bf16 at 4, every flash and LAMB call held; (c) two gradient
+   steps in the same bits; (d) the flash forward and backward at
+   (4, 28, 1024, 128), K and V expanded from 4 heads, held, twice the same
+   bits and timed beside SDPA's; LAMB over the 152064 x 3584 embedding
+   held and timed.  Three rows join the kernel JSON line.
+18. The twin of ``examples/multiarch.py`` (``launch/multiarch.py``): the
+   ten families of ``ASSIGNED`` at their smoke variants, 8 steps each of
+   bf16 with accumulation 2 under LAMB on one batch of 8 x 64 tokens,
+   every loss finite, every call of every kernel held against its plain
+   version (the smoke shapes: whisper's flash pair at Dh 32 over 16
+   frames, LayerNorm, bias-GELU, rwkv's wkv6, every LAMB group), each
+   model's launches logged; they join each kernel's first row.
+19. Prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 ``--only kernels`` stops after the kernel phases (a quick check of a new
@@ -407,10 +443,12 @@ build and the deepseek serve phase (step 4), ``--only decoders`` after the
 build and the dense decoder variants phase (step 4b), ``--only moe``
 after the build and the MoE decoders phase (step 4c), ``--only jamba``
 after the build and the jamba phase (step 4d), ``--only whisper`` after
-the build and the whisper serve phase (step 4e), ``--only
+the build and the whisper serve phase (step 4e), ``--only qwen2vl``
+after the build and the qwen2-vl serve phase (step 4f), ``--only
 variants_train``, ``--only rwkv_train``, ``--only moe_train``, ``--only
-jamba_train`` and ``--only whisper_train`` after the build and step 12,
-13, 14, 15 or 16 (exit 2, no result line in each case);
+jamba_train``, ``--only whisper_train``, ``--only qwen2vl_train`` and
+``--only multiarch`` after the build and step 12, 13, 14, 15, 16, 17 or
+18 (exit 2, no result line in each case);
 without arguments everything runs.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -2913,8 +2951,14 @@ def check_train_parity(res: dict, bounds=TRAIN_BOUND,
 # crash_at counts the steps of each train_loop call (a phase), and phase 2
 # has one step, so it fires in phase 1 only.
 RESUME_STEPS, RESUME_CRASH, RESUME_FROM = 13, 11, 10
-RESUME_ARGS = ["--full-width", "--batch", "128", "--accum", "2", "--seed",
-               str(SEED), "--steps", str(RESUME_STEPS)]
+# bert-large's width at 4 of its 24 layers: at full depth the three runs
+# wrote 4.03 GB checkpoints and took 217.6 s of the script; what the phase
+# holds, the losses' bits through a crash and a resume, does not depend on
+# the depth (the DP phase cut its own CLI runs the same way)
+RESUME_LAYERS = 4
+RESUME_ARGS = ["--full-width", "--layers", str(RESUME_LAYERS), "--batch",
+               "128", "--accum", "2", "--seed", str(SEED), "--steps",
+               str(RESUME_STEPS)]
 CKPT_LINE = re.compile(r"checkpoint step (\d+) (saved in|restored from) "
                        r"(\S+): (\d+) bytes in ([\d.]+) s")
 
@@ -2979,17 +3023,22 @@ def read_losses(path: Path) -> list:
 
 
 def resume_phase(latest_step) -> dict:
-    """Crash -> resume of the real CLI at full-width bert-large in bf16,
-    three processes: an uninterrupted run; a run with
-    ``REPRO_FAULTS=crash_at=RESUME_CRASH``, which must exit 43 with phase
-    1's newest valid checkpoint at RESUME_FROM; and a ``--resume`` run in
-    the crashed run's workdir.  Every loss of both faulted runs must have
-    the uninterrupted run's float32 bits.  Each workdir is removed once
-    checked, so one run's checkpoints are on disk at a time."""
+    """Crash -> resume of the real CLI at bert-large's width and
+    RESUME_LAYERS layers in bf16, three processes: an uninterrupted run
+    and, at the same time, a run with ``REPRO_FAULTS=crash_at=RESUME_CRASH``,
+    which must exit 43 with phase 1's newest valid checkpoint at
+    RESUME_FROM; then a ``--resume`` run in the crashed run's workdir.
+    Every loss of both faulted runs must have the uninterrupted run's
+    float32 bits.  Each workdir is removed once checked."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
         tmp = Path(tmp)
-        whole = pretrain_cli(tmp / "whole", tmp / "whole.jsonl")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            started = pool.submit(pretrain_cli, tmp / "whole",
+                                  tmp / "whole.jsonl")
+            crash = pretrain_cli(tmp / "run", tmp / "run.jsonl",
+                                 faults=f"crash_at={RESUME_CRASH}")
+            whole = started.result()
         expect_run("uninterrupted", whole, 0)
         ref = dict(read_losses(tmp / "whole.jsonl"))
         want = [("phase1", i) for i in range(1, RESUME_STEPS)] + [
@@ -2997,9 +3046,6 @@ def resume_phase(latest_step) -> dict:
         if sorted(ref) != want:
             raise AssertionError(f"resume: uninterrupted steps {sorted(ref)}")
         shutil.rmtree(tmp / "whole")
-
-        crash = pretrain_cli(tmp / "run", tmp / "run.jsonl",
-                             faults=f"crash_at={RESUME_CRASH}")
         expect_run("crash", crash, 43)
         crashed = read_losses(tmp / "run.jsonl")
         if [k for k, _ in crashed] != want[:RESUME_CRASH]:
@@ -5927,6 +5973,375 @@ def whisper_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
     return {"run": run, "entries": entries}
 
 
+# ---------------------------------------------------------------------------
+# qwen2-vl-7b, the vision-language decoder: served whole, trained cut
+# ---------------------------------------------------------------------------
+
+QWEN_VL = "qwen2-vl-7b"
+# the kernels-vs-plain holds in f32: 2 of its 28 layers (1.556 B
+# parameters with the embedding and the untied head)
+QWEN_VL_F32_LAYERS = 2
+# the raw mode: BATCH prompts of PREFILL_LEN tokens, the first 256
+# positions overwritten by vision embeddings, then this many greedy steps
+QWEN_VL_NEW = 16
+# decode steps after the prefill at distinct position triples
+QWEN_VL_TRIPLES_NEW = 4
+# its attention at the training micro-batch, (B, H, KV heads, S, Dh,
+# window, softcap): 4 KV heads expanded over the group of 7
+QWEN_VL_ATTN = (LM_PATHS[QWEN_VL][1] // LM_PATHS[QWEN_VL][3], 28, 4,
+                LM_PATHS[QWEN_VL][2], 128, 0, 0.0)
+# the vision embeddings must move the prefill's logits, against the same
+# prompts without them, by more than this relative L2: the overwrite
+# reaches the output on the card.  Both prefills run the same kernels,
+# which give the same bits on the same inputs, so any difference is the
+# input's; the bound keeps it above a last-bit flutter (the smoke
+# variant's 8 vision tokens of 1024 move the last token's logits by
+# 2.0e-3 to 4.4e-3 on the CPU).  Distinct triples against arange ones
+# must change the logits' bits: a shift of every text position keeps the
+# text's relative positions, so only the text's view of the image moves
+# (4.1e-4 at the smoke size), and the sections themselves are held
+# against the reference in the CPU tests
+MOVED_REL_L2 = 1e-3
+# the multiarch run: every call of every kernel held (wkv6 as rwkv's
+# serving and training paths hold it), at the smoke variants' shapes,
+# which no other phase launches
+MULTIARCH_STEPS = 8
+MULTIARCH_HELD = {**{k: (None, False) for k in HELD}, **RWKV_HELD}
+
+
+def qwen_vl_serve_launches(cfg, st) -> dict:
+    """The launches of one continuous run of qwen2-vl (``ServeStats``
+    st), derived: a slot prefill runs the causal flash forward once a
+    layer at S = PREFILL_LEN (28 query heads over 4 KV heads), a decode
+    step paged decode at G 7 once a layer; RMSNorm, M-RoPE and SwiGLU are
+    plain PyTorch."""
+    n, p, d = cfg.n_layers, st.prefills, st.decode_steps
+    g = cfg.n_heads // cfg.n_kv_heads
+    return {"flash_fwd": n * p, f"flash_fwd_s{PREFILL_LEN}": n * p,
+            "paged_decode": n * d, "paged_decode_split": n * d,
+            f"paged_decode_g{g}": n * d}
+
+
+def qwen_vl_raw_run(ops, serve, cfg, params, pol) -> dict:
+    """The serve CLI's raw mode (``run_raw``): BATCH prompts of
+    PREFILL_LEN tokens with the CLI's vision embeddings, QWEN_VL_NEW new
+    tokens.  The prefill launches the causal flash forward once a layer
+    at S PREFILL_LEN, each launch held against its plain version; decode
+    reads the contiguous cache through ``naive_attention`` (no kernel on
+    either side); nothing else launches.  ``run_raw`` raises on a
+    non-finite logit row."""
+    args = serve.build_parser().parse_args([
+        "--arch", QWEN_VL, "--full-width", "--mode", "raw", "--batch",
+        str(BATCH), "--prompt-len", str(PREFILL_LEN), "--new-tokens",
+        str(QWEN_VL_NEW), "--device", DEVICE])
+    record = {"flash_attention": []}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with held_against_plain(ops, record, {"flash_attention": (
+            pol.compute_dtype, False)}):
+        ids = serve.run_raw(args, cfg, pol, params)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    if ids.shape != (BATCH, QWEN_VL_NEW):
+        raise AssertionError(f"{QWEN_VL} raw: generated {ids.shape}")
+    want = {"flash_fwd": cfg.n_layers,
+            f"flash_fwd_s{PREFILL_LEN}": cfg.n_layers}
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"{QWEN_VL} raw: launches {got}, expected "
+                             f"{want}")
+    check_held(f"{QWEN_VL} raw", record, pol.compute_dtype)
+    res = call_summary(record)
+    log(f"{QWEN_VL} raw ({cfg.n_layers} layers, full width): {BATCH} x "
+        f"{PREFILL_LEN} prompt tokens, the first {cfg.n_vision_tokens} of "
+        f"each the vision embeddings, {QWEN_VL_NEW} new, {wall:.3f} s with "
+        f"each flash call held (worst max err "
+        f"{res['call_max_err']['flash_attention']:.3e}, rel L2 "
+        f"{res['call_max_rel']['flash_attention']:.3e}); launches {got}")
+    return counts
+
+
+def vision_triples(cfg, b: int, s: int) -> torch.Tensor:
+    """Qwen2-VL's (temporal, height, width) positions, (3, b, s) on the
+    card, of prompts whose first n_vision_tokens tokens are one image on a
+    square grid of ``side`` x ``side`` patches: patch i at (0, i // side,
+    i % side), then the text from ``side`` on, the same on the three
+    axes."""
+    nv = cfg.n_vision_tokens
+    side = int(round(nv ** 0.5))
+    i = torch.arange(s, device=DEVICE)
+    text = i - nv + side
+    t = torch.where(i < nv, torch.zeros_like(i), text)
+    h = torch.where(i < nv, i // side, text)
+    w = torch.where(i < nv, i % side, text)
+    return torch.stack([t, h, w])[:, None].expand(3, b, s)
+
+
+def qwen_vl_parity(T, ops, cfg, params, pol, new: int,
+                   triples: bool = False) -> dict:
+    """BATCH prompts of PREFILL_LEN tokens with their vision embeddings
+    (0.1 N(0, 1) over the first n_vision_tokens positions) prefilled into
+    a contiguous state, then ``new`` decode steps, through the kernels and
+    through the plain versions, fed the same tokens, every flash call of
+    the kernel path held against its plain version on its inputs; with
+    ``triples`` the prefill's M-RoPE positions are ``vision_triples``
+    (decode resumes at S on the three axes).  The kernel path's prefill is
+    run once more without the vision embeddings, which must move its
+    logits by more than MOVED_REL_L2, or with ``triples`` at the default
+    ``arange`` triples, which must change their bits.  Returns the
+    readings in ``path_parity``'s form."""
+    rng = np.random.default_rng(SEED + 11 + triples)
+    b, s = BATCH, PREFILL_LEN
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(b, s), dtype=np.int32)).to(DEVICE)
+    vis = torch.from_numpy((0.1 * rng.standard_normal(
+        (b, cfg.n_vision_tokens, cfg.d_model))).astype(np.float32)).to(DEVICE)
+    pos = vision_triples(cfg, b, s) if triples else None
+    record = {"flash_attention": []}
+    feed, logits = [], {}
+    with held_against_plain(ops, record, {"flash_attention": (
+            pol.compute_dtype, False)}):
+        for impl in (None, "torch"):
+            state = T.init_decode_state(cfg, b, s + new, pol.compute_dtype,
+                                        device=DEVICE)
+            lg, state = T.prefill(params, toks, cfg, pol, state=state,
+                                  vision_embeds=vis, positions=pos,
+                                  impl=impl)
+            seq = [lg]
+            for i in range(new):
+                if impl is None:
+                    feed.append(lg.argmax(-1, keepdim=True))
+                lg, state = T.decode_step(params, feed[i], state, cfg, pol,
+                                          impl=impl)
+                seq.append(lg)
+            logits[impl] = torch.stack(seq).float()
+            del state
+    state = T.init_decode_state(cfg, b, s, pol.compute_dtype, device=DEVICE)
+    other, _ = T.prefill(params, toks, cfg, pol, state=state,
+                         vision_embeds=vis if triples else None)
+    del state
+    a, w = logits[None], logits["torch"]
+    what = ("distinct triples" if triples else "arange triples") + \
+        f" {b} x {s} + {new}"
+    res = {"mode": f"{QWEN_VL} raw with vision, {what}",
+           "dtype": pol.compute_dtype,
+           "finite": bool(torch.isfinite(a).all()),
+           "rel_l2": float((a - w).norm() / w.norm()),
+           "max_abs": float((a - w).abs().max()),
+           "moved": rel_l2(other.float(), a[0]), **call_summary(record)}
+    against = "arange triples" if triples else "no vision embeddings"
+    log(f"path parity {res['mode']} {pol.compute_dtype} ({cfg.n_layers} "
+        f"layers): logits kernels vs plain rel L2 {res['rel_l2']:.3e} "
+        f"(bound {LOGIT_REL_L2_BOUND[pol.compute_dtype]}), max abs "
+        f"{res['max_abs']:.3e}, max |logit| {float(w.abs().max()):.3f}; "
+        f"flash calls {res['calls_outside']['flash_attention']}/"
+        f"{res['calls']['flash_attention']} outside {TOL[pol.compute_dtype]}"
+        f", max err {res['call_max_err']['flash_attention']:.3e}, max rel "
+        f"L2 {res['call_max_rel']['flash_attention']:.3e}; the prefill's "
+        f"logits against {against}: rel L2 {res['moved']:.3e} (must exceed "
+        f"{0.0 if triples else MOVED_REL_L2})")
+    if not res["moved"] > (0.0 if triples else MOVED_REL_L2):
+        raise AssertionError(f"{res['mode']}: {against} moves the logits by "
+                             f"{res['moved']:.3e} only")
+    return res
+
+
+def qwen_vl_prefix_refused(sched_mod, cfg, params, pol) -> None:
+    """``ContinuousScheduler(prefix_cache=True)`` refuses qwen2-vl with the
+    reference's reason (``DecodeCaps.prefix_shareable``)."""
+    try:
+        sched_mod.ContinuousScheduler(
+            params, cfg, pol, batch=BATCH, max_len=PREFIX_MAX_LEN,
+            prefill_len=PREFILL_LEN, cache_mode="paged",
+            page_size=PAGE_SIZE, prefix_cache=True, device=DEVICE)
+    except ValueError as e:
+        if "prefix_shareable" not in str(e):
+            raise
+        log(f"{QWEN_VL} prefix_cache=True: refused ({e})")
+    else:
+        raise AssertionError(f"{QWEN_VL}: the prefix cache was not refused")
+
+
+def qwen_vl_phase(T, ops, serve, serve_step, sched_mod, get_config,
+                  make_policy) -> dict:
+    """qwen2-vl-7b whole at full width (28 layers, d 3584, 28 query heads
+    over 4 KV heads at Dh 128, QKV biases drawn at QKV_BIAS_STD, M-RoPE
+    sections (16, 24, 24)), bf16 weights seeded on the card: (a) the serve
+    CLI's raw mode with vision embeddings (``qwen_vl_raw_run``); (b) its
+    prefill and QWEN_VL_NEW decode steps kernels vs plain, the overwrite
+    moving the logits, and a prefill at distinct position triples
+    (``qwen_vl_parity``); (c) deepseek's 8-request trace, text-only,
+    through ``ContinuousScheduler`` in "paged" and "paged_int8"
+    (``serve_run``): every launch derived (``qwen_vl_serve_launches``:
+    paged decode at G 7 only), no page leaked; (d) ``path_parity`` in both
+    modes, every flash and paged call held; (e) the prefix cache refused;
+    (f) (b) and (d) again in f32 at QWEN_VL_F32_LAYERS layers; (g) the
+    causal flash forward at (1, 28, 1024, 128) over 4 KV heads and paged
+    decode at G 7 over 4 KV heads (bf16 and int8 pages) held and timed.
+    Returns each run's launch counts, the peak and the yardsticks'
+    entries."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pol, pol32 = make_policy("bf16"), make_policy("f32")
+    full = get_config(QWEN_VL)
+    cfg, params = decoder_model(T, get_config, QWEN_VL, full.n_layers, pol)
+    log(f"{QWEN_VL} full width and depth: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+        f"heads of {cfg.head_dim}, M-RoPE sections {cfg.mrope_sections}, "
+        f"{cfg.n_vision_tokens} vision tokens: "
+        f"{cfg.param_count() / 1e9:.3f} B params (bf16) made in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    launches = {"raw": qwen_vl_raw_run(ops, serve, cfg, params, pol)}
+    torch.cuda.empty_cache()
+    check_parity(qwen_vl_parity(T, ops, cfg, params, pol, QWEN_VL_NEW))
+    check_parity(qwen_vl_parity(T, ops, cfg, params, pol,
+                                QWEN_VL_TRIPLES_NEW, triples=True))
+    torch.cuda.empty_cache()
+    for mode in ("paged", "paged_int8"):
+        c, st = serve_run(T, ops, sched_mod, cfg, params, pol, mode)
+        want = qwen_vl_serve_launches(cfg, st)
+        got = {k: n for k, n in c.items() if n}
+        if got != want:
+            raise AssertionError(f"{QWEN_VL} {mode}: launches {got}, "
+                                 f"expected {want}")
+        log(f"{QWEN_VL} {mode} (text only): launches as derived")
+        launches[mode] = c
+        torch.cuda.empty_cache()
+    for mode in ("paged", "paged_int8"):
+        check_parity(path_parity(T, serve_step, ops, cfg, params, pol,
+                                 mode))
+    qwen_vl_prefix_refused(sched_mod, cfg, params, pol)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory ({QWEN_VL} bf16 serving) {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    c32, params = decoder_model(T, get_config, QWEN_VL, QWEN_VL_F32_LAYERS,
+                                pol32)
+    log(f"{QWEN_VL} f32 at {c32.n_layers} layers: "
+        f"{c32.param_count() / 1e9:.3f} B params")
+    check_parity(qwen_vl_parity(T, ops, c32, params, pol32, 4))
+    check_parity(qwen_vl_parity(T, ops, c32, params, pol32, 4,
+                                triples=True))
+    for mode in ("paged", "paged_int8"):
+        check_parity(path_parity(T, serve_step, ops, c32, params, pol32,
+                                 mode))
+    del params
+    torch.cuda.empty_cache()
+    timer = Timer()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 100)
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    yard = {"flash_fwd_qwen2vl": causal_flash_yardstick(
+        ops, timer, gen, "flash_fwd_qwen2vl", h, kvh, dh)}
+    for quant in (False, True):
+        name = f"paged_decode_qwen2vl{'_int8' if quant else ''}"
+        yard[name] = paged_yardstick(ops, timer, gen, name, h, kvh, dh,
+                                     quant, 1000 + quant, QWEN_VL)
+    del timer
+    torch.cuda.empty_cache()
+    log(f"{QWEN_VL} serve phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "peak_gib": peak, "entries": yard}
+
+
+def qwen_vl_train_phase(ops, fa, train, api, ts, TrainConfig, make_policy,
+                        lm_batches) -> dict:
+    """qwen2-vl-7b's training at full width, depth cut (LM_PATHS: 4 of 28
+    layers, 2.022 B parameters; 8 x 1024 tokens in 2 micro-batches, the
+    first 256 positions of each sequence the trainer's vision embeddings):
+    (a) the CLI under LAMB for LM_STEPS steps (``model_train_run``: every
+    loss finite and taken, the launches exactly ``train_launches``, the
+    peak and the step walls logged); (b) one LAMB step kernels vs plain
+    within LM_BOUND, in f32 at QWEN_VL_F32_LAYERS layers and in bf16 at
+    the CLI's depth, every flash and LAMB call held (each path's batch
+    with the trainer's vision embeddings, ``train.lm_stream``; QKV biases
+    drawn at QKV_BIAS_STD); (c) two gradient steps of the CLI's model in
+    the same bits (``step_bits``); (d) the flash forward and backward at
+    QWEN_VL_ATTN, K and V expanded from 4 heads, held, twice the same
+    bits and timed beside SDPA (``train_flash``); LAMB over its largest
+    leaf group, the 152064 x 3584 embedding, held and timed.  Returns the
+    CLI run and the kernel entries."""
+    t_phase = time.perf_counter()
+    run = model_train_run(ops, train, QWEN_VL)
+    cfg = run["cfg"]
+    depth, batch_n, seq, accum = LM_PATHS[QWEN_VL]
+
+    def batches(seed, vocab, b, s):
+        return train.lm_stream(cfg, seed, b, s)
+    for precision, depth_ in (("f32", QWEN_VL_F32_LAYERS), ("bf16", depth)):
+        check_train_parity(lm_train_parity(
+            ops, api, ts, TrainConfig, make_policy, batches,
+            path_cfg(train, QWEN_VL, depth_), precision,
+            geometry=(batch_n, seq, accum), prepare=draw_biases,
+            tag=QWEN_VL), LM_BOUND, QWEN_VL)
+        torch.cuda.empty_cache()
+    step_bits(api, ts, TrainConfig, make_policy, batches, cfg, QWEN_VL)
+    timer = Timer()
+    entries = train_flash(ops, fa, timer, shapes=(("qwen2vl_train",
+                                                   QWEN_VL_ATTN),))
+    torch.cuda.empty_cache()
+    entries["lamb_moments_qwen2vl"] = lamb_phase(
+        ops, timer, cfg.vocab_size * cfg.d_model, tag="lamb_moments_qwen2vl")
+    del timer
+    torch.cuda.empty_cache()
+    log(f"{QWEN_VL} training phase on {nvidia_smi()}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"run": run, "entries": entries}
+
+
+def multiarch_phase(ops, multiarch) -> dict:
+    """The twin of ``examples/multiarch.py`` on the card
+    (``launch/multiarch.py``): every family of ``ASSIGNED`` at its smoke
+    variant, MULTIARCH_STEPS steps of bf16 with accumulation 2 under LAMB,
+    one batch of 8 x 64 tokens, launch counts zeroed just before and read
+    just after, every call of every kernel held against its plain version
+    on its inputs (MULTIARCH_HELD: the smoke shapes -- whisper's encoder's
+    flash pair at Dh 32 over 16 frames, LayerNorm and bias-GELU at 256
+    and 512, rwkv's wkv6 at (4, 64, 4, 64), the LAMB groups -- launch
+    nowhere else).  Every loss finite (``multiarch.run`` raises); the
+    launches of the models add up to the run's counts.  Returns the
+    records and the counts."""
+    from repro_torch.configs import ASSIGNED
+    t_phase = time.perf_counter()
+    record = {k: [] for k in MULTIARCH_HELD}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with held_against_plain(ops, record, MULTIARCH_HELD):
+        recs = multiarch.run(["--device", DEVICE, "--steps",
+                              str(MULTIARCH_STEPS)])
+        torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if [r["arch"] for r in recs] != list(ASSIGNED) or any(
+            len(r["losses"]) != MULTIARCH_STEPS for r in recs):
+        raise AssertionError(f"multiarch: ran {[r['arch'] for r in recs]}")
+    total = collections.Counter()
+    for r in recs:
+        total.update(r["launches"])
+    if dict(total) != counts:
+        raise AssertionError(f"multiarch: the models' launches {dict(total)}"
+                             f" are not the run's {counts}")
+    for k in ("flash_fwd", "flash_bwd", "lamb_moments"):
+        if not counts.get(k):
+            raise AssertionError(f"multiarch: {k} never launched")
+    called = {k: v for k, v in record.items() if v}
+    check_held("multiarch", called, torch.bfloat16)
+    res = call_summary(called)
+    for r in recs:
+        log(f"multiarch {r['arch']:22s} [{r['family']:7s}] loss "
+            f"{r['losses'][0]:.3f} -> {r['losses'][-1]:.3f} "
+            f"({'improving' if r['losses'][-1] < r['losses'][0] else 'flat'}"
+            f", {r['s']:.1f} s with the holds); launches {r['launches']}")
+    log(f"multiarch on {nvidia_smi()}: {len(recs)} families, "
+        f"{MULTIARCH_STEPS} steps each, launches {counts}; every kernel call "
+        "held against its plain version: " + ", ".join(
+            f"{k} {res['calls_outside'][k]}/{res['calls'][k]} outside, max "
+            f"err {res['call_max_err'][k]:.3e}, max rel L2 "
+            f"{res['call_max_rel'][k]:.3e}" for k in called)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"records": recs, "counts": counts}
+
+
 def main(argv=None) -> int:
     args = argv if argv is not None else sys.argv[1:]
     only = args[1] if len(args) == 2 and args[0] == "--only" else None
@@ -5939,7 +6354,7 @@ def main(argv=None) -> int:
     from repro_torch.data.pipeline import ShardedLoader, lm_batches
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import pretrain_bert
+    from repro_torch.launch import multiarch, pretrain_bert
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.models import api
@@ -6025,6 +6440,17 @@ def main(argv=None) -> int:
                       cut_depth)
         log("whisper serve phase only: no other phase, no result")
         return 2
+    if only == "qwen2vl":
+        del timer
+        qwen_vl_phase(T, ops, serve_cli, serve_step, sched_mod, get_config,
+                      make_policy)
+        log("qwen2-vl serve phase only: no other phase, no result")
+        return 2
+    if only == "multiarch":
+        del timer
+        multiarch_phase(ops, multiarch)
+        log("multiarch phase only: no other phase, no result")
+        return 2
     train_mods = (train_cli, api, ts, TrainConfig, make_policy, lm_batches)
     if only == "variants_train":
         del timer
@@ -6050,6 +6476,11 @@ def main(argv=None) -> int:
         del timer
         whisper_train_phase(ops, fa, *train_mods)
         log("whisper training phase only: no other phase, no result")
+        return 2
+    if only == "qwen2vl_train":
+        del timer
+        qwen_vl_train_phase(ops, fa, *train_mods)
+        log("qwen2-vl training phase only: no other phase, no result")
         return 2
     entries = [flash_phase(ops, timer)] + paged_phase(ops, timer)
     train_entries = flash_bwd_phase(ops, fa, timer)
@@ -6089,6 +6520,12 @@ def main(argv=None) -> int:
                             make_policy, cut_depth)
     entries += [whisper["entries"][k] for k in (
         "paged_decode_whisper", "paged_decode_whisper_int8")]
+    torch.cuda.empty_cache()
+    qwen_vl = qwen_vl_phase(T, ops, serve_cli, serve_step, sched_mod,
+                            get_config, make_policy)
+    entries += [qwen_vl["entries"][k] for k in (
+        "flash_fwd_qwen2vl", "paged_decode_qwen2vl",
+        "paged_decode_qwen2vl_int8")]
 
     torch.cuda.reset_peak_memory_stats()
     launches.update(rwkv_phases(T, ops, serve_cli, sched_mod, get_config,
@@ -6147,6 +6584,14 @@ def main(argv=None) -> int:
         "flash_fwd_whisper", "flash_bwd_whisper", "layernorm_whisper",
         "layernorm_bwd_whisper", "bias_gelu_whisper",
         "bias_gelu_bwd_whisper")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qtrain = qwen_vl_train_phase(ops, fa, *train_mods)
+    entries += [qtrain["entries"][k] for k in (
+        "flash_fwd_qwen2vl_train", "flash_bwd_qwen2vl_train",
+        "lamb_moments_qwen2vl")]
+    torch.cuda.empty_cache()
+    march = multiarch_phase(ops, multiarch)
 
     serve_runs = ("paged", "paged_int8", "prefix_paged", "prefix_paged_int8",
                   "prefix_unshared", "cohort")
@@ -6269,6 +6714,37 @@ def main(argv=None) -> int:
     by_name["lamb_moments_lm"] += w_train["lamb_moments"]
     log(f"{WHISPER}'s launches: serve " + ", ".join(
         f"{r}: {c}" for r, c in w_runs.items()) + f"; train {w_train}")
+    # qwen2-vl, served (step 4f) and trained (step 17): the causal flash
+    # forward at Dh 128 over 4 KV heads (raw and slot prefills) and paged
+    # decode at G 7 over 4 KV heads by page type on the rows timed at the
+    # serve geometry; the training pair (K and V expanded) and LAMB on
+    # their own rows
+    q_runs = qwen_vl["launches"]
+    q_train = qtrain["run"]["counts"]
+    by_name["flash_fwd_qwen2vl"] = sum(c["flash_fwd"]
+                                       for c in q_runs.values())
+    by_name["paged_decode_qwen2vl"] = q_runs["paged"]["paged_decode"]
+    by_name["paged_decode_qwen2vl_int8"] = \
+        q_runs["paged_int8"]["paged_decode"]
+    by_name["flash_fwd_qwen2vl_train"] = q_train["flash_fwd"]
+    by_name["flash_bwd_qwen2vl_train"] = q_train["flash_bwd"]
+    by_name["lamb_moments_qwen2vl"] = q_train["lamb_moments"]
+    log(f"{QWEN_VL}'s launches: serve " + ", ".join(
+        f"{r}: {c}" for r, c in q_runs.items()) + f"; train {q_train}")
+    # the multiarch run (step 18): the smoke shapes, each on its kernel's
+    # first row (the flash backward on phase 1's, bidirectional as whisper's
+    # smoke encoder), wkv6 on rwkv training's, LAMB on the LM's
+    m_counts = march["counts"]
+    for row, key in (("flash_fwd", "flash_fwd"),
+                     ("flash_bwd_phase1", "flash_bwd"),
+                     ("layernorm", "layernorm"),
+                     ("layernorm_bwd", "layernorm_bwd"),
+                     ("bias_gelu", "bias_gelu"),
+                     ("bias_gelu_bwd", "bias_gelu_bwd"),
+                     ("wkv6_train", "wkv6"),
+                     ("lamb_moments_lm", "lamb_moments")):
+        by_name[row] += m_counts.get(key, 0)
+    log(f"multiarch's launches: {m_counts}")
     log("flash_fwd launches: serve " + " + ".join(
         f"{launches[r]['flash_fwd']} ({r})" for r in serve_runs)
         + f", train {launches['train']['flash_fwd']}, dense decoder "

@@ -22,7 +22,9 @@ mixer's ``in_proj`` (d, 2 d_inner), ``conv_w`` (d_conv, d_inner),
 ``x_proj`` (d_inner, dt_rank + 2 N), ``dt_proj`` (dt_rank, d_inner),
 ``a_log`` (d_inner, N), ``out_proj`` (d_inner, d) and its vectors ...), so
 the conversion is lossless; jamba's 8-position pattern unstacks as any
-other.  Callers pass numpy arrays
+other, and qwen2-vl's tree (QKV biases ``bq`` (H, Dh), ``bk`` and ``bv``
+(KV, Dh), an untied ``lm_head`` (d, V); its vision tower is a stub with
+no weights) as any decoder's.  Callers pass numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``); nothing here imports JAX.
 """
 from __future__ import annotations

@@ -3,8 +3,10 @@
 runs: deepseek-7b, rwkv6-1.6b, the dense decoder variants gemma2-27b,
 qwen1.5-32b and deepseek-coder-33b, the MoE decoders
 granite-moe-3b-a800m and qwen3-moe-30b-a3b, the hybrid
-jamba-1.5-large-398b, the encoder-decoder whisper-small, and bert-large
-and bert-base for pretraining)."""
+jamba-1.5-large-398b, the encoder-decoder whisper-small, the
+vision-language qwen2-vl-7b (M-RoPE, a vision stub), and bert-large and
+bert-base for pretraining; ``ASSIGNED`` is the reference's list of the
+ten model families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,8 +15,8 @@ from repro_torch.configs import (bert_large, deepseek_7b,
                                  deepseek_coder_33b, gemma2_27b,
                                  granite_moe_3b_a800m,
                                  jamba_1p5_large_398b, qwen1p5_32b,
-                                 qwen3_moe_30b_a3b, rwkv6_1p6b,
-                                 whisper_small)
+                                 qwen2_vl_7b, qwen3_moe_30b_a3b,
+                                 rwkv6_1p6b, whisper_small)
 from repro_torch.configs.base import (DecodeCaps, InputShape, ModelConfig,
                                       TrainConfig)
 
@@ -24,8 +26,14 @@ ARCHS = {c.arch_id: c for c in [deepseek_7b.CONFIG, rwkv6_1p6b.CONFIG,
                                 granite_moe_3b_a800m.CONFIG,
                                 qwen3_moe_30b_a3b.CONFIG,
                                 jamba_1p5_large_398b.CONFIG,
-                                whisper_small.CONFIG,
+                                whisper_small.CONFIG, qwen2_vl_7b.CONFIG,
                                 bert_large.CONFIG, bert_large.BERT_BASE]}
+
+ASSIGNED = [
+    "rwkv6-1.6b", "qwen3-moe-30b-a3b", "granite-moe-3b-a800m", "qwen1.5-32b",
+    "deepseek-coder-33b", "whisper-small", "jamba-1.5-large-398b",
+    "deepseek-7b", "gemma2-27b", "qwen2-vl-7b",
+]
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -58,10 +66,15 @@ def smoke_variant(cfg: ModelConfig, *, d_model: int = 256,
         else 0)
     if cfg.n_experts:
         upd.update(n_experts=4, top_k=2, moe_d_ff=d_model * 2)
+    if cfg.mrope_sections:
+        # the sections sum to head_dim // 2
+        upd.update(mrope_sections=(head_dim // 2 - 8, 4, 4))
     if cfg.is_encoder_decoder:
         upd.update(n_enc_layers=2, enc_seq=16, max_position=4096)
     if cfg.max_position and not cfg.is_encoder_decoder:
         upd.update(max_position=512)   # learned positions (BERT)
+    if cfg.n_vision_tokens:
+        upd.update(n_vision_tokens=8)
     return dataclasses.replace(cfg, **upd)
 
 
@@ -99,6 +112,6 @@ def cut_positions(cfg: ModelConfig, positions) -> ModelConfig:
         block_pattern=tuple(cfg.block_pattern[p] for p in positions))
 
 
-__all__ = ["ARCHS", "DecodeCaps", "InputShape", "ModelConfig",
+__all__ = ["ARCHS", "ASSIGNED", "DecodeCaps", "InputShape", "ModelConfig",
            "TrainConfig", "cut_depth", "cut_positions", "get_config",
            "smoke_variant"]

@@ -3,7 +3,8 @@ one prefill and of steady-state decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--arch deepseek-7b|rwkv6-1.6b|granite-moe-3b-a800m|\
-              qwen3-moe-30b-a3b|jamba-1.5-large-398b|whisper-small] \
+              qwen3-moe-30b-a3b|jamba-1.5-large-398b|whisper-small|\
+              qwen2-vl-7b] \
       [--cache-mode paged|paged_int8] \
       [--moe-impl dense|a2a|replicated] [--steps 8] [--batch 4] \
       [--full-width [--layers N]]
@@ -18,7 +19,11 @@ jamba (its mamba rows beside the paged attention layer) and whisper-small
 (each slot's cross caches beside it, filled from the slot's own frames
 at its admission): fills the slots with 1024-token prompts through
 ``prefill_into_slot``, in ``--cache-mode``, the MoE layers under
-``--moe-impl`` (default ``dense``, the serving default).  rwkv6-1.6b: the raw mode's unmasked
+``--moe-impl`` (default ``dense``, the serving default).  qwen2-vl-7b
+fills its slots text-only, as the schedulers do, after one more phase,
+``prefill_vision``: the raw mode's prefill of batch x 1024 tokens with
+256 vision embeddings over each prompt's first positions, into a
+contiguous state.  rwkv6-1.6b: the raw mode's unmasked
 prefill of batch x 1024 tokens (24 ``wkv6`` launches), all on one state.
 Then ``--steps`` decode steps of the slots.  For each phase it prints one JSON line: wall
 time (host clock around an unprofiled loop that ends in a synchronize),
@@ -63,6 +68,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import cut_depth, get_config, smoke_variant
 from repro_torch.core.amp import make_policy
+from repro_torch.launch.serve import vision_embeds
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
@@ -285,6 +291,22 @@ def _serve_rwkv(cfg, pol, params, args):
     return state
 
 
+def _serve_vision(cfg, pol, params, args):
+    """A vision model's raw prefill with its stub embeddings (batch,
+    n_vision_tokens, d_model), drawn as the serve CLI draws them, into a
+    contiguous state of the batch; the state is dropped after the
+    phase."""
+    state = T.init_decode_state(cfg, args.batch, PROMPT_LEN,
+                                pol.compute_dtype, device="cuda")
+    toks = _prompts(cfg, args.batch)
+    vision = torch.from_numpy(vision_embeds(
+        cfg, np.random.default_rng(SEED + 3), args.batch)).cuda()
+    prefill = lambda: T.prefill(params, toks, cfg, pol, state=state,
+                                vision_embeds=vision)
+    prefill()
+    _phase("prefill_vision", prefill, 3)
+
+
 def _frames(cfg, batch):
     """An encoder-decoder's frames, one (enc_seq, d_model) row a slot, on
     the card; None for any other model."""
@@ -306,7 +328,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="deepseek-7b",
                     choices=["deepseek-7b", "rwkv6-1.6b",
                              "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                             "jamba-1.5-large-398b", "whisper-small"])
+                             "jamba-1.5-large-398b", "whisper-small",
+                             "qwen2-vl-7b"])
     ap.add_argument("--full-width", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth of the full-width model (default: the "
@@ -340,6 +363,9 @@ def main(argv=None):
                       "moe_impl": args.moe_impl if cfg.has_moe else None,
                       "batch": args.batch, "prompt_len": PROMPT_LEN}),
           flush=True)
+    if cfg.n_vision_tokens:
+        _serve_vision(cfg, pol, params, args)
+        torch.cuda.empty_cache()
     state = (_serve_rwkv if rwkv else _serve_paged)(cfg, pol, params, args)
     cur = torch.zeros((args.batch, 1), dtype=torch.int64, device="cuda")
 

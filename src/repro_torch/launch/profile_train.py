@@ -36,7 +36,10 @@ path (``TrainConfig.moe_impl`` "a2a"), granite-moe-3b-a800m at 24 of its
 jamba-1.5-large-398b at its (mamba, dense) layer alone (block-pattern
 position 2, ``launch/train.py --full --positions 2``), 8 x 1024; the
 encoder-decoder whisper-small whole (12 encoder and 12 decoder layers),
-8 x 1024 tokens with their frames (8 x 1500).
+8 x 1024 tokens with their frames (8 x 1500); the vision-language
+qwen2-vl-7b at 4 of its 28 layers, 8 x 1024 tokens, the first 256 of
+each sequence overwritten by its vision embeddings (``make_synth_batch``
+draws them).
 ``--positions`` (with ``--full-width``, a decoder) replaces the path's
 depth by one block of those positions.  An MoE, a mamba or an encoder-decoder
 model's step gets one more line, ``train_step_lm_split``: the device ms of
@@ -81,7 +84,8 @@ LM_PATHS = {"deepseek-7b": (4, 8, 1024, 2), "gemma2-27b": (1, 2, 8192, 2),
             "granite-moe-3b-a800m": (24, 8, 1024, 2),
             "qwen3-moe-30b-a3b": (2, 8, 1024, 2),
             "jamba-1.5-large-398b": ((2,), 8, 1024, 2),
-            "whisper-small": (12, 8, 1024, 2)}
+            "whisper-small": (12, 8, 1024, 2),
+            "qwen2-vl-7b": (4, 8, 1024, 2)}
 
 
 def depth_flags(depth) -> list:

@@ -4,7 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch deepseek-7b|rwkv6-1.6b|gemma2-27b|qwen1.5-32b|\
               deepseek-coder-33b|granite-moe-3b-a800m|qwen3-moe-30b-a3b|\
-              jamba-1.5-large-398b|whisper-small] \
+              jamba-1.5-large-398b|whisper-small|qwen2-vl-7b] \
       [--moe-impl dense|a2a|replicated] [--batch 4] [--prompt-len 32] \
       [--new-tokens 16] [--mode raw|cohort|continuous] \
       [--cache-mode contiguous|paged|paged_int8] \
@@ -48,8 +48,14 @@ encoder-decoder whisper-small serves in raw and continuous modes, in any
 d_model), 0.1 times a standard normal drawn from the workload's seed; its
 prefill (a slot's admission) runs the encoder over them and fills the
 slot's cross caches, which its decode steps read; cohort mode and
-``--prefix-cache`` refuse it.  Vision architectures are not ported yet.
-``--prefix-cache``
+``--prefix-cache`` refuse it.  The vision-language qwen2-vl-7b (M-RoPE,
+28 query heads over 4 KV heads, QKV biases) serves in every mode and
+``--cache-mode``: the raw mode's prefill takes vision embeddings, 0.1
+times a standard normal (batch, 256, d_model) (8 in the smoke variant)
+from the workload's seed, over the first positions of each prompt
+(``--prompt-len`` at least that many); the cohort and continuous modes
+serve text only, as the reference's schedulers do; ``--prefix-cache``
+refuses it.  ``--prefix-cache``
 (continuous, paged cache modes) shares cached prompt-prefix pages across
 slots: the workload's prompts then start with one of ``--prefix-groups``
 shared heads, and ``max_len`` gains ``--prompt-len`` of headroom so a
@@ -167,12 +173,26 @@ def enc_frames(cfg, rng, batch=None):
     return (0.1 * rng.standard_normal(shape)).astype(np.float32)
 
 
+def vision_embeds(cfg, rng, batch):
+    """A vision model's stub patch embeddings, 0.1 times a standard
+    normal (batch, n_vision_tokens, d_model) float32 from ``rng``; None
+    for any other model."""
+    if not cfg.n_vision_tokens:
+        return None
+    return (0.1 * rng.standard_normal(
+        (batch, cfg.n_vision_tokens, cfg.d_model))).astype(np.float32)
+
+
 def run_raw(args, cfg, pol, params):
     b, s = args.batch, args.prompt_len
+    if s < cfg.n_vision_tokens:
+        raise SystemExit(f"{cfg.arch_id}: --prompt-len {s} cannot hold its "
+                         f"{cfg.n_vision_tokens} vision embeddings")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            dtype=torch.int32).to(args.device)
     frames = enc_frames(cfg, np.random.default_rng(SEED + 1), b)
+    vision = vision_embeds(cfg, np.random.default_rng(SEED + 3), b)
     enc_len = cfg.enc_seq if cfg.is_encoder_decoder else 0
     state = T.init_decode_state(cfg, b, s + args.new_tokens,
                                 pol.compute_dtype, device=args.device,
@@ -181,7 +201,9 @@ def run_raw(args, cfg, pol, params):
     logits, state = T.prefill(
         params, prompt, cfg, pol, state=state, moe_impl=args.moe_impl,
         enc_frames=None if frames is None
-        else torch.from_numpy(frames).to(args.device))
+        else torch.from_numpy(frames).to(args.device),
+        vision_embeds=None if vision is None
+        else torch.from_numpy(vision).to(args.device))
     _sync(args.device)
     t_prefill = time.perf_counter() - t0
     logger.info("prefill: %d x %d tokens in %.3fs (%.0f tok/s)", b, s,
@@ -217,9 +239,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["deepseek-7b", "rwkv6-1.6b", "gemma2-27b",
                              "qwen1.5-32b", "deepseek-coder-33b",
                              "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                             "jamba-1.5-large-398b", "whisper-small"],
-                    help="the architectures the port serves (vision ones "
-                         "are not ported yet)")
+                             "jamba-1.5-large-398b", "whisper-small",
+                             "qwen2-vl-7b"],
+                    help="the architectures the port serves")
     ap.add_argument("--moe-impl", default="dense",
                     choices=["dense", "a2a", "replicated"],
                     help="an MoE model's expert path: every expert on "

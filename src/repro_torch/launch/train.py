@@ -44,7 +44,12 @@ encoder-decoder whisper-small (12 bidirectional encoder layers over 1500
 frame embeddings, 12 decoder layers with cross-attention; each batch
 carries ``frames``, the reference's rule: 0.1 times a standard normal
 (batch, enc_seq, d_model) from ``default_rng(0)``, the same every step,
-``FramesStream``).  An MoE model's
+``StubStream``), and the vision-language qwen2-vl-7b (M-RoPE, 28 query
+heads over 4 KV heads, QKV biases; each batch carries ``vision``, the stub
+vision tower's patch embeddings over the first 256 positions, drawn as
+the reference's trainer draws them: 0.1 times a standard normal (batch,
+n_vision_tokens, d_model) from ``default_rng(0)``, the same every step,
+``StubStream``).  An MoE model's
 loss adds ``router_aux_coef`` times the router's aux loss (the
 reference's: each block's last pattern position, summed over the
 blocks), logged as ``router aux`` in each step line;
@@ -120,18 +125,28 @@ from repro_torch.utils import tree_count
 logger = logging.getLogger("repro_torch.train")
 
 
-class FramesStream:
-    """An encoder-decoder's batches: the LM stream's tokens and ``frames``
-    (batch, enc_seq, d_model) float32, drawn as the reference's trainer
-    draws them, ``0.1 * default_rng(0).standard_normal(...)`` every batch
-    (the stub front end's output; the same frames each step).  The resume
-    cursor is the token stream's."""
+class StubStream:
+    """The batches of a model with a stub front end: the LM stream's
+    tokens and, for an encoder-decoder, ``frames`` (batch, enc_seq,
+    d_model), for a vision model ``vision`` (batch, n_vision_tokens,
+    d_model), float32, each drawn as the reference's trainer draws it,
+    ``0.1 * default_rng(0).standard_normal(...)`` every batch (the stub's
+    output: the same array each step).  The resume cursor is the token
+    stream's: a resumed run reads the same arrays."""
 
     def __init__(self, inner, cfg, batch: int):
         self.inner = inner
-        # drawn once: the reference draws the same array every batch
-        self.frames = (0.1 * np.random.default_rng(0).standard_normal(
-            (batch, cfg.enc_seq, cfg.d_model))).astype(np.float32)
+        # drawn once: the reference draws the same arrays every batch, in
+        # float32 before the product (a float64 product rounded after it
+        # differs in the last bit of ~30 % of the elements)
+        def draw(*shape):
+            return 0.1 * np.random.default_rng(0).standard_normal(
+                (batch, *shape)).astype(np.float32)
+        self.extra = {}
+        if cfg.is_encoder_decoder:
+            self.extra["frames"] = draw(cfg.enc_seq, cfg.d_model)
+        if cfg.n_vision_tokens:
+            self.extra["vision"] = draw(cfg.n_vision_tokens, cfg.d_model)
 
     def state_dict(self):
         return self.inner.state_dict()
@@ -143,15 +158,17 @@ class FramesStream:
         return self
 
     def __next__(self):
-        return {"tokens": next(self.inner)["tokens"], "frames": self.frames}
+        return {"tokens": next(self.inner)["tokens"], **self.extra}
 
 
 def lm_stream(cfg, seed: int, batch: int, seq: int):
     """The trainer's batches of ``cfg``: ``lm_batches`` (tokens (batch,
-    seq + 1)), for an encoder-decoder wrapped in ``FramesStream``."""
+    seq + 1)), for an encoder-decoder or a vision model wrapped in
+    ``StubStream``."""
     inner = lm_batches(seed, cfg.vocab_size, batch, seq)
-    return FramesStream(inner, cfg, batch) if cfg.is_encoder_decoder \
-        else inner
+    if cfg.is_encoder_decoder or cfg.n_vision_tokens:
+        return StubStream(inner, cfg, batch)
+    return inner
 
 
 def parse_args(argv=None):
@@ -269,6 +286,9 @@ def model_config(args):
         api.check_trainable(cfg)
     except NotImplementedError as e:
         raise SystemExit(f"{cfg.arch_id}: {e}") from None
+    if args.seq < cfg.n_vision_tokens:
+        raise SystemExit(f"{cfg.arch_id}: --seq {args.seq} cannot hold its "
+                         f"{cfg.n_vision_tokens} vision embeddings")
     if any(mixer == "rwkv" for mixer, _ in cfg.layer_kinds()) and \
             args.seq % min(64, args.seq):
         raise SystemExit(f"{cfg.arch_id}: --seq {args.seq} must be a "

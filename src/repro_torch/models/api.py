@@ -14,8 +14,11 @@ router's aux loss as the reference's does (``lm_train_loss``; each
 block's last pattern position, ``transformer.apply_lm``; ``moe_impl``
 picks the expert path), and the encoder-decoder whisper-small, whose
 batches carry ``frames`` (B, enc_seq, d_model) float32, the stub front
-end's frame embeddings, which ``lm_train_loss`` hands to the encoder.
-Vision models are refused (``check_trainable``), naming their slice.
+end's frame embeddings, which ``lm_train_loss`` hands to the encoder,
+and the vision-language qwen2-vl-7b, whose batches carry ``vision`` (B,
+n_vision_tokens, d_model) float32, the stub vision tower's patch
+embeddings, which overwrite the first n_vision_tokens positions of the
+inputs (M-RoPE at ``arange`` on its three axes, as the reference's).
 The serving and sharding structs belong to later slices.
 """
 from __future__ import annotations
@@ -47,8 +50,8 @@ def mlm_positions_count(seq_len: int) -> int:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train
     yet, naming the slice it waits for: an encoder-only model is BERT; a
-    decoder or an encoder-decoder must be one
-    ``transformer.check_supported`` runs (qwen2-vl is not)."""
+    decoder, an encoder-decoder or a vision-language model must be one
+    ``transformer.check_supported`` runs."""
     if cfg.is_encoder_only:
         return
     T.check_supported(cfg)
@@ -90,15 +93,19 @@ def lm_train_loss(params, batch, cfg: ModelConfig, policy: Policy, *,
     an MoE model adds ``aux_coef`` (default ``cfg.router_aux_coef``) times
     the router's aux loss, that of each block's last pattern position
     summed over the blocks (``transformer.apply_lm``); an encoder-decoder
-    runs its encoder over ``batch["frames"]``.  Returns (loss,
+    runs its encoder over ``batch["frames"]``; a vision model's
+    ``batch["vision"]`` overwrites the first n_vision_tokens input
+    embeddings (the labels stay the next tokens at every position, the
+    overwritten ones included, as the reference's).  Returns (loss,
     {"lm_loss", "router_aux"}), 0-d float32 tensors; ``router_aux`` is 0
     for a model without MoE layers."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
     frames = batch["frames"] if cfg.is_encoder_decoder else None
+    vision = batch["vision"] if cfg.n_vision_tokens else None
     logits, aux = T.apply_lm(params, inputs, cfg, policy, enc_frames=frames,
-                             remat=remat, moe_impl=moe_impl, return_aux=True,
-                             impl=impl)
+                             vision_embeds=vision, remat=remat,
+                             moe_impl=moe_impl, return_aux=True, impl=impl)
     nll = _MeanNLL.apply(logits.float(), labels)
     loss = nll
     if cfg.has_moe:
@@ -136,13 +143,18 @@ def train_batch_struct(cfg: ModelConfig, shape: InputShape
                        ) -> Dict[str, BatchField]:
     """BERT: tokens, type ids, MLM positions and labels, NSP labels.  A
     decoder: tokens (B, S + 1), the inputs and the shifted labels; an
-    encoder-decoder also its frames (B, enc_seq, d_model) float32."""
+    encoder-decoder also its frames (B, enc_seq, d_model) float32, a
+    vision model its vision embeddings (B, n_vision_tokens, d_model)
+    float32."""
     check_trainable(cfg)
     b, s = shape.global_batch, shape.seq_len
     if not cfg.is_encoder_only:
         out = {"tokens": BatchField((b, s + 1))}
         if cfg.is_encoder_decoder:
             out["frames"] = BatchField((b, cfg.enc_seq, cfg.d_model),
+                                       np.float32)
+        if cfg.n_vision_tokens:
+            out["vision"] = BatchField((b, cfg.n_vision_tokens, cfg.d_model),
                                        np.float32)
         return out
     p = mlm_positions_count(s)
@@ -155,8 +167,8 @@ def make_synth_batch(seed: int, cfg: ModelConfig, shape: InputShape
                      ) -> Dict[str, np.ndarray]:
     """A random batch with the schema's statistics, as the reference's:
     positions 0 .. P-1, type ids 0, random tokens, labels and NSP labels
-    (a decoder's: random tokens; an encoder-decoder's frames 0.1 times a
-    standard normal).  Drawn with numpy (the values differ from
+    (a decoder's: random tokens; an encoder-decoder's frames and a vision
+    model's embeddings 0.1 times a standard normal).  Drawn with numpy (the values differ from
     ``jax.random``'s)."""
     rng = np.random.default_rng(seed)
     out = {}
@@ -177,8 +189,8 @@ def make_synth_batch(seed: int, cfg: ModelConfig, shape: InputShape
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``: integer fields as int64
-    (indices for gathers), floating ones (an encoder-decoder's frames) as
-    float32."""
+    (indices for gathers), floating ones (an encoder-decoder's frames, a
+    vision model's embeddings) as float32."""
     def one(v):
         v = np.asarray(v)
         dtype = torch.float32 if np.issubdtype(v.dtype, np.floating) \

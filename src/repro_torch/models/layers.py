@@ -5,8 +5,10 @@ softcap included) with the decoder's contiguous, ring and paged KV caches,
 cross-attention over an encoder's output or its per-slot cross cache
 (whisper), query/key norms (qwen3-moe), the SwiGLU, GeGLU and GELU MLPs,
 and the token embedding with learned positions (from a scalar or a
-per-slot offset) or the sqrt(d_model) scale.  M-RoPE positions belong to
-a later slice (qwen2-vl) and raise.
+per-slot offset) or the sqrt(d_model) scale.  Rotary positions are RoPE's
+(B, S) or qwen2-vl's M-RoPE over (3, B, S) (temporal, height, width)
+triples, whose sections split the Dh/2 frequency slots among the three
+axes (``apply_mrope``, ``position_encode``).
 
 Dtype discipline as in the reference: matmuls run in
 ``policy.compute_dtype``; norms, softmax and logits run in
@@ -93,18 +95,75 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(theta, exps)
 
 
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """The split-half rotation of x (B, S, H, Dh) in fp32, in x's dtype."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, Dh); positions: (B, S).  Split-half convention: the
     first and second halves of Dh are the two rotated coordinates."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                       # (Dh/2,)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (Dh/2,)
     angles = positions[..., None].to(torch.float32) * freqs      # (B,S,Dh/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, torch.cos(angles)[:, :, None, :],
+                   torch.sin(angles)[:, :, None, :])
+
+
+def _mrope_cos_sin(positions3: torch.Tensor, dh: int, theta: float,
+                   sections):
+    """(cos, sin) (B, S, 1, Dh/2) fp32 of M-RoPE's angles: frequency slot j
+    turns by the position of its section's axis."""
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"Dh/2 = {dh // 2}")
+    dev = positions3.device
+    freqs = rope_freqs(dh, theta, dev)                            # (Dh/2,)
+    # slot j's axis: the number of section ends at or below j (made on the
+    # device from Python ints: no host copy, no sync in a decode step)
+    slot = torch.arange(dh // 2, device=dev)
+    sect_id = torch.zeros_like(slot)
+    end = 0
+    for n in sections[:-1]:
+        end += n
+        sect_id += slot >= end                                    # (Dh/2,)
+    pos = positions3.to(torch.float32)[sect_id]                  # (Dh/2,B,S)
+    angles = pos.movedim(0, -1) * freqs                          # (B,S,Dh/2)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, S, H, Dh); positions3: (3, B, S),
+    the (temporal, height, width) position of each token.  ``sections``
+    partition the Dh/2 frequency slots among the three axes in order:
+    slot j turns by the position of its section's axis.  Computed in fp32
+    and returned in x's dtype; three equal axes give ``apply_rope``'s
+    numbers."""
+    return _rotate(x, *_mrope_cos_sin(positions3, x.shape[-1], theta,
+                                      sections))
+
+
+def position_encode(q: torch.Tensor, k: torch.Tensor,
+                    positions: torch.Tensor, cfg: ModelConfig):
+    """q and k rotated at ``positions``: RoPE at (B, S), M-RoPE at (3, B,
+    S) over ``cfg.mrope_sections`` (its angles made once for both);
+    learned or no positions leave them as they are (those are added at
+    the embedding)."""
+    if cfg.pos_kind == "rope":
+        if positions.dim() != 2:
+            raise ValueError("rope takes (B, S) positions")
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    if cfg.pos_kind == "mrope":
+        if positions.dim() != 3:
+            raise ValueError("mrope takes (3, B, S) positions")
+        cs = _mrope_cos_sin(positions, q.shape[-1], cfg.rope_theta,
+                            cfg.mrope_sections)
+        return _rotate(q, *cs), _rotate(k, *cs)
+    return q, k
 
 
 def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor,
@@ -301,9 +360,6 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     path: the K a cache holds is normed and rotated.  ``impl`` is passed to
     the kernels (see ``kernels/ops.py``).
     """
-    if cfg.pos_kind == "mrope":
-        raise NotImplementedError("M-RoPE positions (qwen2-vl) belong to a "
-                                  "later slice")
     if mixer_kind not in ("attn", "attn_local", "attn_global",
                           "attn_bidir"):
         raise NotImplementedError(f"{mixer_kind} mixers: the port runs "
@@ -329,11 +385,12 @@ def apply_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
         q = q + params["bq"].to(cdt)
     if cfg.qk_norm:
         q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
-    if cfg.pos_kind == "rope" and not static_kv:
+    if cfg.pos_kind in ("rope", "mrope") and not static_kv:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+            if cfg.pos_kind == "mrope":
+                positions = positions[None].expand(3, b, s)
+        q, k = position_encode(q, k, positions, cfg)
 
     new_cache = None
     if static_kv:

@@ -65,8 +65,18 @@ frame embeddings plus ``enc_pos`` and ``enc_norm`` (``_encode``) in
 ``apply_lm`` and ``prefill``; each decoder layer's cross sublayer sits
 between its self-attention and its MLP, over the encoder's output or, in
 a decode step, the cross cache; learned decoder positions are embedded at
-each slot's own ``state["pos"]`` in a decode step.  M-RoPE and vision
-layers belong to a later slice and raise ``NotImplementedError``.
+each slot's own ``state["pos"]`` in a decode step.
+
+A vision-language model (qwen2-vl) rotates its queries and keys by M-RoPE
+over (3, B, S) position triples (``layers.apply_mrope``): ``apply_lm``
+and ``prefill`` take ``positions`` (3, B, S), by default ``arange(S)`` on
+all three axes, and a decode step or a suffix prefill broadcasts its
+slots' positions to the three axes, as the reference does.  Its vision
+tower is a stub: ``vision_embeds`` (B, Nv, d) overwrite the embeddings of
+the first Nv positions, cast to the compute dtype; a prompt shorter than
+Nv raises ``ValueError``.  Without them a vision model runs on its
+tokens alone (the serving stack's slots are text-only, as the
+reference's).
 """
 from __future__ import annotations
 
@@ -115,9 +125,6 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{kind} encoder layers: the port runs "
                     f"{ENC_LAYER_KINDS}")
-    if cfg.n_vision_tokens or cfg.pos_kind == "mrope":
-        raise NotImplementedError("vision stubs and M-RoPE positions come "
-                                  "with a later family slice")
 
 
 def enc_layer_kinds(cfg: ModelConfig):
@@ -250,12 +257,35 @@ def set_block_tables(state: dict, rows, slot: Optional[int] = None) -> dict:
 # Per-layer apply
 # ---------------------------------------------------------------------------
 
-def _decode_positions(decode_pos: torch.Tensor, batch: int,
-                      s: int = 1) -> torch.Tensor:
+def _decode_positions(decode_pos: torch.Tensor, batch: int, s: int,
+                      cfg: ModelConfig) -> torch.Tensor:
     """Absolute positions (B, S) of ``s`` tokens from ``decode_pos``, a
-    scalar (the suffix prefill) or per slot (B,) (decode)."""
+    scalar (the suffix prefill) or per slot (B,) (decode); under M-RoPE
+    the same on all three axes, (3, B, S)."""
     p = decode_pos.long().reshape(-1, 1)
-    return (p + torch.arange(s, device=p.device)[None]).expand(batch, s)
+    p = (p + torch.arange(s, device=p.device)[None]).expand(batch, s)
+    return p[None].expand(3, batch, s) if cfg.pos_kind == "mrope" else p
+
+
+def _embed(params, tokens, cfg: ModelConfig, policy: Policy,
+           vision_embeds=None, positions=None):
+    """The token embedding with a vision model's stub patch embeddings
+    (B, Nv, d) over its first Nv positions, cast to the compute dtype,
+    and the rotary positions: the caller's, or under M-RoPE ``arange(S)``
+    on all three axes (None under RoPE: ``apply_attention`` makes its
+    own).  Returns (x, positions)."""
+    x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    if vision_embeds is not None and cfg.n_vision_tokens:
+        nv = vision_embeds.shape[1]
+        if tokens.shape[1] < nv:
+            raise ValueError(f"{cfg.arch_id}: a prompt of {tokens.shape[1]} "
+                             f"tokens cannot hold {nv} vision embeddings")
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    if positions is None and cfg.pos_kind == "mrope":
+        b, s = tokens.shape
+        positions = torch.arange(s, device=x.device)[None, None].expand(
+            3, b, s)
+    return x, positions
 
 
 def _fit_cache(new_cache: dict, state: dict, valid_len=None) -> None:
@@ -338,11 +368,14 @@ def _apply_cross(p, x, cfg: ModelConfig, policy: Policy, *, enc_out=None,
 
 def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
                  mlp: str, *, state=None, decode_pos=None, valid_len=None,
-                 enc_out=None, moe_impl: str = "a2a",
+                 positions=None, enc_out=None, moe_impl: str = "a2a",
                  impl: Optional[str] = None):
     """One layer; returns (x, the MoE router's aux loss or None).  An
     encoder-decoder's decoder layer (``"cross" in p``) runs its cross
-    sublayer (``_apply_cross``) between the mixer and the MLP."""
+    sublayer (``_apply_cross``) between the mixer and the MLP.
+    ``positions`` rotate a prompt's queries and keys (RoPE (B, S), M-RoPE
+    (3, B, S)); with ``decode_pos`` they are the caller's or the slots'
+    own (``_decode_positions``), as the reference's."""
     if mixer == "rwkv":
         return _apply_rwkv_layer(p, x, cfg, policy, state=state,
                                  valid_len=valid_len, impl=impl), None
@@ -369,12 +402,13 @@ def _apply_layer(p, x, cfg: ModelConfig, policy: Policy, mixer: str,
         # "attn" whatever the layer: a ring's kv_len is its window
         y, _ = L.apply_attention(
             p["mixer"], h, cfg, policy,
-            positions=_decode_positions(decode_pos, h.shape[0], h.shape[1]),
+            positions=positions if positions is not None else
+            _decode_positions(decode_pos, h.shape[0], h.shape[1], cfg),
             cache=cache,
             cache_pos=write_pos, kv_len=kv_len, impl=impl)
     else:
         y, nc = L.apply_attention(p["mixer"], h, cfg, policy,
-                                  mixer_kind=mixer,
+                                  mixer_kind=mixer, positions=positions,
                                   return_cache=state is not None, impl=impl)
         if state is not None:
             _fit_cache(nc, state, valid_len)
@@ -431,7 +465,8 @@ def _encode(params, enc_frames, cfg: ModelConfig, policy: Policy, *,
 
 
 def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
-             enc_frames=None, remat: bool = False, moe_impl: str = "a2a",
+             positions=None, vision_embeds=None, enc_frames=None,
+             remat: bool = False, moe_impl: str = "a2a",
              return_aux: bool = False, impl: Optional[str] = None):
     """Full forward of (B, S) tokens -> logits (B, S, V), for training and
     scoring; with ``return_aux`` (logits, aux), aux the MoE router's loss
@@ -450,8 +485,11 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
     so it routes and dispatches every token as the forward did.  An
     encoder-decoder takes ``enc_frames`` (B, enc_seq, d) and runs the
     encoder first (``_encode``, its layers recomputed too under
-    ``remat``)."""
-    x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    ``remat``).  A vision model's ``vision_embeds`` (B, Nv, d) overwrite
+    its first Nv embeddings; ``positions`` (3, B, S) are its M-RoPE
+    triples, by default ``arange(S)`` on each axis (``_embed``)."""
+    x, positions = _embed(params, tokens, cfg, policy, vision_embeds,
+                          positions)
     enc_out = (_encode(params, enc_frames, cfg, policy, remat=remat,
                        impl=impl) if cfg.is_encoder_decoder else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -460,12 +498,13 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
                                               cfg.layer_kinds())):
         if remat:
             x, a = checkpoint(_apply_layer, p, x, cfg, policy, mixer, mlp,
-                              enc_out=enc_out, moe_impl=moe_impl, impl=impl,
+                              positions=positions, enc_out=enc_out,
+                              moe_impl=moe_impl, impl=impl,
                               use_reentrant=False)
         else:
             x, a = _apply_layer(p, x, cfg, policy, mixer, mlp,
-                                enc_out=enc_out, moe_impl=moe_impl,
-                                impl=impl)
+                                positions=positions, enc_out=enc_out,
+                                moe_impl=moe_impl, impl=impl)
         if a is not None and i % len(cfg.block_pattern) == last:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg, policy, impl=impl)
@@ -474,7 +513,8 @@ def apply_lm(params, tokens, cfg: ModelConfig, policy: Policy, *,
 
 
 def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
-            lengths=None, enc_frames=None, moe_impl: str = "a2a",
+            positions=None, vision_embeds=None, lengths=None,
+            enc_frames=None, moe_impl: str = "a2a",
             impl: Optional[str] = None):
     """Run the prompt (B, S) through the model, filling ``state`` in place.
     Returns (last-token logits (B, V), state).  ``lengths`` (B,) are the
@@ -483,15 +523,18 @@ def prefill(params, tokens, cfg: ModelConfig, policy: Policy, *, state,
     layers then run their masked sequential scans, without ``lengths``
     the chunked ones (``kops.wkv6``, ``mamba._ssm_chunked``).  An
     encoder-decoder runs its encoder over ``enc_frames`` (B, enc_seq, d)
-    and fills each layer's cross cache from the encoder's output."""
-    x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+    and fills each layer's cross cache from the encoder's output.  A
+    vision model takes ``vision_embeds`` and ``positions`` as ``apply_lm``
+    does; decode then resumes at ``lengths`` (or S) on all three axes."""
+    x, positions = _embed(params, tokens, cfg, policy, vision_embeds,
+                          positions)
     enc_out = (_encode(params, enc_frames, cfg, policy, impl=impl)
                if cfg.is_encoder_decoder else None)
     for p, st, (mixer, mlp) in zip(params["blocks"], state["blocks"],
                                    cfg.layer_kinds()):
         x, _ = _apply_layer(p, x, cfg, policy, mixer, mlp, state=st,
-                            valid_len=lengths, enc_out=enc_out,
-                            moe_impl=moe_impl, impl=impl)
+                            valid_len=lengths, positions=positions,
+                            enc_out=enc_out, moe_impl=moe_impl, impl=impl)
     b, s = tokens.shape
     if lengths is None:
         x_last = x[:, -1:]

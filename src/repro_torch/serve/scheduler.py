@@ -34,7 +34,11 @@ be paged either: it serves in ``"contiguous"`` mode with a prefill bucket
 no wider than its window.  An encoder-decoder (whisper-small) needs each
 request's ``enc_frames``: its admission runs the encoder and fills the
 slot's cross caches, beside its self-attention KV in any cache mode; the
-prefix cache and the cohort scheduler refuse it.  An MoE model's layers run ``moe_impl``
+prefix cache and the cohort scheduler refuse it.  A vision-language model
+(qwen2-vl-7b) serves text-only in both schedulers, as the reference's
+``Request`` carries no vision embeddings; the prefix cache refuses it
+all the same (``DecodeCaps.prefix_shareable``: its caches depend on
+vision embeddings wherever they are given).  An MoE model's layers run ``moe_impl``
 (default ``"dense"``, as the reference's schedulers: every expert on every
 token, so a token's output does not depend on what shares its batch).
 

@@ -29,6 +29,14 @@ at admission and writes the encoder's K and V into its slot's rows of
 every layer's ``cross`` cache, the slot's view of it, and nothing else;
 it has no suffix mode (frames are not in the prefix cache's token hash).
 
+A vision-language model (qwen2-vl) is prefilled into a slot on its tokens
+alone: the slot path takes no vision embeddings, as the reference's
+scheduler sends none (its ``Request`` has no vision field), and its
+M-RoPE positions are ``arange`` on the three axes.  Vision embeddings
+reach a raw prefill (``transformer.prefill(vision_embeds=)``) and
+``greedy_generate``.  Its caches still depend on them there, so the
+prefix cache refuses it (``DecodeCaps.prefix_shareable``).
+
 An MoE model's layers run ``moe_impl``; the serving default is
 ``"dense"``, as the reference's.  Under the capacity path (``"a2a"``)
 the slot prefill routes the bucket's P tokens, pads included, as the
@@ -202,14 +210,16 @@ def prefill_into_slot(params, tokens, length: int, state: dict, slot: int,
 
 def greedy_generate(params, prompt, cfg: ModelConfig, policy: Policy, *,
                     max_new: int = 16, max_len: int = 256,
-                    moe_impl: str = "dense", enc_frames=None):
+                    moe_impl: str = "dense", enc_frames=None,
+                    vision_embeds=None):
     """Greedy generation of ``max_new`` tokens for a (B, S) prompt with a
     float32 contiguous cache.  Returns (B, max_new) token ids.  A recurrent
     architecture (``needs_exact_prefill``) prefills with full-width
     ``lengths``, so it takes the masked sequential scan that
     ``prefill_into_slot`` takes, as the reference does: the scheduler's
     outputs are comparable with these token for token.  An encoder-decoder
-    takes ``enc_frames`` (B, enc_seq, d_model)."""
+    takes ``enc_frames`` (B, enc_seq, d_model), a vision model
+    ``vision_embeds`` (B, n_vision_tokens, d_model)."""
     b, s = prompt.shape
     enc_len = cfg.enc_seq if cfg.is_encoder_decoder else 0
     state = T.init_decode_state(cfg, b, max_len, torch.float32,
@@ -218,6 +228,7 @@ def greedy_generate(params, prompt, cfg: ModelConfig, policy: Policy, *,
                if cfg.decode_caps.needs_exact_prefill else None)
     logits, state = T.prefill(params, prompt, cfg, policy, state=state,
                               lengths=lengths, enc_frames=enc_frames,
+                              vision_embeds=vision_embeds,
                               moe_impl=moe_impl)
     tok = logits.argmax(-1)[:, None]
     out = [tok]

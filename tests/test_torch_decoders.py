@@ -399,19 +399,23 @@ def test_rings_refuse_a_paged_cache():
     (dict(block_pattern=(("mamba", "moe"),)), "mamba"),
     (dict(block_pattern=(("mamba", "dense"),)), "mamba")])
 def test_later_slices_stay_refused(change, match):
-    """What later slices bring raises ``NotImplementedError`` naming it:
-    vision stubs and M-RoPE at serving and training.  Mamba layers, which
-    the hybrid slices brought, are served (tests/test_torch_jamba_serve.py)
-    and trained (tests/test_torch_jamba_train.py): both checks take them;
-    query/key norms and MoE layers run since the MoE slice
-    (tests/test_torch_moe.py, tests/test_torch_moe_serve.py)."""
+    """What the later slices brought now passes both checks, serving's
+    (``check_supported``) and training's (``check_trainable``): vision
+    stubs and M-RoPE positions (the qwen2-vl slice;
+    tests/test_torch_qwen2vl*.py), mamba layers (the hybrid slices;
+    tests/test_torch_jamba_serve.py, tests/test_torch_jamba_train.py).
+    Query/key norms and MoE layers run since the MoE slice
+    (tests/test_torch_moe.py, tests/test_torch_moe_serve.py).  A vision
+    model's forward runs too, its M-RoPE over the default triples."""
     cfg = dataclasses.replace(smoke_variant(get_config("deepseek-7b")),
                               **change)
-    if match == "mamba":
-        T.check_supported(cfg)
-        api.check_trainable(cfg)
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            api.check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match=match):
-            T.check_supported(cfg)
+    if match == "M-RoPE":
+        cfg = dataclasses.replace(cfg, mrope_sections=(8, 4, 4))
+    T.check_supported(cfg)
+    api.check_trainable(cfg)
+    if match in ("vision", "M-RoPE"):
+        params = T.init_model(cfg, seed=0, device="cpu")
+        logits = T.apply_lm(params, torch.zeros((1, 9), dtype=torch.long),
+                            cfg, make_policy("f32"))
+        assert logits.shape == (1, 9, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())

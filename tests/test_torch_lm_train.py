@@ -152,8 +152,10 @@ def test_decoder_training_refuses_what_later_slices_bring():
     schema are the trainer's: the loss adds the router's aux loss), and so
     does an encoder-decoder (whisper-small's smoke variant, its batch with
     frames; tests/test_torch_whisper_train.py holds it against the
-    reference); a model with a vision stub is refused, naming what it
-    waits for."""
+    reference), and so does a model with a vision stub: its batch schema
+    adds ``vision`` (B, n_vision_tokens, d_model) float32 and its loss is
+    finite (tests/test_torch_qwen2vl_train.py holds qwen2-vl's against the
+    reference)."""
     pol = amp.make_policy("f32")
     moe = smoke_variant(get_config("deepseek-7b"))
     moe = dataclasses.replace(moe, block_pattern=(("attn", "moe"),),
@@ -176,5 +178,11 @@ def test_decoder_training_refuses_what_later_slices_bring():
         api.init_params(whisper, device="cpu"), batch)
     assert np.isfinite(float(loss))
     vision_like = dataclasses.replace(CFG, n_vision_tokens=8)
-    with pytest.raises(NotImplementedError, match="vision"):
-        api.make_loss_fn(vision_like, pol)
+    batch = api.make_synth_batch(1, vision_like, shape)
+    assert batch["vision"].shape == (2, 8, vision_like.d_model)
+    assert batch["vision"].dtype == np.float32
+    loss, metrics = api.make_loss_fn(vision_like, pol)(
+        api.init_params(vision_like, device="cpu"),
+        api.to_device(batch, "cpu"))
+    assert np.isfinite(float(loss))
+    assert float(metrics["router_aux"]) == 0.0

@@ -59,7 +59,7 @@ def test_config_matches_the_reference():
     layers, 16 frames, 4096 positions), the parameter count (the encoder
     layers and every decoder layer's cross projections, as the reference
     counts them: ~288 M at full size), the capabilities; the registry and
-    the support checks take whisper and still refuse qwen2-vl; ``cut_depth``
+    the support checks take whisper, and qwen2-vl since its slice; ``cut_depth``
     cuts the encoder too; the port's parameter tree has the reference's
     leaves and shapes both ways."""
     assert ARCH in ARCHS
@@ -79,12 +79,11 @@ def test_config_matches_the_reference():
         2, 16, 4096)
     cut = cut_depth(get_config(ARCH), 2)
     assert (cut.n_layers, cut.n_enc_layers, cut.d_model) == (2, 2, 768)
-    vl = dataclasses.replace(smoke_variant(get_config("deepseek-7b")),
-                             n_vision_tokens=8)
-    with pytest.raises(NotImplementedError, match="vision"):
-        T.check_supported(vl)
-    with pytest.raises(NotImplementedError, match="vision"):
-        api.check_trainable(vl)
+    vl = get_config("qwen2-vl-7b")
+    assert "qwen2-vl-7b" in ARCHS and vl.n_vision_tokens == 256
+    for c in (vl, smoke_variant(vl)):
+        T.check_supported(c)
+        api.check_trainable(c)
     jcfg, cfg, jp, tp = model()
     want = jax.tree_util.tree_map(
         np.shape, jax.eval_shape(lambda k: JT.init_model(k, jcfg)[0],

@@ -287,10 +287,12 @@ def test_batches_carry_frames():
     assert dev["tokens"].dtype == torch.int64
     stream = train_cli.lm_stream(cfg, 0, 2, 16)
     first = next(stream)
+    # the reference trainer's expression (repro/launch/train.py), float32
+    # before the product
     want = 0.1 * np.random.default_rng(0).standard_normal(
-        (2, cfg.enc_seq, cfg.d_model))
-    np.testing.assert_array_equal(first["frames"],
-                                  want.astype(np.float32))
+        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(first["frames"], want)
     cursor = stream.state_dict()
     second = next(stream)
     stream.load_state_dict(cursor)
